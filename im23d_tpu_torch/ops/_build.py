@@ -1,0 +1,103 @@
+"""Build the CUDA kernels under ``csrc/`` with nvcc and load them via ctypes.
+
+All ``csrc/*.cu`` files compile into one shared library with a plain C
+interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``), at
+first use, into ``build/im23d_kernels/`` at the repository root.  The file
+name carries a hash of the sources and flags, so an edited kernel is rebuilt
+and a current one is loaded as it is.  A failed build raises.
+
+Every C entry point takes device pointers and the CUDA stream as ``void*``
+and returns the ``cudaError_t`` of its launches; ``check`` raises on a
+non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "im23d_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # gz, gy, gx, c, taps, K, scale, grid, out, B, N, S, eps, stream
+    "im23d_projection_fwd": [_P, _P, _P, _P, _P, _I, _P, _P, _P,
+                             _I, _I, _I, _F, _P],
+    # x, y, out, B, N, M, stream
+    "im23d_nn_dist2": [_P, _P, _P, _I, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# what the last build in this process did: seconds, library path, ptxas log
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (nvcc); set CUDA_HOME")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _library_path(sources: list[Path]) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libim23d_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _build() -> ctypes.CDLL:
+    sources = sorted(CSRC.glob("*.cu"))
+    lib_path = _library_path(sources)
+    t0 = time.perf_counter()
+    log = ""
+    if not lib_path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, lib_path)
+        lib_path.with_suffix(".log").write_text(log)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.im23d_error_string.argtypes = [ctypes.c_int]
+    lib.im23d_error_string.restype = ctypes.c_char_p
+    build_info.update(seconds=time.perf_counter() - t0, path=str(lib_path),
+                      ptxas=log)
+    return lib
+
+
+def load_kernels() -> ctypes.CDLL:
+    """The kernel library, built on first call in this process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _build()
+        return _lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = lib.im23d_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
