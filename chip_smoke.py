@@ -6,14 +6,22 @@ Phases:
   2. K1 (projection forward) against its plain PyTorch chain at the chairs
      candidate-sweep shape: 480 clouds x 8000 points, 64^3 grid, at the
      schedule's sigma/keep-prob ends and midpoint;
-  3. K3 (Chamfer nearest neighbour) against the plain ``nn_dist2_torch`` at
+  3. K2 (projection backward) against its plain version
+     (``projection_backward_torch``) at the winner shape: 120 clouds x 8000
+     points, 64^3 grid, at the same three (sigma, p);
+  4. K3 (Chamfer nearest neighbour) against the plain ``nn_dist2_torch`` at
      (24, 8000) <-> (24, 2048) and (24, 8000) <-> (24, 512), both
      directions;
-  4. the chairs eval slice through the port's CLI
-     (``cli/evaluation_test_shape_net.main``, 3 synthetic batches) from a
-     seeded, saved learner; launch counts of both kernels in that run; the
+  5. the chairs training slice through the port's training CLI
+     (``cli/training_test_shape_net.main --synthetic --steps 20``) from a
+     fresh workdir; launch counts of the kernels in that run; finite losses;
+     a checkpoint with the optimizer state;
+  6. the chairs eval slice through the port's eval CLI (3 synthetic
+     batches), restoring that checkpoint; launch counts in that run; the
      slice's projections held against the plain chain on the same outputs;
-     eval batches/s.
+     eval batches/s;
+  7. a learning check: 40 train steps on one fixed chairs batch, the
+     projection loss must fall; train steps/s.
 
 Prints timings beside the GPU's name and power limit, then one JSON line
 with the per-kernel results, the nvidia-smi line, and as the last line
@@ -25,6 +33,9 @@ Usage (from the repository root): python3 chip_smoke.py
 
 from __future__ import annotations
 
+import ast
+import contextlib
+import io
 import json
 import math
 import os
@@ -38,6 +49,7 @@ import torch
 
 # outside a checkout these imports fail before anything is printed
 from im23d_tpu_torch.cli import evaluation_test_shape_net as cli
+from im23d_tpu_torch.cli import training_test_shape_net as train_cli
 from im23d_tpu_torch.data.synthetic import SyntheticSilhouettes, _random_shapes
 from im23d_tpu_torch.losses.effective import (
     _candidate_cam,
@@ -53,6 +65,10 @@ from im23d_tpu_torch.ops import _build
 from im23d_tpu_torch.ops.camera import world_to_camera_zyx
 from im23d_tpu_torch.ops.pointcloud import keep_mask
 from im23d_tpu_torch.ops.projection import (
+    _prep_projection,
+    _taps_and_scale,
+    projection_backward_kernel,
+    projection_backward_torch,
     projection_kernel,
     projection_silhouette,
     projection_silhouette_torch,
@@ -76,11 +92,19 @@ K1_CASES = ((3.0, 0.07), (1.6, 0.535), (0.2, 1.0))  # (sigma, keep prob p)
 # the slice; the card's pytest holds K1 at 1e-5 too.  A wrong leading
 # termination plane (o0 for exp(eps + log o0)) shifts a pixel by ~1e-5 o0.
 K1_ATOL = 1e-5
+# K2 vs plain, relative L2 error per output (||kernel - plain|| / ||plain||):
+# the recompute sums the splat by atomicAdd in another order than the plain
+# chain, so a voxel within rounding of a clamp bound (raw <= 1, u <= 1,
+# eps <= o <= 1 - eps) can flip its mask and move nearby gradients by O(1) of
+# their value; a max-abs bound would read those flips, not the kernel.
+K2_REL_L2 = 1e-4
 # K3 vs plain: same formula; nvcc may contract dz*dz + dy*dy into an FMA,
 # a last-ulp difference on values of order 1.
 K3_RTOL, K3_ATOL = 1e-5, 1e-6
 # slice vs plain chain: losses are sums of 120 x 64 x 64 squared errors
 SLICE_RTOL = 1e-4
+TRAIN_STEPS = 20          # the training CLI's run
+LEARN_STEPS, WARM = 40, 10  # the learning check; steps before the timing
 
 
 def _gpu_line() -> str:
@@ -155,6 +179,49 @@ def phase_k1(gpu: str) -> dict:
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+def _rel_l2(got, ref) -> float:
+    return float((got - ref).norm() / ref.norm())
+
+
+def phase_k2(gpu: str) -> dict:
+    dev = torch.device(DEVICE)
+    C = B * V  # the 120 argmin winners of a training step
+    rng = np.random.RandomState(3)
+    cloud = _clouds(rng, C, N, dev)
+    quats = qnormalize(torch.as_tensor(rng.randn(C, 4).astype(np.float32),
+                                       device=dev))
+    planes = world_to_camera_zyx(cloud, quats)
+    scale = torch.as_tensor(rng.uniform(0.2, 1.5, C).astype(np.float32),
+                            device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    err, rel, timed = 0.0, 0.0, []
+    for sigma, p in K1_CASES:
+        w = keep_mask(gen, C, N, p)
+        gz, gy, gx, c = _prep_projection(planes, S, w, 1e-6)
+        taps, sc = _taps_and_scale(torch.tensor(sigma, device=dev), scale,
+                                   21, C, dev)
+        gsil = torch.randn((C, S, S), device=dev, generator=gen)
+        ops = [t.contiguous() for t in (gz, gy, gx, c, taps, sc, gsil)]
+        got = projection_backward_kernel(*ops)
+        ref = projection_backward_torch(*ops)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dgz", "dgy", "dgx", "dscale"), got, ref):
+            e, rl = float((g - r).abs().max()), _rel_l2(g, r)
+            print(f"[K2] sigma {sigma} p {p} {name}: rel L2 {rl:.3e} "
+                  f"(limit {K2_REL_L2}), max |kernel - plain| {e:.3e}, "
+                  f"max |plain| {float(r.abs().max()):.3e}")
+            if not (torch.isfinite(g).all() and rl <= K2_REL_L2):
+                raise AssertionError(f"K2 disagrees with plain ({name}): {rl}")
+            err, rel = max(err, e), max(rel, rl)
+        ms = _time_ms(lambda: projection_backward_kernel(*ops), 20)
+        plain_ms = _time_ms(lambda: projection_backward_torch(*ops), 3)
+        print(f"[K2] {C} clouds x {N} points, S={S}, p {p}: kernel "
+              f"{ms:.3f} ms, plain {plain_ms:.3f} ms per call [{gpu}]")
+        timed.append(dict(ms=ms, plain_ms=plain_ms))
+    # the JSON line times the first case, as for K1
+    return dict(max_abs_err=err, max_rel_l2=rel, **timed[0])
+
+
 def phase_k3(gpu: str) -> dict:
     """K3 vs plain at the eval CLI's shape (GT_POINTS_CLI ground-truth
     points, the one the JSON line times) and at GT_POINTS."""
@@ -182,28 +249,75 @@ def phase_k3(gpu: str) -> dict:
     return dict(max_abs_err=err, **timed)
 
 
-def phase_slice(gpu: str) -> dict:
+def _zero_counts() -> None:
+    projection_kernel.launches = 0
+    projection_backward_kernel.launches = 0
+    nn_dist2_kernel.launches = 0
+
+
+def _counts() -> dict:
+    return dict(k1=projection_kernel.launches,
+                k2=projection_backward_kernel.launches,
+                k3=nn_dist2_kernel.launches)
+
+
+def phase_train(gpu: str, workdir: str) -> dict:
+    """The training CLI from a fresh workdir; its stdout ends with the final
+    losses as a dict."""
+    buf = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(["--synthetic", "--steps", str(TRAIN_STEPS),
+                             "--workdir", workdir, "--device", DEVICE])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    out = buf.getvalue().strip()
+    for line in out.splitlines():
+        print(f"[train] cli: {line}")
+    print(f"[train] CLI main rc {rc} in {secs:.2f} s ({TRAIN_STEPS} steps "
+          f"incl. host-side synthetic batches); launches {launches}")
+    if rc != 0:
+        raise AssertionError(f"training CLI returned {rc}")
+    losses = ast.literal_eval(out.splitlines()[-1])
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"non-finite training losses: {losses}")
+    if launches["k1"] < 1 or launches["k2"] < 1:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    tree = torch.load(os.path.join(workdir, f"checkpoint_{TRAIN_STEPS}.pt"),
+                      map_location="cpu", weights_only=True)
+    n_state = len(tree["opt_state"]["state"])
+    print(f"[train] checkpoint step {tree['step']}, optimizer state for "
+          f"{n_state} parameters")
+    if tree["step"] != TRAIN_STEPS or n_state == 0:
+        raise AssertionError("checkpoint lacks its step or optimizer state")
+    if not all(torch.isfinite(v).all() for v in tree["params"].values()):
+        raise AssertionError("non-finite parameters after training")
+    return launches
+
+
+def phase_slice(gpu: str, workdir: str) -> dict:
+    """The eval CLI, restoring the training phase's checkpoint."""
     cfg = ShapeNetConfig.chairs()
     with tempfile.TemporaryDirectory() as tmp:
-        workdir, out_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "eval")
-        learner = ShapeNetLearner(cfg, device=DEVICE)
-        learner.save(workdir)
-
-        projection_kernel.launches = 0
-        nn_dist2_kernel.launches = 0
+        out_dir = os.path.join(tmp, "eval")
+        _zero_counts()
         t0 = time.perf_counter()
         rc = cli.main(["--workdir", workdir, "--synthetic", "--num_batches",
                        "3", "--out_dir", out_dir, "--device", DEVICE])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
-        launches = dict(k1=projection_kernel.launches,
-                        k3=nn_dist2_kernel.launches)
+        launches = _counts()
         with open(os.path.join(out_dir, "eval_metrics.json")) as fh:
             metrics = json.load(fh)
+        curves = sorted(f for f in os.listdir(out_dir) if "loss_curves" in f)
     print(f"[slice] CLI main rc {rc} in {cli_s:.2f} s; launches {launches}; "
-          f"{metrics}")
+          f"loss curves {curves}; {metrics}")
     if rc != 0:
         raise AssertionError(f"CLI returned {rc}")
+    if metrics["step"] != TRAIN_STEPS:
+        raise AssertionError(f"eval restored step {metrics['step']}")
     for key in ("projection_loss", "total_loss", "chamfer_l2", "iou_3d"):
         if not math.isfinite(metrics[key]):
             raise AssertionError(f"{key} is not finite: {metrics[key]}")
@@ -214,6 +328,8 @@ def phase_slice(gpu: str) -> dict:
             f"candidate grid {metrics['candidate_projection_shape']}")
     if launches["k1"] < 1 or launches["k3"] < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    learner = ShapeNetLearner(cfg, device=DEVICE)
+    learner.restore(workdir)
 
     # the slice's values against the plain chain on the same model outputs
     batch = SyntheticSilhouettes(B, cfg.image_size, V, n_points=512,
@@ -258,6 +374,34 @@ def phase_slice(gpu: str) -> dict:
     return launches
 
 
+def phase_learn(gpu: str) -> float:
+    """LEARN_STEPS train steps on one fixed chairs batch (resident on the
+    card): the projection loss must fall.  Returns train steps/s over the
+    steps after WARM, host clock."""
+    cfg = ShapeNetConfig.chairs()
+    learner = ShapeNetLearner(cfg, device=DEVICE)
+    batch = learner.put_batch(SyntheticSilhouettes(
+        B, cfg.image_size, V, n_points=512, seed=5).next_batch())
+    losses = []
+    for i in range(LEARN_STEPS):
+        if i == WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(learner.train_step(batch)
+                      ["projection_loss"])
+    torch.cuda.synchronize()
+    rate = (LEARN_STEPS - WARM) / (time.perf_counter() - t0)
+    vals = [float(v) for v in losses]
+    ratio = vals[-1] / vals[0]
+    print(f"[learn] projection loss {vals[0]:.4f} -> {vals[-1]:.4f} over "
+          f"{LEARN_STEPS} steps on one batch, ratio {ratio:.4f}")
+    print(f"[learn] train {rate:.2f} steps/s ({rate * B:.1f} images/s, bs {B}, "
+          f"host clock, batch on the card) [{gpu}]")
+    if not (all(math.isfinite(v) for v in vals) and vals[-1] < vals[0]):
+        raise AssertionError(f"the loss did not fall: {vals}")
+    return rate
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -270,18 +414,27 @@ def main() -> int:
 
     phase_build()
     k1 = phase_k1(gpu)
+    k2 = phase_k2(gpu)
     k3 = phase_k3(gpu)
-    launches = phase_slice(gpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = os.path.join(tmp, "train")
+        train = phase_train(gpu, workdir)
+        evals = phase_slice(gpu, workdir)
+    phase_learn(gpu)
 
     kernels = [
         dict(name="K1 projection forward", route="cuda",
              source="im23d_tpu_torch/csrc/projection.cu",
              replaces="im23d_tpu/ops/splat_pallas.py:1080",
-             launches=launches["k1"], **k1),
+             launches=train["k1"], **k1),
+        dict(name="K2 projection backward", route="cuda",
+             source="im23d_tpu_torch/csrc/projection.cu",
+             replaces="im23d_tpu/ops/splat_pallas.py:1124",
+             launches=train["k2"], **k2),
         dict(name="K3 nearest-neighbour dist2", route="cuda",
              source="im23d_tpu_torch/csrc/nn_dist2.cu",
              replaces="im23d_tpu/metrics/chamfer.py:56",
-             launches=launches["k3"], **k3),
+             launches=evals["k3"], **k3),
     ]
     print(json.dumps(dict(kernels=kernels)))
     print(_gpu_line())

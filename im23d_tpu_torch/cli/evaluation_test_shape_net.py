@@ -4,8 +4,10 @@ Counterpart of the ``--synthetic`` path of
 ``im23d_tpu/cli/evaluation_test_shape_net.py``: restore a learner
 checkpoint, report the eval projection losses, Chamfer-L2 and 3D IoU of the
 predicted clouds against random synthetic clouds, and with ``--out_dir``
-save the student and per-candidate projection grids plus the numbers as
-``eval_metrics.json``.
+save the student and per-candidate projection grids, the numbers as
+``eval_metrics.json`` and the training loss curves of the workdir's
+``metrics_shapenet.jsonl`` (``loss_curves.png`` where matplotlib imports,
+``loss_curves.csv`` where it does not).
 
 Example:
     python -m im23d_tpu_torch.cli.evaluation_test_shape_net \
@@ -17,16 +19,16 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import struct
-import zlib
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from im23d_tpu_torch.cli.flags import (
     add_shapenet_overrides,
     apply_shapenet_overrides,
 )
+from im23d_tpu_torch.core.metrics_logger import tile_grid, write_png
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,32 +50,60 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _write_png(path: str, img: np.ndarray) -> None:
-    """Write an (H, W) uint8 array as an 8-bit grayscale PNG."""
-    h, w = img.shape
-    raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    with open(path, "wb") as fh:
-        fh.write(b"\x89PNG\r\n\x1a\n"
-                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
-                 + chunk(b"IDAT", zlib.compress(raw))
-                 + chunk(b"IEND", b""))
-
-
 def _save_grid(path: str, tiles: np.ndarray, ncol: int) -> None:
     """Tile (N, H, W) floats in [0, 1] into one grayscale PNG."""
-    arr = np.clip(np.asarray(tiles, np.float32), 0.0, 1.0)
-    n, h, w = arr.shape
-    nrows = -(-n // ncol)
-    grid = np.zeros((nrows * h, ncol * w), np.float32)
-    for i in range(n):
-        r, c = divmod(i, ncol)
-        grid[r * h:(r + 1) * h, c * w:(c + 1) * w] = arr[i]
-    _write_png(path, (grid * 255).astype(np.uint8))
+    grid = tile_grid(tiles, ncol)[..., 0]
+    write_png(path, (grid * 255).astype(np.uint8))
+
+
+def resize_masks(masks: torch.Tensor, size: int) -> torch.Tensor:
+    """(N, H, W) -> (N, size, size) by antialiased bilinear resampling with
+    half-pixel centres: the semantics of ``jax.image.resize(..., "linear")``."""
+    return F.interpolate(masks[:, None], size=(size, size), mode="bilinear",
+                         align_corners=False, antialias=True)[:, 0]
+
+
+_CURVES = ("total_loss", "projection_loss", "student_loss")
+
+
+def export_loss_curves(workdir: str, out_dir: str) -> str | None:
+    """Plot the losses of ``<workdir>/metrics_shapenet.jsonl`` into
+    ``loss_curves.png``, or write them to ``loss_curves.csv`` where
+    matplotlib does not import.  Returns the path written, or None when the
+    workdir has no metrics file."""
+    src = os.path.join(os.path.abspath(workdir), "metrics_shapenet.jsonl")
+    if not os.path.exists(src):
+        return None
+    with open(src) as fh:
+        recs = [json.loads(line) for line in fh if line.strip()]
+    keys = [k for base in _CURVES for k in (base, f"valid/{base}")
+            if any(k in r for r in recs)]
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        path = os.path.join(out_dir, "loss_curves.csv")
+        with open(path, "w") as fh:
+            fh.write("step," + ",".join(keys) + "\n")
+            for r in recs:
+                if any(k in r for k in keys):
+                    fh.write(f"{r['step']},"
+                             + ",".join(str(r.get(k, "")) for k in keys)
+                             + "\n")
+        return path
+    fig, ax = plt.subplots(figsize=(8, 5))
+    for k in keys:
+        ax.plot(*zip(*[(r["step"], r[k]) for r in recs if k in r]), label=k)
+    ax.set_xlabel("step")
+    ax.set_yscale("log")
+    if keys:
+        ax.legend()
+    path = os.path.join(out_dir, "loss_curves.png")
+    fig.savefig(path, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+    return path
 
 
 def main(argv=None) -> int:
@@ -89,7 +119,6 @@ def main(argv=None) -> int:
     from im23d_tpu_torch.losses.effective import unsupervised_loss
     from im23d_tpu_torch.metrics.chamfer import chamfer_distance
     from im23d_tpu_torch.metrics.iou import iou_3d
-    from im23d_tpu_torch.ops.sampling import resize_bilinear
     from im23d_tpu_torch.train.shapenet_learner import (
         ShapeNetConfig,
         ShapeNetLearner,
@@ -140,8 +169,7 @@ def main(argv=None) -> int:
                 model_out, nb["masks"], sigma, None, cfg.num_views,
                 voxel_size=cfg.voxel_size, training=True,
             )
-            masks_s = resize_bilinear(nb["masks"][:8], cfg.voxel_size,
-                                      cfg.voxel_size)
+            masks_s = resize_masks(nb["masks"][:8], cfg.voxel_size)
         proj = aux["projection"].cpu().numpy()
         cand = aux_k["projection"].cpu().numpy()  # (B*V, K, S, S)
         _save_grid(os.path.join(args.out_dir, "student_projections.png"),
@@ -155,6 +183,9 @@ def main(argv=None) -> int:
                            iou_3d=iou,
                            student_projection_shape=list(proj.shape),
                            candidate_projection_shape=list(cand.shape)), fh)
+        curves = export_loss_curves(args.workdir, args.out_dir)
+        if curves:
+            print(f"loss curves: {curves}")
         print(f"saved projection grids to {args.out_dir}")
     return 0
 

@@ -1,4 +1,5 @@
-"""JAX ``UnsupervisedPart`` params -> the port's ``state_dict``.
+"""JAX ``UnsupervisedPart`` / ``SupervisedPart`` params -> the port's
+``state_dict``.
 
 Input is the flax param tree as nested dicts of numpy arrays (what
 ``jax.tree.map(np.asarray, params)`` gives), with or without the top-level
@@ -34,18 +35,22 @@ def _put(sd: dict, name: str, layer: dict) -> None:
     )
 
 
-def unsupervised_part_state_dict(params: dict, num_candidates: int,
-                                 num_convs: int = 9) -> dict:
-    """Map flax ``UnsupervisedPart`` params to ``UnsupervisedPart.state_dict``
-    keys of ``im23d_tpu_torch.models.pointcloud_nets``."""
-    p = params.get("params", params)
-    sd: dict[str, torch.Tensor] = {}
+def _encoder_decoder(sd: dict, p: dict, num_convs: int) -> None:
     for i in range(num_convs):
         _put(sd, f"encoder.conv.{i}", _layer(p, f"encoder/Conv_{i}"))
     for j in range(2):
         _put(sd, f"encoder.dense.{j}", _layer(p, f"encoder/Dense_{j}"))
     _put(sd, "decoder.points", _layer(p, "decoder/Dense_0"))
     _put(sd, "decoder.scale", _layer(p, "decoder/Dense_1"))
+
+
+def unsupervised_part_state_dict(params: dict, num_candidates: int,
+                                 num_convs: int = 9) -> dict:
+    """Map flax ``UnsupervisedPart`` params to ``UnsupervisedPart.state_dict``
+    keys of ``im23d_tpu_torch.models.pointcloud_nets``."""
+    p = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {}
+    _encoder_decoder(sd, p, num_convs)
     pd = "pose_decoder"
     _put(sd, f"{pd}.student_trunk", _layer(p, f"{pd}/student_trunk"))
     _put(sd, f"{pd}.ensemble_trunk", _layer(p, f"{pd}/ensemble_trunk"))
@@ -55,4 +60,12 @@ def unsupervised_part_state_dict(params: dict, num_candidates: int,
         for k in range(num_candidates):
             _put(sd, f"{pd}.heads.{k}.dense.{j}",
                  _layer(p, f"{pd}/head_{k}/Dense_{j}"))
+    return sd
+
+
+def supervised_part_state_dict(params: dict, num_convs: int = 9) -> dict:
+    """Map flax ``SupervisedPart`` params to ``SupervisedPart.state_dict``
+    keys."""
+    sd: dict[str, torch.Tensor] = {}
+    _encoder_decoder(sd, params.get("params", params), num_convs)
     return sd

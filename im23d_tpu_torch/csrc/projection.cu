@@ -1,6 +1,7 @@
-// K1: rendering-free projection forward for Hopper (sm_90a).
+// K1 and K2: rendering-free projection forward and backward for Hopper
+// (sm_90a).  K2 is described where its kernels begin, below.
 //
-// Replaces the Pallas TPU kernel im23d_tpu/ops/splat_pallas.py
+// K1 replaces the Pallas TPU kernel im23d_tpu/ops/splat_pallas.py
 // _proj_sorted_fwd_kernel (and its dense twin _proj_fwd_kernel).  Per cloud:
 //   splat (8 trilinear corners, weight c) -> clamp <= 1 -> Y, X, Z blur by
 //   the Gaussian taps (zero-padded 'same', no edge renormalisation)
@@ -74,38 +75,61 @@ __global__ void splat_kernel(const float* __restrict__ gz,
   }
 }
 
-// grid: blockIdx.x = z-plane, blockIdx.y = cloud.
-__global__ void blur_yx_kernel(float* __restrict__ grid,
+// Zero-padded 'same' correlation of one strided line with the taps at
+// position i: sum_t k[t] * line[i + t - half] (forward), or its transpose
+// sum_t k[t] * line[i - t + half].  The band of taps is not assumed
+// symmetric.
+template <bool kTranspose>
+__device__ __forceinline__ float correlate(const float* line, int stride,
+                                           int i, const float* k, int K,
+                                           int S) {
+  const int half = K / 2;
+  float acc = 0.f;
+  if (!kTranspose) {
+    const int t0 = max(0, half - i), t1 = min(K, S + half - i);
+    for (int t = t0; t < t1; ++t) acc += k[t] * line[(i + t - half) * stride];
+  } else {
+    const int t0 = max(0, i + half - S + 1), t1 = min(K, i + half + 1);
+    for (int t = t0; t < t1; ++t) acc += k[t] * line[(i - t + half) * stride];
+  }
+  return acc;
+}
+
+// grid: blockIdx.x = z-plane, blockIdx.y = cloud.  The block reads its whole
+// plane before it writes, so src may alias dst.
+//   forward:   dst = blur_x(blur_y(min(src, 1)))
+//   transpose: dst = blur_y^T(blur_x^T(src)) * (keep <= 1), keep = the raw
+//              splat (the min's gradient passes on ties, like torch.clamp)
+template <bool kTranspose>
+__global__ void blur_yx_kernel(const float* src, float* dst,
+                               const float* __restrict__ keep,
                                const float* __restrict__ taps, int K, int S) {
   __shared__ float plane[kMaxS * kMaxS];
   __shared__ float tmp[kMaxS * kMaxS];
   __shared__ float k[kMaxTaps];
   const int SS = S * S;
-  float* p = grid + (static_cast<size_t>(blockIdx.y) * S + blockIdx.x) * SS;
+  const size_t off = (static_cast<size_t>(blockIdx.y) * S + blockIdx.x) * SS;
   for (int t = threadIdx.x; t < K; t += blockDim.x) k[t] = taps[t];
   for (int i = threadIdx.x; i < SS; i += blockDim.x)
-    plane[i] = fminf(p[i], 1.f);  // splat sums are >= 0: only the top binds
+    // splat sums are >= 0: only the top of the clamp binds
+    plane[i] = kTranspose ? src[off + i] : fminf(src[off + i], 1.f);
   __syncthreads();
-  const int half = K / 2;
   for (int i = threadIdx.x; i < SS; i += blockDim.x) {
     const int y = i / S, x = i - y * S;
-    const int t0 = max(0, half - y), t1 = min(K, S + half - y);
-    float acc = 0.f;
-    for (int t = t0; t < t1; ++t) acc += k[t] * plane[(y + t - half) * S + x];
-    tmp[i] = acc;
+    tmp[i] = correlate<kTranspose>(plane + x, S, y, k, K, S);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < SS; i += blockDim.x) {
     const int y = i / S, x = i - y * S;
-    const int t0 = max(0, half - x), t1 = min(K, S + half - x);
-    float acc = 0.f;
-    for (int t = t0; t < t1; ++t) acc += k[t] * tmp[y * S + x + t - half];
-    p[i] = acc;
+    const float v = correlate<kTranspose>(tmp + y * S, 1, x, k, K, S);
+    dst[off + i] = kTranspose ? (keep[off + i] <= 1.f ? v : 0.f) : v;
   }
 }
 
 // block (S, R): threadIdx.x = x, threadIdx.y picks one of R rows;
-// blockIdx.x = row group, blockIdx.y = cloud.
+// blockIdx.x = row group, blockIdx.y = cloud.  Each thread stages its own
+// ray's z-column in shared memory (neighbouring threads, neighbouring x:
+// coalesced loads) and reads only that column.
 __global__ void zblur_term_kernel(const float* __restrict__ grid,
                                   const float* __restrict__ taps, int K,
                                   const float* __restrict__ scale,
@@ -124,18 +148,179 @@ __global__ void zblur_term_kernel(const float* __restrict__ grid,
   __syncthreads();
   if (y >= S) return;
   const float sc = scale[b];
-  const int half = K / 2;
   float sil = 0.f, cum = 0.f;
   for (int z = 0; z < S; ++z) {
-    const int t0 = max(0, half - z), t1 = min(K, S + half - z);
-    float acc = 0.f;
-    for (int t = t0; t < t1; ++t) acc += k[t] * c[(z + t - half) * S + x];
+    const float acc = correlate<false>(c + x, S, z, k, K, S);
     const float o = fminf(fmaxf(fminf(acc * sc, 1.f), eps), 1.f - eps);
     // leading plane: exp(eps + log o0), not o0 (reference termination_probs)
     sil += expf((z == 0 ? eps : cum) + logf(o));
     cum += log1pf(-o);
   }
   out[(static_cast<size_t>(b) * S + (S - 1 - y)) * S + x] = sil;
+}
+
+// ---- K2: the projection backward ------------------------------------------
+//
+// Replaces the Pallas TPU kernel im23d_tpu/ops/splat_pallas.py
+// _proj_sorted_bwd_kernel (and its dense twin _proj_bwd_kernel).  Given the
+// silhouette cotangent gsil it recomputes the forward and returns d(gz, gy,
+// gx) and dscale; the splat weights c are constants (no dc).  Same bounds as
+// K1 (two 1 MiB grids per cloud in device memory, bandwidth bound), and the
+// same design, five launches:
+//   (a) splat_kernel into the zeroed raw grid, kept for the clamp mask;
+//       blur_yx_kernel<false> raw -> work;
+//   (b) term_bwd_kernel: per ray, the Z blur zb (unscaled), the termination
+//       probabilities front to back, their VJP back to front into du,
+//       dscale += sum du * zb, then work <- scale * zblur^T(du);
+//   (c) blur_yx_kernel<true> work -> work, times (raw <= 1);
+//   (d) splat_bwd_kernel: splat transpose as a gather, one thread per point
+//       reading its 8 corners; no atomics.
+// The only atomics are the splat's and one per block for dscale, so the
+// gradients agree with the plain chain to float rounding, except where a
+// clamp mask (raw <= 1, u <= 1, eps <= o <= 1 - eps) sits within rounding
+// of its bound and flips.
+
+// block (S, R) as zblur_term_kernel.  In: work = Y/X-blurred occupancies.
+// Out: work = scale * zblur^T(du), with du the cotangent of u = scale *
+// zblur(work) before its clamps; dscale[b] += sum of du * zblur(work).
+__global__ void term_bwd_kernel(float* __restrict__ work,
+                                const float* __restrict__ taps, int K,
+                                const float* __restrict__ scale,
+                                const float* __restrict__ gsil,
+                                float* __restrict__ dscale, int S, float eps) {
+  extern __shared__ float col[];  // [R][Z][X]
+  __shared__ float k[kMaxTaps];
+  __shared__ float partial[kRayThreads];
+  const int x = threadIdx.x;
+  const int y = blockIdx.x * blockDim.y + threadIdx.y;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  for (int t = tid; t < K; t += nthreads) k[t] = taps[t];
+  float* c = col + static_cast<size_t>(threadIdx.y) * S * S;
+  float* g = work + static_cast<size_t>(b) * S * S * S;
+  const bool live = y < S;
+  if (live)
+    for (int z = 0; z < S; ++z) c[z * S + x] = g[(z * S + y) * S + x];
+  __syncthreads();
+  float ds = 0.f;
+  if (live) {
+    const float sc = scale[b];
+    // the silhouette is written flipped along Y
+    const float gs = gsil[(static_cast<size_t>(b) * S + (S - 1 - y)) * S + x];
+    // pass 1, front to back: the termination probabilities p_z, kept in
+    // this ray's own column of work
+    float cum = 0.f;
+    for (int z = 0; z < S; ++z) {
+      const float zb = correlate<false>(c + x, S, z, k, K, S);
+      const float o = fminf(fmaxf(fminf(zb * sc, 1.f), eps), 1.f - eps);
+      g[(z * S + y) * S + x] = expf((z == 0 ? eps : cum) + logf(o));
+      cum += log1pf(-o);
+    }
+    // pass 2, back to front: dsil/dlog o_z = p_z and dsil/dlog(1 - o_z) =
+    // sum_{j > z} p_j, through the clips and the top clamp of u into du_z.
+    // The tail sum runs from the back, as the plain chain's cumsum backward
+    // does: a total minus a prefix (the TPU kernel's form) cancels where the
+    // tail is small, and 1 / (1 - o) magnifies that by up to 1 / eps.
+    float tail = 0.f;
+    for (int z = S - 1; z >= 0; --z) {
+      const float zb = correlate<false>(c + x, S, z, k, K, S);
+      const float u = zb * sc;
+      const float sv = fminf(u, 1.f);
+      const float o = fminf(fmaxf(sv, eps), 1.f - eps);
+      const float p = g[(z * S + y) * S + x];
+      const bool pass = u <= 1.f && sv >= eps && sv <= 1.f - eps;
+      const float du = pass ? gs * p / o - gs * tail / (1.f - o) : 0.f;
+      tail += p;
+      ds += du * zb;
+      g[(z * S + y) * S + x] = du;  // this thread's own column
+    }
+    // dzb = scale * du, then the Z blur's transpose
+    for (int z = 0; z < S; ++z) c[z * S + x] = g[(z * S + y) * S + x];
+    for (int z = 0; z < S; ++z)
+      g[(z * S + y) * S + x] = sc * correlate<true>(c + x, S, z, k, K, S);
+  }
+  partial[tid] = ds;
+  __syncthreads();
+  if (tid == 0) {
+    float sum = 0.f;
+    for (int t = 0; t < nthreads; ++t) sum += partial[t];
+    atomicAdd(&dscale[b], sum);
+  }
+}
+
+// One thread per point: d(gz, gy, gx) = c * sum over the 8 corners of
+// dvox * the derivative of the trilinear weight (d tz / d gz = 1; the floor
+// has no gradient, as in the plain chain).
+__global__ void splat_bwd_kernel(const float* __restrict__ gz,
+                                 const float* __restrict__ gy,
+                                 const float* __restrict__ gx,
+                                 const float* __restrict__ c,
+                                 const float* __restrict__ dvox,
+                                 float* __restrict__ dgz,
+                                 float* __restrict__ dgy,
+                                 float* __restrict__ dgx, int B, int N,
+                                 int S) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (i >= static_cast<long long>(B) * N) return;
+  const float w = c[i];
+  float sz = 0.f, sy = 0.f, sx = 0.f;
+  if (w != 0.f) {
+    const int b = static_cast<int>(i / N);
+    const float pz = gz[i], py = gy[i], px = gx[i];
+    const float fz = floorf(pz), fy = floorf(py), fx = floorf(px);
+    const int iz = static_cast<int>(fz), iy = static_cast<int>(fy),
+              ix = static_cast<int>(fx);
+    const float tz = pz - fz, ty = py - fy, tx = px - fx;
+    const float wz[2] = {1.f - tz, tz};
+    const float wy[2] = {1.f - ty, ty};
+    const float wx[2] = {1.f - tx, tx};
+    const float dw[2] = {-1.f, 1.f};
+    const float* d = dvox + static_cast<size_t>(b) * S * S * S;
+#pragma unroll
+    for (int dz = 0; dz < 2; ++dz) {
+      const int z = iz + dz;
+      if (z < 0 || z >= S) continue;
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy) {
+        const int y = iy + dy;
+        if (y < 0 || y >= S) continue;
+#pragma unroll
+        for (int dx = 0; dx < 2; ++dx) {
+          const int x = ix + dx;
+          if (x < 0 || x >= S) continue;
+          const float v = d[(z * S + y) * S + x];
+          sz += v * dw[dz] * wy[dy] * wx[dx];
+          sy += v * wz[dz] * dw[dy] * wx[dx];
+          sx += v * wz[dz] * wy[dy] * dw[dx];
+        }
+      }
+    }
+  }
+  dgz[i] = w * sz;
+  dgy[i] = w * sy;
+  dgx[i] = w * sx;
+}
+
+int splat_launch(const float* gz, const float* gy, const float* gx,
+                 const float* c, float* grid, int B, int N, int S,
+                 cudaStream_t st) {
+  const long long n_pts = static_cast<long long>(B) * N;
+  const int blocks = static_cast<int>((n_pts + 255) / 256);
+  if (blocks == 0) return cudaSuccess;
+  splat_kernel<<<blocks, 256, 0, st>>>(gz, gy, gx, c, grid, B, N, S);
+  return cudaGetLastError();
+}
+
+// ray kernels: R rows of S threads per block, R = max(1, kRayThreads / S)
+dim3 ray_blocks(int S) {
+  const int rows = std::max(1, kRayThreads / S);
+  return dim3(S, rows);
+}
+
+size_t ray_smem(int S) {
+  return static_cast<size_t>(ray_blocks(S).y) * S * S * sizeof(float);
 }
 
 }  // namespace
@@ -147,26 +332,70 @@ extern "C" int im23d_projection_fwd(const void* gz, const void* gy,
                                     int B, int N, int S, float eps,
                                     void* stream) {
   if (S < 1 || S > kMaxS || K < 1 || K > kMaxTaps) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n_pts = static_cast<long long>(B) * N;
-  const int splat_blocks = static_cast<int>((n_pts + 255) / 256);
-  if (splat_blocks > 0) {
-    splat_kernel<<<splat_blocks, 256, 0, st>>>(
-        static_cast<const float*>(gz), static_cast<const float*>(gy),
-        static_cast<const float*>(gx), static_cast<const float*>(c),
-        static_cast<float*>(grid), B, N, S);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  blur_yx_kernel<<<dim3(S, B), kBlurThreads, 0, st>>>(
-      static_cast<float*>(grid), static_cast<const float*>(taps), K, S);
-  cudaError_t err = cudaGetLastError();
+  const float* k = static_cast<const float*>(taps);
+  float* g = static_cast<float*>(grid);
+  int err = splat_launch(static_cast<const float*>(gz),
+                         static_cast<const float*>(gy),
+                         static_cast<const float*>(gx),
+                         static_cast<const float*>(c), g, B, N, S, st);
   if (err != cudaSuccess) return err;
-  const int rows = std::max(1, kRayThreads / S);
-  const size_t smem = static_cast<size_t>(rows) * S * S * sizeof(float);
-  zblur_term_kernel<<<dim3((S + rows - 1) / rows, B), dim3(S, rows), smem,
-                      st>>>(
-      static_cast<const float*>(grid), static_cast<const float*>(taps), K,
-      static_cast<const float*>(scale), static_cast<float*>(out), S, eps);
+  blur_yx_kernel<false><<<dim3(S, B), kBlurThreads, 0, st>>>(g, g, nullptr, k,
+                                                             K, S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 threads = ray_blocks(S);
+  zblur_term_kernel<<<dim3((S + threads.y - 1) / threads.y, B), threads,
+                      ray_smem(S), st>>>(
+      g, k, K, static_cast<const float*>(scale), static_cast<float*>(out), S,
+      eps);
+  return cudaGetLastError();
+}
+
+// raw must be zeroed; work needs no initial value; dscale must be zeroed.
+extern "C" int im23d_projection_bwd(const void* gz, const void* gy,
+                                    const void* gx, const void* c,
+                                    const void* taps, int K,
+                                    const void* scale, const void* gsil,
+                                    void* raw, void* work, void* dscale,
+                                    void* dgz, void* dgy, void* dgx, int B,
+                                    int N, int S, float eps, void* stream) {
+  if (S < 1 || S > kMaxS || K < 1 || K > kMaxTaps) return cudaErrorInvalidValue;
+  if (B == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* pz = static_cast<const float*>(gz);
+  const float* py = static_cast<const float*>(gy);
+  const float* px = static_cast<const float*>(gx);
+  const float* w = static_cast<const float*>(c);
+  const float* k = static_cast<const float*>(taps);
+  float* a = static_cast<float*>(raw);
+  float* v = static_cast<float*>(work);
+  // (a) recompute: raw splat, then its clamped Y/X blur
+  int err = splat_launch(pz, py, px, w, a, B, N, S, st);
+  if (err != cudaSuccess) return err;
+  blur_yx_kernel<false><<<dim3(S, B), kBlurThreads, 0, st>>>(a, v, nullptr, k,
+                                                             K, S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // (b) termination VJP and the Z blur's transpose, per ray
+  const dim3 threads = ray_blocks(S);
+  term_bwd_kernel<<<dim3((S + threads.y - 1) / threads.y, B), threads,
+                    ray_smem(S), st>>>(
+      v, k, K, static_cast<const float*>(scale),
+      static_cast<const float*>(gsil), static_cast<float*>(dscale), S, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // (c) the Y/X blur's transpose and the splat clamp's mask
+  blur_yx_kernel<true><<<dim3(S, B), kBlurThreads, 0, st>>>(v, v, a, k, K, S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // (d) the splat's transpose, gathered per point
+  const long long n_pts = static_cast<long long>(B) * N;
+  const int blocks = static_cast<int>((n_pts + 255) / 256);
+  if (blocks == 0) return cudaSuccess;
+  splat_bwd_kernel<<<blocks, 256, 0, st>>>(
+      pz, py, px, w, v, static_cast<float*>(dgz), static_cast<float*>(dgy),
+      static_cast<float*>(dgx), B, N, S);
   return cudaGetLastError();
 }

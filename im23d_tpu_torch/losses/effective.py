@@ -1,10 +1,14 @@
-"""The rendering-free "effective" projection loss, forward values.
+"""The rendering-free "effective" projection loss, values and gradients.
 
 Counterpart of ``im23d_tpu/losses/effective.py``: camera transform ->
-projection (kernel K1 on CUDA) -> ensemble min-loss over the K pose
-candidates + weighted student quaternion-angle loss.  Forward only: the
-projection refuses inputs that require grad, so callers run it under
-``torch.no_grad()``.
+projection (kernel K1 forward, K2 backward on CUDA) -> ensemble min-loss
+over the K pose candidates + weighted student quaternion-angle loss, and the
+supervised projection loss under ground-truth poses.
+
+The min over candidates only backpropagates through the argmin candidate,
+so the K-way sweep runs without gradient and only the B*V winners are
+differentiated, through the winner reuse ``projection_silhouette_reuse``:
+its value is the sweep's silhouette, its backward K2 on the winners alone.
 """
 
 from __future__ import annotations
@@ -12,7 +16,10 @@ from __future__ import annotations
 import torch
 
 from im23d_tpu_torch.ops.camera import world_to_camera_zyx
-from im23d_tpu_torch.ops.projection import projection_silhouette
+from im23d_tpu_torch.ops.projection import (
+    projection_silhouette,
+    projection_silhouette_reuse,
+)
 from im23d_tpu_torch.ops.quaternion import quaternion_angle_loss
 from im23d_tpu_torch.ops.sampling import resize_bilinear
 
@@ -109,19 +116,28 @@ def unsupervised_loss(
     student_q = outputs["student_q"]    # (B*V, 4)
     K = ensemble_q.shape[1]
 
-    # K-way sweep of every candidate, then the argmin.  The winner's
-    # silhouette is gathered from the sweep: it is the value the JAX winner
-    # reuse (projection_silhouette_reuse) returns, with no second projection.
-    sil = project_candidates(
-        cloud.detach(), ensemble_q.reshape(B, V * K, 4).detach(), sigma,
-        scale=scale.detach(), weights=keep_weights, voxel_size=S,
-    ).reshape(B * V, K, S, S)
-    per_candidate = torch.sum((sil - masks_s[:, None]) ** 2, dim=(2, 3))
-    min_idx = torch.argmin(per_candidate, dim=-1)  # (B*V,)
+    # K-way sweep of every candidate without gradient, then the argmin
+    with torch.no_grad():
+        sil = project_candidates(
+            cloud, ensemble_q.reshape(B, V * K, 4), sigma, scale=scale,
+            weights=keep_weights, voxel_size=S,
+        ).reshape(B * V, K, S, S)
+        per_candidate = torch.sum((sil - masks_s[:, None]) ** 2, dim=(2, 3))
+        min_idx = torch.argmin(per_candidate, dim=-1)  # (B*V,)
     rows = torch.arange(B * V, device=min_idx.device)
-    sil_sel = sil[rows, min_idx]                    # (B*V, S, S)
+    # gradients flow to the selected ensemble head
     best_q = ensemble_q[rows, min_idx]              # (B*V, 4)
 
+    # the winners, differentiated: value from the sweep, backward K2
+    cloud_v = cloud.repeat_interleave(V, dim=0)     # (B*V, N, 3)
+    scale_v = (torch.ones(B * V, dtype=cloud.dtype, device=cloud.device)
+               if scale is None else scale.reshape(B).repeat_interleave(V))
+    w_v = (None if keep_weights is None
+           else keep_weights.repeat_interleave(V, dim=0))
+    cam_sel, w_sel, sc_sel = _candidate_cam(cloud_v, best_q[:, None], scale_v,
+                                            w_v)
+    sil_sel = projection_silhouette_reuse(cam_sel, S, sigma, sc_sel,
+                                          sil[rows, min_idx], weights=w_sel)
     projection_loss = torch.sum((sil_sel - masks_s) ** 2) / (B * V)
     student_loss = torch.sum(
         quaternion_angle_loss(best_q.detach(), student_q)
@@ -130,3 +146,29 @@ def unsupervised_loss(
     losses = dict(projection_loss=projection_loss, student_loss=student_loss,
                   total_loss=total)
     return losses, dict(projection=sil, min_indexes=min_idx)
+
+
+def supervised_loss(
+    outputs: dict,
+    poses: torch.Tensor,
+    masks: torch.Tensor,
+    sigma,
+    keep_weights: torch.Tensor | None,
+    num_views: int,
+    voxel_size: int = 64,
+):
+    """Projection MSE under ground-truth poses (the ``SupervisedPart``
+    path): a fresh differentiable projection, K1 then K2 on CUDA.
+
+    ``poses``: (B*V, 4) ground-truth view quaternions.
+    """
+    cloud = outputs["point_cloud"]
+    B = cloud.shape[0]
+    S = voxel_size
+    masks_s = _downsample_masks(masks, S)
+    sil = project_candidates(
+        cloud, poses.reshape(B, num_views, 4), sigma, scale=outputs["scale"],
+        weights=keep_weights, voxel_size=S,
+    ).reshape(B * num_views, S, S)
+    loss = torch.sum((sil - masks_s) ** 2) / (B * num_views)
+    return dict(projection_loss=loss, total_loss=loss), dict(projection=sil)

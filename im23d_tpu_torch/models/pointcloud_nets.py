@@ -156,3 +156,24 @@ class UnsupervisedPart(nn.Module):
         ensemble_q, student_q = self.pose_decoder(self.encoder(pose_images))
         return dict(point_cloud=point_cloud, scale=scale,
                     ensemble_q=ensemble_q, student_q=student_q)
+
+
+class SupervisedPart(nn.Module):
+    """Point-cloud prediction for training under ground-truth camera poses
+    (no pose ensemble).
+
+    ``forward(images (B,H,W,3))`` -> dict with ``point_cloud`` (B, N, 3)
+    and ``scale`` (B, 1).
+    """
+
+    def __init__(self, image_size: int = 128, num_points: int = 8000,
+                 z_dim: int = 1024, compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.encoder = ConvEncoder(image_size, features=z_dim,
+                                   dtype=compute_dtype)
+        self.decoder = PointCloudDecoder(z_dim, num_points)
+
+    def forward(self, images: torch.Tensor):
+        point_cloud, scale = self.decoder(self.encoder(images))
+        return dict(point_cloud=point_cloud, scale=scale)
+

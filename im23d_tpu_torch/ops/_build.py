@@ -34,6 +34,10 @@ _SIGNATURES = {
     # gz, gy, gx, c, taps, K, scale, grid, out, B, N, S, eps, stream
     "im23d_projection_fwd": [_P, _P, _P, _P, _P, _I, _P, _P, _P,
                              _I, _I, _I, _F, _P],
+    # gz, gy, gx, c, taps, K, scale, gsil, raw, work, dscale, dgz, dgy, dgx,
+    # B, N, S, eps, stream
+    "im23d_projection_bwd": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _I, _I, _I, _F, _P],
     # x, y, out, B, N, M, stream
     "im23d_nn_dist2": [_P, _P, _P, _I, _I, _I, _P],
 }

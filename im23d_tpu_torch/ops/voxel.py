@@ -22,6 +22,32 @@ def _corner_offsets(device) -> torch.Tensor:
     )
 
 
+def splat_grid(coords: torch.Tensor, weights: torch.Tensor,
+               size: int) -> torch.Tensor:
+    """Scatter (B, N, 3) grid coordinates (z, y, x) in [0, S-1] into a
+    (B, S, S, S) grid by trilinear weights times ``weights`` (B, N), clamped
+    to [0, 1].  Corner indices are clamped to the grid: zero-weight points
+    may lie anywhere."""
+    B = coords.shape[0]
+    S = int(size)
+    base = torch.floor(coords)
+    frac = coords - base
+    base_i = base.to(torch.int64)
+
+    offs = _corner_offsets(coords.device)
+    offs_f = offs.to(coords.dtype)
+    f = frac[:, :, None, :]
+    cw = torch.prod(f * offs_f + (1.0 - f) * (1.0 - offs_f), dim=-1)
+    cw = cw * weights[:, :, None]  # (B, N, 8)
+
+    idx = (base_i[:, :, None, :] + offs).clamp(0, S - 1)
+    flat = (idx[..., 0] * S + idx[..., 1]) * S + idx[..., 2]
+    flat = flat + (torch.arange(B, device=coords.device) * S**3)[:, None, None]
+    vox = torch.zeros(B * S**3, dtype=coords.dtype, device=coords.device)
+    vox = vox.index_add(0, flat.reshape(-1), cw.reshape(-1))
+    return vox.reshape(B, S, S, S).clamp(0.0, 1.0)
+
+
 def trilinear_splat(
     points: torch.Tensor,
     size: int,
@@ -31,32 +57,13 @@ def trilinear_splat(
     """Scatter (B, N, 3) (z, y, x) points in [-0.5, 0.5] into a (B, S, S, S)
     grid by trilinear weights; points with any |coord| >= 0.5 - eps are
     culled, ``weights`` (B, N) multiply each point.  Clamped to [0, 1]."""
-    B, N, _ = points.shape
-    S = int(size)
-    grid = (S - 1) * (points + 0.5)
-    base = torch.floor(grid)
-    frac = grid - base
-    base_i = base.to(torch.int64)
-
     in_bounds = torch.all(
         (points > -0.5 + border_eps) & (points < 0.5 - border_eps), dim=-1
     )
     w_point = in_bounds.to(points.dtype)
     if weights is not None:
         w_point = w_point * weights
-
-    offs = _corner_offsets(points.device)
-    offs_f = offs.to(points.dtype)
-    f = frac[:, :, None, :]
-    cw = torch.prod(f * offs_f + (1.0 - f) * (1.0 - offs_f), dim=-1)
-    cw = cw * w_point[:, :, None]  # (B, N, 8)
-
-    idx = (base_i[:, :, None, :] + offs).clamp(0, S - 1)  # culled: weight 0
-    flat = (idx[..., 0] * S + idx[..., 1]) * S + idx[..., 2]
-    flat = flat + (torch.arange(B, device=points.device) * S**3)[:, None, None]
-    vox = torch.zeros(B * S**3, dtype=points.dtype, device=points.device)
-    vox.index_add_(0, flat.reshape(-1), cw.reshape(-1))
-    return vox.reshape(B, S, S, S).clamp(0.0, 1.0)
+    return splat_grid((int(size) - 1) * (points + 0.5), w_point, size)
 
 
 def gaussian_kernel_1d(sigma, kernel_size: int = 21) -> torch.Tensor:
@@ -82,6 +89,20 @@ def _band_matrix(kernel: torch.Tensor, size: int) -> torch.Tensor:
     return torch.where(valid, taps, torch.zeros_like(taps))
 
 
+def blur_3d(voxels: torch.Tensor, taps: torch.Tensor,
+            scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Separable blur of (B, Z, Y, X) by the 1-D ``taps`` along x, y, z
+    (zero-padded 'same' correlation), then the optional per-cloud ``scale``
+    multiply and clamp to [0, 1]."""
+    out = voxels
+    for axis in (3, 2, 1):
+        band = _band_matrix(taps, voxels.shape[axis]).to(out.dtype)
+        out = torch.matmul(out.movedim(axis, -1), band).movedim(-1, axis)
+    if scale is not None:
+        out = (out * scale.reshape(-1, 1, 1, 1)).clamp(0.0, 1.0)
+    return out
+
+
 def gaussian_blur_3d(
     voxels: torch.Tensor,
     sigma,
@@ -91,13 +112,7 @@ def gaussian_blur_3d(
     """Separable 3-D Gaussian blur along x, y, z of (B, Z, Y, X), then the
     optional per-cloud ``scale`` multiply and clamp to [0, 1]."""
     k = gaussian_kernel_1d(sigma, kernel_size).to(voxels.device)
-    out = voxels
-    for axis in (3, 2, 1):
-        band = _band_matrix(k, voxels.shape[axis]).to(out.dtype)
-        out = torch.matmul(out.movedim(axis, -1), band).movedim(-1, axis)
-    if scale is not None:
-        out = (out * scale.reshape(-1, 1, 1, 1)).clamp(0.0, 1.0)
-    return out
+    return blur_3d(voxels, k, scale)
 
 
 def termination_probs(voxels: torch.Tensor,

@@ -1,9 +1,15 @@
-"""ShapeNet unsupervised learner: config, seeded init, eval step, checkpoints.
+"""ShapeNet unsupervised learner: config, seeded init, AdamW train step,
+eval step, training loop and checkpoints.
 
-Counterpart of the inference surface of
-``im23d_tpu/train/shapenet_learner.py``.  The p/sigma schedules are device
-scalars derived from the step, so sigma reaches the projection kernel as a
-tensor, never as a constant.  No optimizer or train step yet.
+Counterpart of ``im23d_tpu/train/shapenet_learner.py`` on one device:
+
+* AdamW with the ``optax.adamw`` hyperparameters over every parameter;
+* linear p/sigma schedules taken at the pre-update step as device scalars,
+  so sigma reaches the projection kernels as a tensor and the step makes no
+  host sync;
+* the dropout keep mask drawn from a generator seeded by (seed, step);
+* checkpoints ``{params, opt_state, step}`` by ``torch.save``, numbered or
+  under the rolling tag ``latest``.
 """
 
 from __future__ import annotations
@@ -11,17 +17,21 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
+import time
+from typing import Any, Iterator
 
 import numpy as np
 import torch
 
 from im23d_tpu_torch.core.convert import unsupervised_part_state_dict
+from im23d_tpu_torch.core.metrics_logger import MetricsLogger
 from im23d_tpu_torch.losses.effective import unsupervised_loss
 from im23d_tpu_torch.models.pointcloud_nets import (
     UnsupervisedPart,
     kaiming_init_,
 )
 from im23d_tpu_torch.ops.pointcloud import keep_mask
+from im23d_tpu_torch.ops.sampling import resize_bilinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,10 +86,16 @@ def _interp(schedule: tuple[float, float], frac: torch.Tensor) -> torch.Tensor:
 
 
 _CKPT = re.compile(r"^checkpoint_(\d+)\.pt$")
+_LATEST = "latest"
+
+
+def _ckpt_path(workdir: str, step) -> str:
+    return os.path.join(workdir, f"checkpoint_{step}.pt")
 
 
 class ShapeNetLearner:
-    """Holds the model on ``device`` and the step counter."""
+    """Holds the model and its AdamW optimizer on ``device``, the step
+    counter and, with a ``workdir``, the metrics logger."""
 
     def __init__(self, config: ShapeNetConfig, workdir: str | None = None,
                  device: str | torch.device = "cuda"):
@@ -98,7 +114,13 @@ class ShapeNetLearner:
         gen = torch.Generator(device=self.device).manual_seed(config.seed)
         kaiming_init_(self.model, gen)
         self.model.eval()
+        self.opt = torch.optim.AdamW(
+            self.model.parameters(), lr=config.learning_rate,
+            betas=(0.9, 0.999), eps=1e-8, weight_decay=config.weight_decay,
+        )
         self.step = 0
+        self._last_min_idx = None
+        self.logger = MetricsLogger(workdir, "shapenet") if workdir else None
 
     # -- schedules and batches ---------------------------------------------
 
@@ -115,7 +137,9 @@ class ShapeNetLearner:
 
     def _normalize(self, batch: dict) -> dict:
         """numpy or torch arrays -> device tensors; uint8 batches are sent
-        as uint8 (4x fewer bytes) and become float32 / 255 on the device."""
+        as uint8 (4x fewer bytes) and become float32 / 255 on the device.
+        The copies are dispatched without waiting for them; a batch it has
+        already normalized comes back as it is."""
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
@@ -123,6 +147,99 @@ class ShapeNetLearner:
             out[k] = (t.to(torch.float32) / 255.0 if t.dtype == torch.uint8
                       else t.to(torch.float32))
         return out
+
+    def _keep_mask(self, batch_size: int, p, seed_offset: int = 0):
+        gen = torch.Generator(device=self.device).manual_seed(
+            self.cfg.seed * 2**32 + seed_offset + self.step
+        )
+        return keep_mask(gen, batch_size, self.cfg.num_points, p)
+
+    # -- training -------------------------------------------------------------
+
+    def train_step(self, batch: dict) -> dict:
+        """One AdamW step on ``batch`` (host arrays, or the device tensors
+        of ``put_batch``); returns the losses as device scalars (no host
+        sync).  The schedules are taken at the pre-update step and the keep
+        mask comes from a generator seeded by (seed, step)."""
+        cfg = self.cfg
+        nb = self._normalize(batch)
+        self.model.train()
+        p, sigma = self._schedules(self.step)
+        keep_w = self._keep_mask(nb["images"].shape[0], p)
+        outputs = self.model(nb["images"], nb["pose_input"])
+        losses, aux = unsupervised_loss(
+            outputs, nb["masks"], sigma, keep_w, cfg.num_views,
+            voxel_size=cfg.voxel_size, student_weight=cfg.student_weight,
+            training=True,
+        )
+        self.opt.zero_grad(set_to_none=True)
+        losses["total_loss"].backward()
+        self.opt.step()
+        self.step += 1
+        self._last_min_idx = aux["min_indexes"]
+        return {k: v.detach() for k, v in losses.items()}
+
+    def put_batch(self, batch: dict) -> dict:
+        """Dispatch the host->device copy of a batch (it overlaps with the
+        running step)."""
+        return self._normalize(batch)
+
+    def fit(self, train_iter: Iterator[dict], num_steps: int | None = None,
+            valid_batches=None) -> dict:
+        """Run the training loop; returns the final losses as floats.
+
+        The next batch's host->device copy is dispatched before the current
+        step.  Every ``log_every`` steps the losses, ``steps_per_sec`` and
+        the predictor histogram are logged; every ``eval_every`` steps the
+        learner evaluates, logs a projection grid and saves a checkpoint.
+        """
+        cfg = self.cfg
+        num_steps = num_steps or cfg.total_steps
+        losses: dict[str, Any] = {}
+        t0 = time.time()
+        pending = self.put_batch(next(train_iter))
+        for i in range(num_steps):
+            batch_dev = pending
+            if i + 1 < num_steps:
+                pending = self.put_batch(next(train_iter))
+            losses = self.train_step(batch_dev)
+            step = self.step
+            if self.logger and step % cfg.log_every == 0:
+                host = {k: float(v) for k, v in losses.items()}
+                host["steps_per_sec"] = cfg.log_every / max(time.time() - t0,
+                                                            1e-9)
+                t0 = time.time()
+                self.logger.log(step, host)
+                self.logger.log_histogram(step, "other/predictors",
+                                          self._last_min_idx.cpu().numpy())
+            if step % cfg.eval_every == 0:
+                if valid_batches is not None:
+                    self.evaluate(valid_batches)
+                if self.logger:
+                    self.log_projection_grid(batch_dev, step)
+                if self.workdir:
+                    self.save()
+        return {k: float(v) for k, v in losses.items()}
+
+    @torch.no_grad()
+    def log_projection_grid(self, batch: dict, step: int) -> None:
+        """Log the student projections of up to 8 pose images under the
+        target masks (eval mode, no dropout, the scheduled sigma)."""
+        cfg = self.cfg
+        nb = self._normalize(batch)
+        self.model.eval()
+        out = self.model(nb["images"], nb["pose_input"])
+        _, sigma = self._schedules(self.step)
+        _, aux = unsupervised_loss(out, nb["masks"], sigma, None,
+                                   cfg.num_views, voxel_size=cfg.voxel_size,
+                                   training=False)
+        proj = aux["projection"][:8]
+        masks_s = resize_bilinear(nb["masks"][:8], proj.shape[1],
+                                  proj.shape[2])
+        self.logger.log_images(
+            step, "renders",
+            torch.cat([masks_s, proj], dim=0).cpu().numpy(), nrow=8,
+        )
 
     # -- inference ----------------------------------------------------------
 
@@ -135,12 +252,10 @@ class ShapeNetLearner:
         """
         cfg = self.cfg
         nb = self._normalize(batch)
+        self.model.eval()
         outputs = self.model(nb["images"], nb["pose_input"])
         p, sigma = self._schedules(self.step)
-        gen = torch.Generator(device=self.device).manual_seed(
-            cfg.seed * 2**32 + 2**30 + self.step
-        )
-        keep_w = keep_mask(gen, nb["images"].shape[0], cfg.num_points, p)
+        keep_w = self._keep_mask(nb["images"].shape[0], p, seed_offset=2**30)
         losses, _ = unsupervised_loss(
             outputs, nb["masks"], sigma, keep_w, cfg.num_views,
             voxel_size=cfg.voxel_size, student_weight=cfg.student_weight,
@@ -150,7 +265,7 @@ class ShapeNetLearner:
 
     def evaluate(self, valid_batches) -> dict:
         """Mean of each eval loss over ``valid_batches`` (iterable or
-        callable returning one)."""
+        callable returning one); logged as ``valid/<loss>``."""
         all_losses = []
         batches = valid_batches() if callable(valid_batches) else valid_batches
         for batch in batches:
@@ -158,8 +273,12 @@ class ShapeNetLearner:
             all_losses.append({k: float(v) for k, v in out.items()})
         if not all_losses:
             return {}
-        return {k: float(np.mean([d[k] for d in all_losses]))
-                for k in all_losses[0]}
+        means = {k: float(np.mean([d[k] for d in all_losses]))
+                 for k in all_losses[0]}
+        if self.logger:
+            self.logger.log(self.step,
+                            {f"valid/{k}": v for k, v in means.items()})
+        return means
 
     # -- params and checkpoints -------------------------------------------
 
@@ -169,29 +288,44 @@ class ShapeNetLearner:
                                           self.cfg.num_candidates)
         self.model.load_state_dict(sd)
 
-    def save(self, workdir: str | None = None) -> str:
-        """``torch.save`` of ``{params, step}`` as checkpoint_<step>.pt."""
+    def save(self, workdir: str | None = None, tag: str | None = None) -> str:
+        """``torch.save`` of ``{params, opt_state, step}``: tag None writes
+        the permanent checkpoint_<step>.pt, tag "latest" overwrites the
+        rolling checkpoint_latest.pt."""
+        if tag not in (None, _LATEST):
+            raise ValueError(f"tag must be None or {_LATEST!r}, got {tag!r}")
         workdir = workdir or self.workdir
         os.makedirs(workdir, exist_ok=True)
-        path = os.path.join(workdir, f"checkpoint_{self.step}.pt")
+        path = _ckpt_path(workdir, self.step if tag is None else tag)
         params = {k: v.detach().cpu() for k, v in
                   self.model.state_dict().items()}
-        torch.save(dict(params=params, step=self.step), path)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(dict(params=params, opt_state=self.opt.state_dict(),
+                        step=self.step), tmp)
+        os.replace(tmp, path)
         return path
 
-    def restore(self, workdir: str | None = None,
-                step: int | None = None) -> None:
-        """Load the checkpoint of ``step`` (default: the latest)."""
+    def restore(self, workdir: str | None = None, step=None) -> None:
+        """Load the checkpoint of ``step`` (an int or "latest"); by default
+        the newer, by file time, of the highest numbered one and the rolling
+        "latest".  A checkpoint without ``opt_state`` leaves the optimizer
+        as it is."""
         workdir = workdir or self.workdir
-        steps = sorted(
-            int(m.group(1)) for m in map(_CKPT.match, os.listdir(workdir))
-            if m
-        ) if os.path.isdir(workdir) else []
-        if step is None and steps:
-            step = steps[-1]
-        if step is None or step not in steps:
+        names = os.listdir(workdir) if os.path.isdir(workdir) else []
+        steps = sorted(int(m.group(1)) for m in map(_CKPT.match, names) if m)
+        if step is None:
+            candidates = [_ckpt_path(workdir, s) for s in steps[-1:]]
+            if f"checkpoint_{_LATEST}.pt" in names:
+                candidates.append(_ckpt_path(workdir, _LATEST))
+            path = max(candidates, key=os.path.getmtime, default=None)
+        elif step == _LATEST or step in steps:
+            path = _ckpt_path(workdir, step)
+        else:
+            path = None
+        if path is None or not os.path.exists(path):
             raise FileNotFoundError(f"no checkpoint {step} under {workdir}")
-        tree = torch.load(os.path.join(workdir, f"checkpoint_{step}.pt"),
-                          map_location=self.device, weights_only=True)
+        tree = torch.load(path, map_location=self.device, weights_only=True)
         self.model.load_state_dict(tree["params"])
+        if "opt_state" in tree:
+            self.opt.load_state_dict(tree["opt_state"])
         self.step = int(tree["step"])

@@ -1,4 +1,5 @@
-"""CUDA kernels K1 and K3 of the PyTorch port against their plain versions.
+"""CUDA kernels K1, K2 and K3 of the PyTorch port against their plain
+versions.
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
 one.  Imports no JAX, so it runs where JAX is not installed; the repository's
@@ -10,7 +11,10 @@ the repository root:
 
 Tolerances: K1 sums with atomicAdd (order changes between runs) and blurs in
 another order than the plain band matmul, atol 1e-5 on silhouettes <= ~1;
-K3 computes the plain formula, up to FMA contraction, rtol 1e-5.
+K2 is held by relative L2 error per output, ||kernel - plain|| / ||plain||
+<= 1e-4, because a clamp mask within rounding of its bound can flip and move
+a few gradients by O(1) of their value; K3 computes the plain formula, up to
+FMA contraction, rtol 1e-5.
 """
 
 import numpy as np
@@ -23,8 +27,13 @@ from im23d_tpu_torch.metrics.chamfer import (
     nn_dist2_torch,
 )
 from im23d_tpu_torch.ops.projection import (
+    _prep_projection,
+    _taps_and_scale,
+    projection_backward_kernel,
+    projection_backward_torch,
     projection_kernel,
     projection_silhouette,
+    projection_silhouette_reuse,
     projection_silhouette_torch,
 )
 
@@ -83,9 +92,94 @@ def test_k1_rejects_bad_operands(dev):
         projection_kernel(*planes, w, taps, scale, 65)
     with pytest.raises(ValueError):
         projection_kernel(pts[..., 0], *planes[1:], w, taps, scale, 16)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        projection_silhouette(pts.requires_grad_(), 16,
-                              torch.tensor(1.0, device=dev), scale)
+
+
+def _rel_l2(got, ref):
+    return float((got - ref).norm() / ref.norm())
+
+
+def _grid_operands(dev, S, ks, sigma, b=3, n=1000, seed=0):
+    pts, w, scale = _points(seed, b, n, dev=dev)
+    gz, gy, gx, c = _prep_projection(pts, S, w, 1e-6)
+    taps, sc = _taps_and_scale(torch.tensor(sigma, device=dev), scale, ks, b,
+                               dev)
+    gsil = torch.randn((b, S, S), device=dev,
+                       generator=torch.Generator(dev).manual_seed(seed))
+    return [t.contiguous() for t in (gz, gy, gx, c, taps, sc, gsil)]
+
+
+@pytest.mark.parametrize("S,ks,sigma", [(16, 9, 0.8), (32, 21, 3.0),
+                                        (64, 21, 0.2), (20, 8, 1.3)])
+def test_k2_matches_plain(dev, S, ks, sigma):
+    ops = _grid_operands(dev, S, ks, sigma)
+    n0 = projection_backward_kernel.launches
+    got = projection_backward_kernel(*ops)
+    ref = projection_backward_torch(*ops)
+    torch.cuda.synchronize()
+    assert projection_backward_kernel.launches == n0 + 1
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        assert _rel_l2(g, r) <= 1e-4, (_rel_l2(g, r), float((g - r).abs().max()))
+
+
+def test_projection_autograd_runs_k1_and_k2(dev):
+    """projection_silhouette with grad on the card: K1 forward, K2 backward,
+    against the plain chain's autograd on the CPU."""
+    pts, w, scale = _points(5, 3, 1000, dev=dev)
+    cot = torch.randn((3, 32, 32), device=dev)
+
+    def run(device):
+        p = pts.detach().to(device).clone().requires_grad_()
+        s = scale.detach().to(device).clone().requires_grad_()
+        out = projection_silhouette(p, 32, torch.tensor(1.1, device=device),
+                                    s, weights=w.to(device))
+        (out * cot.to(device)).sum().backward()
+        return out.detach().cpu(), p.grad.cpu(), s.grad.cpu()
+
+    k1, k2 = projection_kernel.launches, projection_backward_kernel.launches
+    got = run(dev)
+    torch.cuda.synchronize()
+    assert projection_kernel.launches == k1 + 1
+    assert projection_backward_kernel.launches == k2 + 1
+    ref = run("cpu")
+    torch.testing.assert_close(got[0], ref[0], atol=1e-5, rtol=0)
+    for g, r in zip(got[1:], ref[1:]):
+        assert _rel_l2(g, r) <= 1e-4
+
+
+def test_reuse_runs_k2_only(dev):
+    pts, w, scale = _points(6, 4, 1000, dev=dev)
+    sig = torch.tensor(0.7, device=dev)
+    with torch.no_grad():
+        sweep = projection_silhouette(pts, 32, sig, scale, weights=w)
+    cot = torch.randn_like(sweep)
+
+    def grads(reuse):
+        p, s = pts.clone().requires_grad_(), scale.clone().requires_grad_()
+        out = (projection_silhouette_reuse(p, 32, sig, s, sweep, weights=w)
+               if reuse else projection_silhouette(p, 32, sig, s, weights=w))
+        (out * cot).sum().backward()
+        return out.detach(), p.grad, s.grad
+
+    k1, k2 = projection_kernel.launches, projection_backward_kernel.launches
+    out, gp, gs = grads(True)
+    torch.cuda.synchronize()
+    assert projection_kernel.launches == k1
+    assert projection_backward_kernel.launches == k2 + 1
+    assert torch.equal(out, sweep)
+    _, fp, fs = grads(False)
+    assert _rel_l2(gp, fp) <= 1e-4 and _rel_l2(gs, fs) <= 1e-4
+
+
+def test_k2_rejects_bad_operands(dev):
+    gz, gy, gx, c, taps, sc, gsil = _grid_operands(dev, 16, 9, 1.0, b=2,
+                                                   n=64)
+    with pytest.raises(TypeError):
+        projection_backward_kernel(gz.double(), gy, gx, c, taps, sc, gsil)
+    with pytest.raises(ValueError):
+        projection_backward_kernel(gz, gy, gx, c, taps, sc, gsil[:1])
+    with pytest.raises(ValueError):
+        projection_backward_kernel(gz.cpu(), gy, gx, c, taps, sc, gsil)
 
 
 @pytest.mark.parametrize("n,m", [(1, 1), (255, 257), (1000, 256),

@@ -98,16 +98,3 @@ def test_no_points_gives_background_silhouette():
     ref = _jax_chain(pts, np.ones((1, 8), np.float32), np.ones(1, np.float32),
                      1.0)
     np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
-
-
-@pytest.mark.parametrize("which", ["points", "scale"])
-def test_requires_grad_inputs_raise(which):
-    pts, w, scale = _inputs()
-    p = torch.from_numpy(pts).requires_grad_(which == "points")
-    s = torch.from_numpy(scale).requires_grad_(which == "scale")
-    with pytest.raises(RuntimeError, match="forward-only"):
-        projection_silhouette(p, S, torch.tensor(0.8), s,
-                              weights=torch.from_numpy(w), kernel_size=KS)
-    with torch.no_grad():  # the loss's inference path
-        projection_silhouette(p * 1.0, S, torch.tensor(0.8), s * 1.0,
-                              weights=torch.from_numpy(w), kernel_size=KS)

@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of the chairs eval step goes on one GPU (PyTorch port).
+"""Where the time of the chairs eval and train steps goes on one GPU
+(PyTorch port).
 
 For each window of the eval path (the whole eval step with its loss fetch,
 then its parts: host->device normalize, model forward, keep mask, the eval
 loss with K1 on B*V clouds, and the candidate-sweep loss with K1 on B*V*K
-clouds) it prints:
+clouds) and of the train path (the whole train step with its loss fetch,
+then its parts: model forward + backward, the candidate sweep with the
+training keep mask, K2 alone on the B*V winners, the AdamW update) it
+prints:
 
   - wall ms per iteration: host clock over ``--iters`` warm iterations,
     without the profiler, synchronised at the end;
@@ -14,11 +18,12 @@ clouds) it prints:
   - idle share = 1 - busy / wall, and the device ops per iteration;
   - the ten device ops that take the most time.
 
-Then the peak device memory of one candidate sweep.  The model has random
-weights from the config's seed; the batch is synthetic.
+Then the peak device memory of one candidate sweep and of one train step.
+The model has random weights from the config's seed; the batch is
+synthetic.
 
 Usage (from the repository root, on a machine with a CUDA device):
-    python3 tools/profile_eval.py [--iters 10]
+    python3 tools/profile_eval.py [--iters 10] [--only eval|train]
 """
 
 from __future__ import annotations
@@ -36,8 +41,16 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from im23d_tpu_torch.data.synthetic import SyntheticSilhouettes  # noqa: E402
-from im23d_tpu_torch.losses.effective import unsupervised_loss  # noqa: E402
+from im23d_tpu_torch.losses.effective import (  # noqa: E402
+    _candidate_cam,
+    unsupervised_loss,
+)
 from im23d_tpu_torch.ops.pointcloud import keep_mask  # noqa: E402
+from im23d_tpu_torch.ops.projection import (  # noqa: E402
+    _prep_projection,
+    _taps_and_scale,
+    projection_backward_kernel,
+)
 from im23d_tpu_torch.train.shapenet_learner import (  # noqa: E402
     ShapeNetConfig,
     ShapeNetLearner,
@@ -63,12 +76,17 @@ def _device_ops(fn, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    # GPU-side user annotations (e.g. "Optimizer.step#AdamW.step") span
+    # kernels that are counted on their own: leave them out
     return [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and "#" not in e.key]
 
 
-def report(title: str, fn, iters: int) -> None:
+def report(title: str, fn, iters: int) -> float:
+    """Print the window's numbers; returns its device busy ms per iter."""
     wall = _wall_ms(fn, iters)
     ops = _device_ops(fn, iters)
     busy = sum(us for _, us, _ in ops) / 1e3 / iters
@@ -78,11 +96,84 @@ def report(title: str, fn, iters: int) -> None:
           f"{n_ops:.0f} device ops/iter")
     for name, us, _ in sorted(ops, key=lambda o: -o[1])[:10]:
         print(f"    {us / 1e3 / iters:7.3f} ms  {name[:100]}")
+    return busy
+
+
+def _peak_mib(fn) -> float:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def profile_train(cfg, iters: int) -> None:
+    """The train step's windows; shares are of the whole step's device
+    busy time."""
+    learner = ShapeNetLearner(cfg, device="cuda")
+    B, V, K = cfg.batch_size, cfg.num_views, cfg.num_candidates
+    nb = learner.put_batch(SyntheticSilhouettes(
+        B, cfg.image_size, V, n_points=512, seed=4).next_batch())
+    p, sigma = learner._schedules(learner.step)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    keep_w = keep_mask(gen, B, cfg.num_points, p)
+
+    def model_fwd_bwd():
+        out = learner.model(nb["images"], nb["pose_input"])
+        sum(v.float().sum() for v in out.values()).backward()
+
+    with torch.no_grad():
+        out = learner.model(nb["images"], nb["pose_input"])
+
+    def sweep():
+        with torch.no_grad():
+            return unsupervised_loss(out, nb["masks"], sigma, keep_w, V,
+                                     voxel_size=cfg.voxel_size,
+                                     training=True)
+
+    # K2's operands at the winner shape: the first candidate of every view
+    cloud_v = out["point_cloud"].repeat_interleave(V, dim=0)
+    cam, w, sc = _candidate_cam(cloud_v, out["ensemble_q"][:, :1],
+                                out["scale"].reshape(B).repeat_interleave(V),
+                                keep_w.repeat_interleave(V, dim=0))
+    gz, gy, gx, c = _prep_projection(cam, cfg.voxel_size, w, 1e-6)
+    taps, sc = _taps_and_scale(sigma, sc, 21, B * V, gz.device)
+    gsil = torch.randn((B * V, cfg.voxel_size, cfg.voxel_size),
+                       device="cuda", generator=gen)
+    k2_ops = [t.contiguous() for t in (gz, gy, gx, c, taps, sc, gsil)]
+
+    it = iters
+    total = report(f"train step + loss fetch (bs {B}: K1 on {B * V * K} "
+                   f"clouds, K2 on {B * V})",
+                   lambda: float(learner.train_step(nb)["total_loss"]), it)
+    parts = {
+        "model forward + backward (bf16 trunks)":
+            report("model forward + backward (bf16 trunks)", model_fwd_bwd,
+                   it),
+        f"keep mask ({B} x {cfg.num_points})":
+            report(f"keep mask ({B} x {cfg.num_points})",
+                   lambda: keep_mask(gen, B, cfg.num_points, p), it),
+        f"candidate sweep, training keep mask (K1 on {B * V * K} clouds)":
+            report(f"candidate sweep, training keep mask (K1 on {B * V * K} "
+                   "clouds)", sweep, it),
+        f"K2 alone ({B * V} winners)":
+            report(f"K2 alone ({B * V} winners)",
+                   lambda: projection_backward_kernel(*k2_ops), it),
+        "AdamW update": report("AdamW update", learner.opt.step, it),
+    }
+    for name, busy in parts.items():
+        print(f"share of the train step's device busy: {busy / total:.3f}  "
+              f"{name}")
+    print(f"peak MiB of one train step "
+          f"{_peak_mib(lambda: learner.train_step(nb)):.3f}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--only", choices=("eval", "train"), default=None,
+                    help="profile one path (default: both)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_eval: no CUDA device", file=sys.stderr)
@@ -93,6 +184,10 @@ def main(argv=None) -> int:
     ).stdout.strip())
 
     cfg = ShapeNetConfig.chairs()
+    if args.only != "eval":
+        profile_train(cfg, args.iters)
+    if args.only == "train":
+        return 0
     learner = ShapeNetLearner(cfg, device="cuda")
     B, V = cfg.batch_size, cfg.num_views
     batch = SyntheticSilhouettes(B, cfg.image_size, V, n_points=512,
@@ -128,13 +223,7 @@ def main(argv=None) -> int:
     report(f"candidate sweep loss (K1 on {B * V * cfg.num_candidates} "
            "clouds)", lambda: eval_loss(True, None), it)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    eval_loss(True, None)
-    torch.cuda.synchronize()
-    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-    print(f"peak MiB of the sweep {peak:.3f}")
+    print(f"peak MiB of the sweep {_peak_mib(lambda: eval_loss(True, None)):.3f}")
     return 0
 
 
