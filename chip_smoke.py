@@ -21,7 +21,23 @@ Phases:
      slice's projections held against the plain chain on the same outputs;
      eval batches/s;
   7. a learning check: 40 train steps on one fixed chairs batch, the
-     projection loss must fall; train steps/s.
+     projection loss must fall; train steps/s;
+  8. K4 (rasterizer forward) against the plain ``rasterize_torch`` at the
+     CUB eval shape: 50 renders of 960 faces (``MeshTemplate(32, 16)``,
+     structured displacement maps, seeded poses) at 256², A = 3 (u, v,
+     mask), sigma 1e-4, back faces culled and drawn;
+  9. K5 (texture sampler forward) against the plain
+     ``grid_sample_bilinear_torch``: 50 textures of 128 x 130 x 3 sampled
+     at 50 x 256² points, at phase 8's rendered UVs and at random
+     coordinates in [-1.1, 1.1];
+ 10. the Pipeline-B eval slice through the port's
+     ``cli/run_reconstruction.main([..., "--evaluate"], datasets=...)`` at
+     the full CUB configuration (bs 50, 256² RGBA, 128² texture, 32² mesh
+     map, 960 faces) on 110 fabricated photos (two full batches and a tail
+     of 10), restoring a checkpoint saved from the seeded trainer; launch
+     counts of K4 and K5 in that run; its renders held against the plain
+     path on the same network outputs; eval batches/s;
+ 11. one ``render_multiview`` grid.
 
 Prints timings beside the GPU's name and power limit, then one JSON line
 with the per-kernel results, the nvidia-smi line, and as the last line
@@ -43,14 +59,22 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
 
 # outside a checkout these imports fail before anything is printed
 from im23d_tpu_torch.cli import evaluation_test_shape_net as cli
+from im23d_tpu_torch.cli import run_reconstruction as recon_cli
 from im23d_tpu_torch.cli import training_test_shape_net as train_cli
+from im23d_tpu_torch.data.cmr import batch_iterator
+from im23d_tpu_torch.data.fabricate import (
+    StructuredPseudoGT,
+    StructuredReconSet,
+)
 from im23d_tpu_torch.data.synthetic import SyntheticSilhouettes, _random_shapes
+from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
 from im23d_tpu_torch.losses.effective import (
     _candidate_cam,
     _downsample_masks,
@@ -74,6 +98,22 @@ from im23d_tpu_torch.ops.projection import (
     projection_silhouette_torch,
 )
 from im23d_tpu_torch.ops.quaternion import qnormalize
+from im23d_tpu_torch.ops.sampling import (
+    grid_sample_bilinear,
+    grid_sample_bilinear_kernel,
+    grid_sample_bilinear_torch,
+)
+from im23d_tpu_torch.render import renderer
+from im23d_tpu_torch.render.rasterizer import (
+    rasterize,
+    rasterize_kernel,
+    rasterize_torch,
+)
+from im23d_tpu_torch.train.recon_trainer import (
+    ReconConfig,
+    ReconTrainer,
+    transform_vertices,
+)
 from im23d_tpu_torch.train.shapenet_learner import (
     ShapeNetConfig,
     ShapeNetLearner,
@@ -105,6 +145,18 @@ K3_RTOL, K3_ATOL = 1e-5, 1e-6
 SLICE_RTOL = 1e-4
 TRAIN_STEPS = 20          # the training CLI's run
 LEARN_STEPS, WARM = 40, 10  # the learning check; steps before the timing
+# Pipeline B, CUB config: bs 50, 256² images, 128² texture (130 wide after
+# the circular pad), 960 faces, sigma 1e-4
+RB, RES, TEX, SIGMA = 50, 256, 128, 1e-4
+RECON_IMAGES = 110  # two full batches and a tail of 10
+# K4 vs plain: the same arithmetic with FMA contraction ruled out, so the
+# winners agree; a pixel whose edge function rounds to the other side would
+# take the other face's attributes, hence a quantile for feat (as the JAX
+# package's rasterizer tests) and a count of differing hard-mask pixels;
+# soft sums its log1p terms in another order (~1e-7 each).
+K4_FEAT_Q999, K4_MASK_FRAC, K4_SOFT_ATOL = 1e-5, 1e-3, 1e-4
+# K5 vs plain: the same operations in the same order
+K5_ATOL = 1e-5
 
 
 def _gpu_line() -> str:
@@ -249,16 +301,18 @@ def phase_k3(gpu: str) -> dict:
     return dict(max_abs_err=err, **timed)
 
 
+_KERNELS = dict(k1=projection_kernel, k2=projection_backward_kernel,
+                k3=nn_dist2_kernel, k4=rasterize_kernel,
+                k5=grid_sample_bilinear_kernel)
+
+
 def _zero_counts() -> None:
-    projection_kernel.launches = 0
-    projection_backward_kernel.launches = 0
-    nn_dist2_kernel.launches = 0
+    for fn in _KERNELS.values():
+        fn.launches = 0
 
 
 def _counts() -> dict:
-    return dict(k1=projection_kernel.launches,
-                k2=projection_backward_kernel.launches,
-                k3=nn_dist2_kernel.launches)
+    return {k: fn.launches for k, fn in _KERNELS.items()}
 
 
 def phase_train(gpu: str, workdir: str) -> dict:
@@ -401,6 +455,204 @@ def phase_learn(gpu: str) -> float:
         raise AssertionError(f"the loss did not fall: {vals}")
     return rate
 
+def _q999(d: torch.Tensor) -> float:
+    """The 0.999 quantile of a tensor's values (torch.quantile refuses
+    inputs of more than 2^24 values)."""
+    v = d.flatten().sort().values
+    return float(v[int(0.999 * (v.numel() - 1))])
+
+
+def _cub_scene(template, dev):
+    """RB posed CUB-template meshes from structured displacement maps and
+    their (u, v, mask) face-corner attributes, as ``render_mesh`` builds
+    them."""
+    fab = StructuredPseudoGT(RB, TEX, n_classes=4, seed=11)
+    maps = [fab.maps(i) for i in range(RB)]
+    mesh = torch.as_tensor(np.stack([m["mesh"].transpose(1, 2, 0)
+                                     for m in maps]), dtype=torch.float32,
+                           device=dev)
+    tex = torch.as_tensor(np.stack([m["texture"].transpose(1, 2, 0)
+                                    for m in maps]), dtype=torch.float32,
+                          device=dev)
+    rng = np.random.RandomState(12)
+    pose = [torch.as_tensor(a.astype(np.float32), device=dev) for a in (
+        0.55 + 0.1 * rng.rand(RB), 0.1 * rng.randn(RB, 3) * [1, 1, 0],
+        rng.randn(RB, 4))]
+    with torch.no_grad():
+        verts = transform_vertices(template.get_vertex_positions(mesh), *pose)
+        uvs, tex_adj = template.adjust_uv_and_texture(tex / 2 + 0.5)
+    faces = template.tensor("faces", dev)
+    F = faces.shape[0]
+    attrs = torch.cat([uvs[:, template.tensor("face_uvs", dev)],
+                       verts.new_ones((RB, F, 3, 1))], dim=-1)
+    return verts, faces, attrs, tex_adj
+
+
+def phase_k4(gpu: str, template) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """K4 vs plain, back faces culled and drawn; returns the JSON entry,
+    the culled render's UVs and the adjusted textures (for phase 9)."""
+    dev = torch.device(DEVICE)
+    verts, faces, attrs, tex_adj = _cub_scene(template, dev)
+    err, uv = 0.0, None
+    for cull in (True, False):
+        got = rasterize(verts, faces, attrs, RES, RES, SIGMA, cull)
+        ref = rasterize_torch(verts, faces, attrs, RES, RES, SIGMA, cull)
+        torch.cuda.synchronize()
+        d = (got[0] - ref[0]).abs()
+        q = _q999(d)
+        mask_frac = float(((got[0][..., 2] > 0.5) != (ref[0][..., 2] > 0.5))
+                          .float().mean())
+        soft_e = float((got[1] - ref[1]).abs().max())
+        e = max(float(d.max()), soft_e)
+        print(f"[K4] cull={cull}: feat 0.999-quantile |kernel - plain| "
+              f"{q:.3e} (limit {K4_FEAT_Q999}), max {float(d.max()):.3e}; "
+              f"hard-mask pixels differing {mask_frac:.3e} (limit "
+              f"{K4_MASK_FRAC}); soft max {soft_e:.3e} (limit "
+              f"{K4_SOFT_ATOL}); coverage {float(ref[0][..., 2].mean()):.4f}")
+        if not (torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+                and q <= K4_FEAT_Q999 and mask_frac <= K4_MASK_FRAC
+                and soft_e <= K4_SOFT_ATOL):
+            raise AssertionError(f"K4 disagrees with plain (cull={cull})")
+        err = max(err, e)
+        if cull:
+            uv = got[0][..., :2]
+    ms = _time_ms(lambda: rasterize(verts, faces, attrs, RES, RES, SIGMA), 20)
+    plain_ms = _time_ms(lambda: rasterize_torch(verts, faces, attrs, RES, RES,
+                                                SIGMA), 2)
+    print(f"[K4] {RB} x {RES}² x {faces.shape[0]} faces, A=3, culled: kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms per call [{gpu}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), uv, tex_adj
+
+
+def phase_k5(gpu: str, uv, tex_adj) -> dict:
+    """K5 vs plain at rendered UVs (the fragment shader's mapping) and at
+    random coordinates."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    grids = {
+        "rendered UVs": (uv * 2 - 1) * uv.new_tensor([1.0, -1.0]),
+        "random in [-1.1, 1.1]": torch.rand((RB, RES, RES, 2), device=dev,
+                                            generator=gen) * 2.2 - 1.1,
+    }
+    err = 0.0
+    for name, grid in grids.items():
+        got = grid_sample_bilinear(tex_adj, grid)
+        ref = grid_sample_bilinear_torch(tex_adj, grid)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        print(f"[K5] {name}: {tuple(tex_adj.shape)} at {tuple(grid.shape)}: "
+              f"max |kernel - plain| {e:.3e} (atol {K5_ATOL})")
+        if not (torch.isfinite(got).all() and e <= K5_ATOL):
+            raise AssertionError(f"K5 disagrees with plain ({name}): {e}")
+        err = max(err, e)
+    grid = grids["rendered UVs"].contiguous()
+    ms = _time_ms(lambda: grid_sample_bilinear(tex_adj, grid), 50)
+    plain_ms = _time_ms(lambda: grid_sample_bilinear_torch(tex_adj, grid), 10)
+    print(f"[K5] {tuple(tex_adj.shape)} at {RB} x {RES}²: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms per call [{gpu}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
+def _plain_render_path():
+    """Route ``render_mesh`` through the plain rasterizer and sampler."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(renderer, "rasterize",
+                                          rasterize_torch))
+    stack.enter_context(mock.patch.object(renderer, "grid_sample_bilinear",
+                                          grid_sample_bilinear_torch))
+    return stack
+
+
+def phase_recon(gpu: str, template, tmp: str) -> dict:
+    """The Pipeline-B eval CLI at the CUB config on fabricated photos,
+    restoring a checkpoint of the seeded trainer."""
+    t0 = time.perf_counter()
+    data = StructuredReconSet(template, RECON_IMAGES, RES, TEX, seed=0,
+                              device=DEVICE)
+    print(f"[recon] fabricated {len(data)} photos at {RES}² in "
+          f"{time.perf_counter() - t0:.2f} s")
+    trainer = ReconTrainer(ReconConfig(), dataset_size=len(data),
+                           template=template, device=DEVICE)
+    with torch.no_grad():  # a mesh head that moves the sphere
+        w = trainer.model.conv_mesh.weight
+        w.copy_(torch.randn(w.shape, generator=torch.Generator().manual_seed(
+            14)).to(w.device) * 2e-3)
+    name = "chip_smoke"
+    trainer.save(os.path.join(tmp, "checkpoints_recon", name))
+    argv = ["--name", name, "--dataset", "cub", "--evaluate", "--device",
+            DEVICE]
+    buf = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = recon_cli.main(argv, datasets=(data, data))
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        os.chdir(cwd)
+    out = buf.getvalue().strip()
+    print(f"[recon] CLI main rc {rc} in {cli_s:.2f} s ({RECON_IMAGES} images, "
+          f"bs {RB}); launches {launches}; means {out.splitlines()[-1]}")
+    if rc != 0:
+        raise AssertionError(f"recon CLI returned {rc}")
+    means = ast.literal_eval(out.splitlines()[-1])
+    if set(means) != {"recon_loss", "flat_loss", "iou"} or not all(
+            math.isfinite(v) for v in means.values()):
+        raise AssertionError(f"bad eval means: {means}")
+    if launches["k4"] < 1 or launches["k5"] < 1:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+
+    # the slice's renders against the plain path on the same network outputs
+    batch = next(iter(batch_iterator(data, RB, shuffle=False, num_workers=1)))
+    nb = trainer._put(batch)
+    with torch.no_grad():
+        tex, mesh_map = trainer.model(nb["image"])
+        got = trainer._pose_and_render(mesh_map, tex, nb)
+        with _plain_render_path():
+            ref = trainer._pose_and_render(mesh_map, tex, nb)
+    torch.cuda.synchronize()
+    d_img = (got[2] - ref[2]).abs()
+    q = _q999(d_img)
+    e_alpha = float((got[3] - ref[3]).abs().max())
+    losses = [float(trainer._recon_loss(torch.cat([r[2], r[3]], -1),
+                                        nb["image"])) for r in (got, ref)]
+    print(f"[recon] renders vs plain: image 0.999-quantile |diff| {q:.3e}, "
+          f"max {float(d_img.max()):.3e}; alpha max {e_alpha:.3e}; recon loss "
+          f"{losses[0]:.6f} vs plain {losses[1]:.6f}; image shape "
+          f"{tuple(got[2].shape)}")
+    if not (q <= K4_FEAT_Q999 and e_alpha <= K4_SOFT_ATOL and math.isclose(
+            losses[0], losses[1], rel_tol=SLICE_RTOL)):
+        raise AssertionError("the recon slice disagrees with the plain path")
+    if tuple(got[2].shape) != (RB, RES, RES, 3):
+        raise AssertionError(f"render shape {tuple(got[2].shape)}")
+
+    batches = list(batch_iterator(data, RB, shuffle=False, drop_last=False,
+                                  num_workers=1))
+    trainer.evaluate(batches)  # warm
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        trainer.evaluate(batches)
+    torch.cuda.synchronize()
+    rate = reps * len(batches) / (time.perf_counter() - t0)
+    print(f"[recon] eval {rate:.2f} batches/s ({rate * RB:.1f} images/s "
+          f"counting the tail batch as full, bs {RB}, host clock incl. "
+          f"host->device copies) [{gpu}]")
+    tex_v, mesh_v = trainer.predict(batch["image"][:2])
+    grid = trainer.render_multiview(
+        template.get_vertex_positions(mesh_v), tex_v, idx=1)
+    print(f"[recon] render_multiview grid {grid.shape}, mean "
+          f"{float(grid.mean()):.4f}")
+    if grid.shape != (2 * RES, 4 * RES, 3) or not (
+            np.isfinite(grid).all() and 0 <= grid.min() <= grid.max() <= 1):
+        raise AssertionError("bad render_multiview grid")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -421,6 +673,12 @@ def main() -> int:
         train = phase_train(gpu, workdir)
         evals = phase_slice(gpu, workdir)
     phase_learn(gpu)
+    template = MeshTemplate(segments=32, rings=16)
+    k4, uv, tex_adj = phase_k4(gpu, template)
+    k5 = phase_k5(gpu, uv, tex_adj)
+    del uv, tex_adj
+    with tempfile.TemporaryDirectory() as tmp:
+        recon = phase_recon(gpu, template, tmp)
 
     kernels = [
         dict(name="K1 projection forward", route="cuda",
@@ -435,6 +693,14 @@ def main() -> int:
              source="im23d_tpu_torch/csrc/nn_dist2.cu",
              replaces="im23d_tpu/metrics/chamfer.py:56",
              launches=evals["k3"], **k3),
+        dict(name="K4 rasterizer forward", route="cuda",
+             source="im23d_tpu_torch/csrc/rasterize.cu",
+             replaces="im23d_tpu/render/rasterizer_pallas.py:216",
+             launches=recon["k4"], **k4),
+        dict(name="K5 texture sampler forward", route="cuda",
+             source="im23d_tpu_torch/csrc/grid_sample.cu",
+             replaces="im23d_tpu/ops/sampling_pallas.py:197",
+             launches=recon["k5"], **k5),
     ]
     print(json.dumps(dict(kernels=kernels)))
     print(_gpu_line())

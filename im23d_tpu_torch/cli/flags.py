@@ -1,9 +1,18 @@
-"""ShapeNet config override flags (counterpart of the ShapeNet part of
-``im23d_tpu/cli/flags.py``)."""
+"""Shared CLI flag helpers (counterpart of ``im23d_tpu/cli/flags.py``):
+booleans given as words, and the ShapeNet config overrides."""
 
 from __future__ import annotations
 
 import argparse
+
+def str2bool(v: str) -> bool:
+    """argparse type for yes/no, true/false, 1/0 and the like."""
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
+
 
 _SHAPENET_OVERRIDES = (
     "image_size", "voxel_size", "num_points", "num_views", "num_candidates",

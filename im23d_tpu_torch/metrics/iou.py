@@ -1,12 +1,24 @@
-"""Voxelized 3D IoU (counterpart of ``iou_3d`` in
-``im23d_tpu/metrics/iou.py``); uses the plain splat, as the JAX version
-does."""
+"""IoU metrics (counterpart of ``im23d_tpu/metrics/iou.py``): 2D
+silhouette mIoU, and voxelized 3D IoU with the plain splat, as the JAX
+version does."""
 
 from __future__ import annotations
 
 import torch
 
 from im23d_tpu_torch.ops.voxel import trilinear_splat
+
+
+def mean_iou(alpha_pred: torch.Tensor, alpha_real: torch.Tensor,
+             per_sample: bool = False) -> torch.Tensor:
+    """(B, H, W) predicted and real alphas, binarized at 0.5 -> the mean
+    IoU, or the (B,) per-sample IoUs."""
+    p = alpha_pred > 0.5
+    r = alpha_real > 0.5
+    inter = (p & r).to(torch.float32).sum(dim=(1, 2))
+    union = (p | r).to(torch.float32).sum(dim=(1, 2))
+    iou = inter / torch.clamp(union, min=1.0)
+    return iou if per_sample else iou.mean()
 
 
 def iou_3d(points_a: torch.Tensor, points_b: torch.Tensor,

@@ -1,10 +1,11 @@
 """Build the CUDA kernels under ``csrc/`` with nvcc and load them via ctypes.
 
 All ``csrc/*.cu`` files compile into one shared library with a plain C
-interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``), at
-first use, into ``build/im23d_kernels/`` at the repository root.  The file
-name carries a hash of the sources and flags, so an edited kernel is rebuilt
-and a current one is loaded as it is.  A failed build raises.
+interface, at first use, into ``build/im23d_kernels/`` at the repository
+root: one ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c`` per source,
+all started together, then one link.  The file name carries a hash of the
+sources and flags, so an edited kernel is rebuilt and a current one is
+loaded as it is.  A failed build raises.
 
 Every C entry point takes device pointers and the CUDA stream as ``void*``
 and returns the ``cudaError_t`` of its launches; ``check`` raises on a
@@ -26,7 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "im23d_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -40,6 +41,11 @@ _SIGNATURES = {
                              _P, _P, _I, _I, _I, _F, _P],
     # x, y, out, B, N, M, stream
     "im23d_nn_dist2": [_P, _P, _P, _I, _I, _I, _P],
+    # fv, attrs, feat, soft, B, F, A, H, W, sx, sy, sigma, margin, cull, stream
+    "im23d_rasterize_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
+                            _F, _I, _P],
+    # img, grid, out, B, H, W, C, P, stream
+    "im23d_grid_sample_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -71,12 +77,29 @@ def _build() -> ctypes.CDLL:
     log = ""
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{lib_path.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [(src.name, p.returncode, out) for src, p, out
+                  in zip(sources, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{out}" for name, rc, out in failed))
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        for obj in objs:
+            obj.unlink()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
         os.replace(tmp, lib_path)
         lib_path.with_suffix(".log").write_text(log)
     lib = ctypes.CDLL(str(lib_path))

@@ -1,0 +1,216 @@
+"""Triangle rasterization, DIB-R style (counterpart of
+``im23d_tpu/render/rasterizer.py``).
+
+* Hard pass: per pixel, the front-most (largest interpolated z) front-facing
+  covering face wins and its per-corner attributes are barycentrically
+  interpolated.  Faces are taken in chunks of 32 in face order: within a
+  chunk, faces whose z equals the chunk's maximum share the pixel (their
+  attributes are count-averaged); across chunks a strictly larger z wins, so
+  an earlier chunk keeps a tie.  Pixels that no face covers get 0.
+* Soft pass: ``1 - prod_f (1 - exp(-d_f^2 / sigma))`` over front faces,
+  ``d_f`` the pixel's distance to face f (0 inside), each factor clamped
+  at 1 - 1e-7.
+
+``rasterize`` runs the plain ``rasterize_torch`` on CPU tensors and the CUDA
+kernel K4 (``csrc/rasterize.cu``) on CUDA tensors.
+
+Screen convention: vertex x, y in NDC [-1, 1], y up (image row 0 is y = +1);
+larger z is closer.  Front faces wind counter-clockwise on screen.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from im23d_tpu_torch.ops import _build
+
+FACE_CHUNK = 32
+# most attributes per face corner K4 takes (the renderer uses 3: u, v, mask)
+MAX_ATTRS = 8
+_NEG_BIG = -1e9
+
+
+def _pixel_grid(height: int, width: int, dtype, device):
+    ys = 1.0 - (torch.arange(height, dtype=dtype, device=device) + 0.5) * (
+        2.0 / height)
+    xs = (torch.arange(width, dtype=dtype, device=device) + 0.5) * (
+        2.0 / width) - 1.0
+    py, px = torch.meshgrid(ys, xs, indexing="ij")  # (H, W)
+    return px, py
+
+
+def _edge(ax, ay, bx, by, px, py):
+    """Signed area of (a, b, p): positive if p is left of a->b (CCW)."""
+    return (bx - ax) * (py - ay) - (by - ay) * (px - ax)
+
+
+def _point_segment_dist2(px, py, ax, ay, bx, by):
+    """Squared distance from pixel p to segment a-b (broadcast shapes)."""
+    abx, aby = bx - ax, by - ay
+    apx, apy = px - ax, py - ay
+    denom = abx * abx + aby * aby
+    t = torch.clamp((apx * abx + apy * aby) / torch.clamp(denom, min=1e-12),
+                    0.0, 1.0)
+    dx = apx - t * abx
+    dy = apy - t * aby
+    return dx * dx + dy * dy
+
+
+def rasterize_torch(verts: torch.Tensor, faces: torch.Tensor,
+                    attrs: torch.Tensor, height: int, width: int,
+                    sigma: float = 1e-4, cull_backfaces: bool = True):
+    """Plain rasterizer: verts (B, V, 3), faces (F, 3) int, attrs
+    (B, F, 3, A) -> feat (B, H, W, A), soft (B, H, W, 1).
+
+    The JAX version's chunk loop, operation by operation: faces in chunks of
+    ``FACE_CHUNK``, so the largest intermediate is (B, chunk, H, W), never
+    (B, F, H, W).
+    """
+    B = verts.shape[0]
+    F = faces.shape[0]
+    A = attrs.shape[-1]
+    dt, dev = verts.dtype, verts.device
+    px, py = _pixel_grid(height, width, dt, dev)
+    faces = faces.to(device=dev, dtype=torch.int64)
+    n_chunks = -(-F // FACE_CHUNK)
+    pad = n_chunks * FACE_CHUNK - F
+    if pad:  # padded faces are degenerate (all corners vertex 0): never drawn
+        faces = torch.cat([faces, faces.new_zeros((pad, 3))])
+        attrs = torch.cat([attrs, attrs.new_zeros((B, pad, 3, A))], dim=1)
+    fv = verts[:, faces]  # (B, F_pad, 3 corners, 3 xyz)
+
+    best_z = torch.full((B, height, width), _NEG_BIG, dtype=dt, device=dev)
+    best_feat = torch.zeros((B, height, width, A), dtype=dt, device=dev)
+    log_miss = torch.zeros((B, height, width), dtype=dt, device=dev)
+    for c0 in range(0, n_chunks * FACE_CHUNK, FACE_CHUNK):
+        cfv = fv[:, c0:c0 + FACE_CHUNK]        # (B, C, 3, 3)
+        cattr = attrs[:, c0:c0 + FACE_CHUNK]   # (B, C, 3, A)
+        x = cfv[..., 0][..., None, None]       # (B, C, 3, 1, 1)
+        y = cfv[..., 1][..., None, None]
+        zc = cfv[..., 2]                       # (B, C, 3)
+        x0, x1, x2 = x[:, :, 0], x[:, :, 1], x[:, :, 2]  # (B, C, 1, 1)
+        y0, y1, y2 = y[:, :, 0], y[:, :, 1], y[:, :, 2]
+
+        area = _edge(x0, y0, x1, y1, x2, y2)
+        front = area > 1e-9 if cull_backfaces else torch.abs(area) > 1e-9
+        e01 = _edge(x0, y0, x1, y1, px, py)    # (B, C, H, W)
+        e12 = _edge(x1, y1, x2, y2, px, py)
+        e20 = _edge(x2, y2, x0, y0, px, py)
+        # signed inverse area: barycentrics stay right for clockwise faces
+        # when back faces are drawn
+        inv_area = 1.0 / torch.where(torch.abs(area) > 1e-9, area,
+                                     torch.ones_like(area))
+        w0 = e12 * inv_area
+        w1 = e20 * inv_area
+        w2 = e01 * inv_area
+        inside = (e01 >= 0) & (e12 >= 0) & (e20 >= 0)
+        if not cull_backfaces:
+            inside = inside | ((e01 <= 0) & (e12 <= 0) & (e20 <= 0))
+        inside = inside & front
+        z = (w0 * zc[:, :, 0, None, None] + w1 * zc[:, :, 1, None, None]
+             + w2 * zc[:, :, 2, None, None])
+        z_masked = torch.where(inside, z, torch.full_like(z, _NEG_BIG))
+
+        # the chunk's winners as a mask (ties share an edge: their
+        # interpolated attributes agree, and the count averages them)
+        cz = z_masked.amax(dim=1)              # (B, H, W)
+        wsel = (inside & (z_masked >= cz[:, None])).to(dt)
+        cnt = torch.clamp(wsel.sum(dim=1), min=1.0)
+        C = wsel.shape[1]
+        m0 = (w0 * wsel).reshape(B, C, -1)
+        m1 = (w1 * wsel).reshape(B, C, -1)
+        m2 = (w2 * wsel).reshape(B, C, -1)
+        cfeat = (torch.einsum("bcp,bca->bpa", m0, cattr[:, :, 0])
+                 + torch.einsum("bcp,bca->bpa", m1, cattr[:, :, 1])
+                 + torch.einsum("bcp,bca->bpa", m2, cattr[:, :, 2])
+                 ).reshape(B, height, width, A) / cnt[..., None]
+        better = cz > best_z
+        best_feat = torch.where(better[..., None], cfeat, best_feat)
+        best_z = torch.where(better, cz, best_z)
+
+        d2 = torch.minimum(
+            torch.minimum(_point_segment_dist2(px, py, x0, y0, x1, y1),
+                          _point_segment_dist2(px, py, x1, y1, x2, y2)),
+            _point_segment_dist2(px, py, x2, y2, x0, y0))
+        d2 = torch.where(inside, torch.zeros_like(d2), d2)
+        cov = torch.where(front, torch.exp(-d2 / sigma), torch.zeros_like(d2))
+        log_miss = log_miss + torch.log1p(
+            -torch.clamp(cov, max=1.0 - 1e-7)).sum(dim=1)
+
+    covered = best_z > _NEG_BIG * 0.5
+    feat = torch.where(covered[..., None], best_feat,
+                       torch.zeros_like(best_feat))
+    soft = (1.0 - torch.exp(log_miss))[..., None]
+    return feat, soft
+
+
+def soft_margin(sigma: float) -> float:
+    """NDC distance beyond which a face's coverage exp(-d²/sigma) is 0 in
+    float32 (expf underflows to 0 below -103.97): K4 may skip the face
+    there without changing a bit of the soft silhouette."""
+    return math.sqrt(104.0 * sigma)
+
+
+def rasterize_kernel(verts: torch.Tensor, faces: torch.Tensor,
+                     attrs: torch.Tensor, height: int, width: int,
+                     sigma: float = 1e-4, cull_backfaces: bool = True):
+    """Launch K4 (forward) on CUDA tensors; same contract as
+    ``rasterize_torch``.
+
+    Replaces the Pallas kernel ``_fwd_kernel``
+    (``im23d_tpu/render/rasterizer_pallas.py:216``).  Bound by arithmetic
+    on the CUDA cores (edge functions, segment distances and one exp and
+    one log1p per pixel and nearby face); one thread per pixel, faces staged
+    through shared memory 32 at a time in face order, chunks and faces that
+    cannot touch a tile skipped block-uniformly (see ``csrc/rasterize.cu``).
+    The per-face gather of the corners is done here in torch.
+    """
+    dev = verts.device
+    if dev.type != "cuda" or attrs.device != dev:
+        raise ValueError(f"rasterize_kernel needs CUDA tensors on one device, "
+                         f"got {verts.device} and {attrs.device}")
+    for name, t in (("verts", verts), ("attrs", attrs)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    B, _, three = verts.shape
+    F = faces.shape[0]
+    A = attrs.shape[-1]
+    if (three != 3 or faces.dim() != 2 or faces.shape[1] != 3
+            or attrs.shape[:3] != (B, F, 3)):
+        raise ValueError(f"shapes {tuple(verts.shape)}, {tuple(faces.shape)} "
+                         f"and {tuple(attrs.shape)} do not pair up")
+    if not 1 <= A <= MAX_ATTRS:
+        raise ValueError(f"K4 takes 1 to {MAX_ATTRS} attributes, got {A}")
+    if min(B, height, width) < 1:
+        raise ValueError(f"empty raster: B={B}, {height} x {width}")
+    fv = verts[:, faces.to(device=dev, dtype=torch.int64)].contiguous()
+    attrs = attrs.contiguous()
+    feat = torch.empty((B, height, width, A), dtype=torch.float32, device=dev)
+    soft = torch.empty((B, height, width, 1), dtype=torch.float32, device=dev)
+    lib = _build.load_kernels()
+    rc = lib.im23d_rasterize_fwd(
+        fv.data_ptr(), attrs.data_ptr(), feat.data_ptr(), soft.data_ptr(),
+        B, F, A, height, width, float(np.float32(2.0 / width)),
+        float(np.float32(2.0 / height)), float(sigma), soft_margin(sigma),
+        int(cull_backfaces), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "rasterize kernel (K4)")
+    rasterize_kernel.launches += 1
+    return feat, soft
+
+
+rasterize_kernel.launches = 0
+
+
+def rasterize(verts: torch.Tensor, faces: torch.Tensor, attrs: torch.Tensor,
+              height: int, width: int, sigma: float = 1e-4,
+              cull_backfaces: bool = True):
+    """Rasterize meshes to interpolated attributes and soft coverage: plain
+    on CPU, K4 on CUDA (float32)."""
+    if verts.device.type == "cpu":
+        return rasterize_torch(verts, faces, attrs, height, width, sigma,
+                               cull_backfaces)
+    return rasterize_kernel(verts.float(), faces, attrs.float(), height,
+                            width, sigma, cull_backfaces)

@@ -15,14 +15,13 @@ Counterpart of ``im23d_tpu/train/shapenet_learner.py`` on one device:
 from __future__ import annotations
 
 import dataclasses
-import os
-import re
 import time
 from typing import Any, Iterator
 
 import numpy as np
 import torch
 
+from im23d_tpu_torch.core.checkpoint import resolve_checkpoint, save_checkpoint
 from im23d_tpu_torch.core.convert import unsupervised_part_state_dict
 from im23d_tpu_torch.core.metrics_logger import MetricsLogger
 from im23d_tpu_torch.losses.effective import unsupervised_loss
@@ -83,14 +82,6 @@ class ShapeNetConfig:
 def _interp(schedule: tuple[float, float], frac: torch.Tensor) -> torch.Tensor:
     lo, hi = schedule
     return lo * (1.0 - frac) + hi * frac
-
-
-_CKPT = re.compile(r"^checkpoint_(\d+)\.pt$")
-_LATEST = "latest"
-
-
-def _ckpt_path(workdir: str, step) -> str:
-    return os.path.join(workdir, f"checkpoint_{step}.pt")
 
 
 class ShapeNetLearner:
@@ -292,38 +283,19 @@ class ShapeNetLearner:
         """``torch.save`` of ``{params, opt_state, step}``: tag None writes
         the permanent checkpoint_<step>.pt, tag "latest" overwrites the
         rolling checkpoint_latest.pt."""
-        if tag not in (None, _LATEST):
-            raise ValueError(f"tag must be None or {_LATEST!r}, got {tag!r}")
-        workdir = workdir or self.workdir
-        os.makedirs(workdir, exist_ok=True)
-        path = _ckpt_path(workdir, self.step if tag is None else tag)
         params = {k: v.detach().cpu() for k, v in
                   self.model.state_dict().items()}
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(dict(params=params, opt_state=self.opt.state_dict(),
-                        step=self.step), tmp)
-        os.replace(tmp, path)
-        return path
+        return save_checkpoint(
+            workdir or self.workdir, self.step if tag is None else tag,
+            dict(params=params, opt_state=self.opt.state_dict(),
+                 step=self.step))
 
     def restore(self, workdir: str | None = None, step=None) -> None:
         """Load the checkpoint of ``step`` (an int or "latest"); by default
         the newer, by file time, of the highest numbered one and the rolling
         "latest".  A checkpoint without ``opt_state`` leaves the optimizer
         as it is."""
-        workdir = workdir or self.workdir
-        names = os.listdir(workdir) if os.path.isdir(workdir) else []
-        steps = sorted(int(m.group(1)) for m in map(_CKPT.match, names) if m)
-        if step is None:
-            candidates = [_ckpt_path(workdir, s) for s in steps[-1:]]
-            if f"checkpoint_{_LATEST}.pt" in names:
-                candidates.append(_ckpt_path(workdir, _LATEST))
-            path = max(candidates, key=os.path.getmtime, default=None)
-        elif step == _LATEST or step in steps:
-            path = _ckpt_path(workdir, step)
-        else:
-            path = None
-        if path is None or not os.path.exists(path):
-            raise FileNotFoundError(f"no checkpoint {step} under {workdir}")
+        path = resolve_checkpoint(workdir or self.workdir, step)
         tree = torch.load(path, map_location=self.device, weights_only=True)
         self.model.load_state_dict(tree["params"])
         if "opt_state" in tree:

@@ -1,5 +1,5 @@
-"""CUDA kernels K1, K2 and K3 of the PyTorch port against their plain
-versions.
+"""CUDA kernels K1, K2, K3, K4 and K5 of the PyTorch port against their
+plain versions.
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
 one.  Imports no JAX, so it runs where JAX is not installed; the repository's
@@ -14,7 +14,11 @@ another order than the plain band matmul, atol 1e-5 on silhouettes <= ~1;
 K2 is held by relative L2 error per output, ||kernel - plain|| / ||plain||
 <= 1e-4, because a clamp mask within rounding of its bound can flip and move
 a few gradients by O(1) of their value; K3 computes the plain formula, up to
-FMA contraction, rtol 1e-5.
+FMA contraction, rtol 1e-5; K4 computes the plain rasterizer's
+arithmetic with FMA contraction ruled out: feat by the 0.999 quantile of
+|kernel - plain| <= 1e-5 (an edge function rounded to the other side would
+move a boundary pixel to the other face), soft atol 1e-5 (its log1p terms
+are summed in another order); K5 is bit-equal to the plain gather.
 """
 
 import numpy as np
@@ -35,6 +39,16 @@ from im23d_tpu_torch.ops.projection import (
     projection_silhouette,
     projection_silhouette_reuse,
     projection_silhouette_torch,
+)
+from im23d_tpu_torch.ops.sampling import (
+    grid_sample_bilinear,
+    grid_sample_bilinear_kernel,
+    grid_sample_bilinear_torch,
+)
+from im23d_tpu_torch.render.rasterizer import (
+    rasterize,
+    rasterize_kernel,
+    rasterize_torch,
 )
 
 pytestmark = pytest.mark.cuda
@@ -193,3 +207,130 @@ def test_k3_matches_plain(dev, n, m):
     assert nn_dist2_kernel.launches == n0 + 1
     torch.testing.assert_close(got, nn_dist2_torch(x, y), rtol=1e-5,
                                atol=1e-7)
+
+
+def _scene(seed, dev, B=2, V=40, F=60, A=3, spread=0.9):
+    rng = np.random.RandomState(seed)
+    verts = rng.uniform(-spread, spread, (B, V, 3)).astype(np.float32)
+    faces = np.stack([rng.choice(V, 3, replace=False)
+                      for _ in range(F)]).astype(np.int64)
+    attrs = rng.rand(B, F, 3, A).astype(np.float32)
+    return (torch.from_numpy(verts).to(dev), torch.from_numpy(faces).to(dev),
+            torch.from_numpy(attrs).to(dev))
+
+
+def _check_k4(got, ref, soft_atol=1e-5):
+    d = (got[0] - ref[0]).abs().flatten().cpu().numpy()
+    assert np.quantile(d, 0.999) <= 1e-5, np.quantile(d, 0.999)
+    assert float((got[1] - ref[1]).abs().max()) <= soft_atol
+
+
+@pytest.mark.parametrize("cull,h,w,sigma,A", [
+    (True, 64, 64, 1e-3, 3), (False, 64, 64, 1e-3, 3),
+    (True, 70, 45, 1e-4, 1), (False, 33, 97, 1e-4, 8),
+])
+def test_k4_matches_plain(dev, cull, h, w, sigma, A):
+    """Random overlapping faces (both windings), tiles cut by odd sizes,
+    one to eight attributes."""
+    verts, faces, attrs = _scene(7, dev, A=A)
+    n0 = rasterize_kernel.launches
+    got = rasterize(verts, faces, attrs, h, w, sigma, cull)
+    ref = rasterize_torch(verts, faces, attrs, h, w, sigma, cull)
+    torch.cuda.synchronize()
+    assert rasterize_kernel.launches == n0 + 1
+    _check_k4(got, ref)
+
+
+def test_k4_sphere_ties_match_plain(dev):
+    """A closed sphere: shared edges give depth ties within and across
+    chunks of 32, the case the tie rules exist for."""
+    from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
+
+    tpl = MeshTemplate(segments=32, rings=16)
+    v = tpl.tensor("vertices", dev)[None] * 0.7
+    v = torch.cat([v, v * v.new_tensor([1.0, -1.0, -1.0])])
+    faces = tpl.tensor("faces", dev)
+    attrs = torch.rand((2, faces.shape[0], 3, 3), device=dev,
+                       generator=torch.Generator(dev).manual_seed(0))
+    for cull in (True, False):
+        got = rasterize(v, faces, attrs, 128, 128, 1e-4, cull)
+        ref = rasterize_torch(v, faces, attrs, 128, 128, 1e-4, cull)
+        torch.cuda.synchronize()
+        _check_k4(got, ref)
+        assert torch.equal(got[0][..., 0] != 0, ref[0][..., 0] != 0)
+
+
+def test_k4_empty_scene(dev):
+    verts, faces, attrs = _scene(8, dev)
+    verts[..., 0] += 5.0
+    for f in (faces, faces[:0]):
+        feat, soft = rasterize(verts, f, attrs[:, :len(f)], 16, 40)
+        torch.cuda.synchronize()
+        assert not feat.any() and not soft.any()
+
+
+def test_k4_rejects_bad_operands(dev):
+    verts, faces, attrs = _scene(9, dev, A=9)
+    with pytest.raises(ValueError):
+        rasterize_kernel(verts, faces, attrs, 16, 16)  # A > MAX_ATTRS
+    with pytest.raises(TypeError):
+        rasterize_kernel(verts.double(), faces, attrs[..., :3], 16, 16)
+    with pytest.raises(ValueError):
+        rasterize_kernel(verts.cpu(), faces, attrs[..., :3], 16, 16)
+
+
+@pytest.mark.parametrize("shape,grid_hw", [
+    ((2, 128, 130, 3), (256, 256)), ((3, 7, 5, 1), (9, 11)),
+    ((1, 1024, 1024, 3), (64, 80)), ((2, 16, 16, 5), (1, 1)),
+])
+def test_k5_matches_plain(dev, shape, grid_hw):
+    """Bit-equal to the plain gather at aligned, odd and photo-sized
+    textures, coordinates beyond the edges included."""
+    gen = torch.Generator(dev).manual_seed(1)
+    img = torch.rand(shape, device=dev, generator=gen)
+    grid = torch.rand((shape[0], *grid_hw, 2), device=dev,
+                      generator=gen) * 2.4 - 1.2
+    n0 = grid_sample_bilinear_kernel.launches
+    got = grid_sample_bilinear(img, grid)
+    torch.cuda.synchronize()
+    assert grid_sample_bilinear_kernel.launches == n0 + 1
+    torch.testing.assert_close(got, grid_sample_bilinear_torch(img, grid),
+                               atol=0, rtol=0)
+
+
+def test_k5_rejects_bad_operands(dev):
+    img = torch.rand((2, 8, 8, 3), device=dev)
+    grid = torch.rand((2, 4, 4, 2), device=dev)
+    with pytest.raises(TypeError):
+        grid_sample_bilinear_kernel(img.double(), grid)
+    with pytest.raises(ValueError):
+        grid_sample_bilinear_kernel(img, grid[:1])
+    with pytest.raises(ValueError):
+        grid_sample_bilinear_kernel(img.cpu(), grid)
+
+
+def test_render_mesh_on_the_card_matches_the_cpu(dev):
+    """render_mesh through K4 and K5 against the plain path on the CPU."""
+    from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
+    from im23d_tpu_torch.render.renderer import render_mesh
+
+    tpl = MeshTemplate(segments=16, rings=8)
+    rng = np.random.RandomState(10)
+    dmap = torch.from_numpy((rng.randn(2, 16, 16, 3) * 0.05).astype(
+        np.float32))
+    tex = torch.from_numpy(rng.rand(2, 16, 16, 3).astype(np.float32))
+
+    def run(device):
+        v = tpl.get_vertex_positions(dmap.to(device)) * 0.7
+        uvs, t = tpl.adjust_uv_and_texture(tex.to(device))
+        out = render_mesh(v, tpl.tensor("faces", device), uvs,
+                          tpl.tensor("face_uvs", device), t, 64, 64)
+        return [o.cpu() for o in out]
+
+    k4, k5 = rasterize_kernel.launches, grid_sample_bilinear_kernel.launches
+    got = run(dev)
+    assert rasterize_kernel.launches == k4 + 1
+    assert grid_sample_bilinear_kernel.launches == k5 + 1
+    ref = run("cpu")
+    _check_k4(got[:2], ref[:2])
+    torch.testing.assert_close(got[2], ref[2], atol=1e-5, rtol=1e-5)

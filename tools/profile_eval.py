@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of the chairs eval and train steps goes on one GPU
-(PyTorch port).
+"""Where the time of the chairs eval and train steps and of the Pipeline-B
+(CUB mesh estimation) eval step goes on one GPU (PyTorch port).
 
 For each window of the eval path (the whole eval step with its loss fetch,
 then its parts: host->device normalize, model forward, keep mask, the eval
@@ -22,8 +22,14 @@ Then the peak device memory of one candidate sweep and of one train step.
 The model has random weights from the config's seed; the batch is
 synthetic.
 
+The recon windows (``--only recon``) are the CUB eval step at
+``ReconConfig()`` (bs 50, 256² RGBA, 128² texture, 960 faces) with its
+loss fetch, then its parts: the host->device copy of the batch, the
+network forward (bf16), posing and rendering (vertex sampler, K4, K5), and
+K4 and K5 alone; the batch is 50 fabricated photos.
+
 Usage (from the repository root, on a machine with a CUDA device):
-    python3 tools/profile_eval.py [--iters 10] [--only eval|train]
+    python3 tools/profile_eval.py [--iters 10] [--only eval|train|recon]
 """
 
 from __future__ import annotations
@@ -40,7 +46,10 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from im23d_tpu_torch.data.cmr import batch_iterator  # noqa: E402
+from im23d_tpu_torch.data.fabricate import StructuredReconSet  # noqa: E402
 from im23d_tpu_torch.data.synthetic import SyntheticSilhouettes  # noqa: E402
+from im23d_tpu_torch.geometry.mesh_template import MeshTemplate  # noqa: E402
 from im23d_tpu_torch.losses.effective import (  # noqa: E402
     _candidate_cam,
     unsupervised_loss,
@@ -50,6 +59,12 @@ from im23d_tpu_torch.ops.projection import (  # noqa: E402
     _prep_projection,
     _taps_and_scale,
     projection_backward_kernel,
+)
+from im23d_tpu_torch.ops.sampling import grid_sample_bilinear  # noqa: E402
+from im23d_tpu_torch.render.rasterizer import rasterize  # noqa: E402
+from im23d_tpu_torch.train.recon_trainer import (  # noqa: E402
+    ReconConfig,
+    ReconTrainer,
 )
 from im23d_tpu_torch.train.shapenet_learner import (  # noqa: E402
     ShapeNetConfig,
@@ -169,11 +184,64 @@ def profile_train(cfg, iters: int) -> None:
           f"{_peak_mib(lambda: learner.train_step(nb)):.3f}")
 
 
+def profile_recon(iters: int) -> None:
+    """The CUB eval step's windows; shares are of the whole step's device
+    busy time."""
+    cfg = ReconConfig()
+    template = MeshTemplate(segments=32, rings=16)
+    B, res = cfg.batch_size, cfg.image_resolution
+    data = StructuredReconSet(template, B, res, cfg.texture_resolution,
+                              device="cuda")
+    batch = next(iter(batch_iterator(data, B, shuffle=False,
+                                     num_workers=1)))
+    trainer = ReconTrainer(cfg, dataset_size=len(data), template=template,
+                           device="cuda")
+    nb = trainer._put(batch)
+    with torch.no_grad():
+        tex, mesh_map = trainer.model(nb["image"])
+        _, vtx, _, _ = trainer._pose_and_render(mesh_map, tex, nb)
+        uvs, tex_adj = template.adjust_uv_and_texture(tex)
+    faces = template.tensor("faces", "cuda")
+    attrs = torch.cat([uvs[:, template.tensor("face_uvs", "cuda")],
+                       vtx.new_ones((B, faces.shape[0], 3, 1))], dim=-1)
+    feat, _ = rasterize(vtx, faces, attrs, res, res)
+    grid = ((feat[..., :2] * 2 - 1) * feat.new_tensor([1.0, -1.0])
+            ).contiguous()
+
+    def forward():
+        with torch.no_grad():
+            return trainer.model(nb["image"])
+
+    def pose_render():
+        with torch.no_grad():
+            return trainer._pose_and_render(mesh_map, tex, nb)
+
+    it = iters
+    total = report(f"recon eval_step + loss fetch (bs {B}, {res}², "
+                   f"{faces.shape[0]} faces)",
+                   lambda: float(trainer.eval_step(batch)[0]["recon_loss"]),
+                   it)
+    parts = {
+        "H2D copy of the batch": lambda: trainer._put(batch),
+        "network forward (bf16)": forward,
+        "pose + render (vertex sampler, K4, K5)": pose_render,
+        "K4 alone": lambda: rasterize(vtx, faces, attrs, res, res),
+        "K5 alone": lambda: grid_sample_bilinear(tex_adj, grid),
+    }
+    for name, fn in parts.items():
+        busy = report(name, fn, it)
+        print(f"share of the recon eval step's device busy: "
+              f"{busy / total:.3f}  {name}")
+    print(f"peak MiB of one recon eval step "
+          f"{_peak_mib(lambda: trainer.eval_step(batch)):.3f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--only", choices=("eval", "train"), default=None,
-                    help="profile one path (default: both)")
+    ap.add_argument("--only", choices=("eval", "train", "recon"),
+                    default=None,
+                    help="profile one path (default: all three)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_eval: no CUDA device", file=sys.stderr)
@@ -183,6 +251,10 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip())
 
+    if args.only in (None, "recon"):
+        profile_recon(args.iters)
+    if args.only == "recon":
+        return 0
     cfg = ShapeNetConfig.chairs()
     if args.only != "eval":
         profile_train(cfg, args.iters)
