@@ -1,20 +1,29 @@
-"""Mesh-estimation CLI (counterpart of ``im23d_tpu/cli/run_reconstruction.py``,
-with the same flags and defaults, plus ``--device``).
+"""Mesh-estimation training, evaluation and pseudo-ground-truth CLI
+(counterpart of ``im23d_tpu/cli/run_reconstruction.py``, with the same flags
+and defaults, plus ``--device``).
 
-This slice runs the evaluation path: ``--evaluate`` restores the checkpoint
-of ``--which_epoch`` from ``checkpoints_recon/<name>`` and prints the mean
-recon loss, flatness loss and mIoU over the validation split.  The other
-modes raise ``NotImplementedError`` naming the slice that brings them.
+Without a mode flag it trains (checkpoints under ``checkpoints_recon/<name>``:
+a permanent one every ``--checkpoint_freq`` epochs, the rolling ``latest``
+every ``--save_freq``; validation every ``--evaluate_freq``, a multi-view
+render every ``--image_freq``; Ctrl-C saves ``latest`` and exits 130).
+``--continue_train`` resumes, ``--evaluate`` prints the validation means,
+``--generate_pseudogt`` writes the pseudo-ground-truth cache under
+``cache/<dataset>``.  ``--export_serving``, ``--multihost`` and
+``--data_processes > 0`` raise ``NotImplementedError`` naming the slice that
+brings them.
 
-Example:
-    python -m im23d_tpu_torch.cli.run_reconstruction --name cub_recon \\
-        --dataset cub --evaluate
+Examples:
+    python -m im23d_tpu_torch.cli.run_reconstruction --name cub_recon \
+        --dataset cub
+    python -m im23d_tpu_torch.cli.run_reconstruction --name cub_recon \
+        --dataset cub --generate_pseudogt
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
 from im23d_tpu_torch.cli.flags import str2bool
 
@@ -68,30 +77,26 @@ def build_parser() -> argparse.ArgumentParser:
 
 # modes of the JAX CLI that later slices of the port bring
 _NOT_PORTED = (
-    ("generate_pseudogt", "--generate_pseudogt comes with the Pipeline-B "
-     "training slice (it needs K5's backward and the Inception network)"),
     ("export_serving", "--export_serving comes with the serving slice "
      "(torch.export)"),
     ("multihost", "--multihost comes with the multi-GPU slice"),
-    ("profile_dir", "--profile_dir comes with the Pipeline-B training slice"),
-    ("tensorboard", "--tensorboard comes with the Pipeline-B training "
-     "slice"),
+    ("data_processes", "--data_processes > 0 (forked PIL decoders) comes "
+     "with the real-data slice; use --num_workers threads"),
 )
 
 
 def main(argv=None, datasets=None) -> int:
     """Run the CLI.  ``datasets`` is an optional (train, val) pair of
     indexable datasets with the CMR item contract, used in place of the
-    CUB / P3D loaders (the train split only sizes ``DatasetParams``)."""
+    CUB / P3D loaders.  For ``--generate_pseudogt`` the train items carry
+    ``image_299`` and ``image_<renderer res>`` and the val items
+    ``image_299`` (or a 299² ``image``)."""
     args = build_parser().parse_args(argv)
     for flag, why in _NOT_PORTED:
         if getattr(args, flag):
             raise NotImplementedError(why)
-    if not args.evaluate:
-        raise NotImplementedError(
-            "the training loop comes with the Pipeline-B training slice; "
-            "this slice runs --evaluate")
 
+    from im23d_tpu_torch.core.metrics_logger import MetricsLogger
     from im23d_tpu_torch.data.cmr import (
         CUBDataset,
         P3dDataset,
@@ -106,20 +111,26 @@ def main(argv=None, datasets=None) -> int:
     else:
         template = MeshTemplate(args.mesh_path)
 
+    inception_res = 299
+    renderer_res = max(1024, 2 * args.pseudogt_resolution)
     if datasets is not None:
         train_ds, val_ds = datasets
-    elif args.dataset == "cub":
-        train_ds = CUBDataset(args.datasets_root, "train", False,
-                              args.image_resolution)
-        val_ds = CUBDataset(args.datasets_root, "testval", False,
-                            args.image_resolution)
-    elif args.dataset == "p3d":
-        train_ds = P3dDataset(args.datasets_root, "train", False,
-                              args.image_resolution)
-        val_ds = P3dDataset(args.datasets_root, "val", False,
-                            args.image_resolution)
     else:
-        raise ValueError("Invalid dataset")
+        sizes = ([args.image_resolution, inception_res, renderer_res]
+                 if args.generate_pseudogt else args.image_resolution)
+        is_train = not (args.no_augmentation or args.evaluate
+                        or args.generate_pseudogt)
+        val_res = (inception_res if args.generate_pseudogt
+                   else args.image_resolution)
+        if args.dataset == "cub":
+            train_ds = CUBDataset(args.datasets_root, "train", is_train, sizes)
+            val_ds = CUBDataset(args.datasets_root, "testval", False, val_res)
+        elif args.dataset == "p3d":
+            train_ds = P3dDataset(args.datasets_root, "train", is_train, sizes)
+            val_ds = (None if args.generate_pseudogt else P3dDataset(
+                args.datasets_root, "val", False, args.image_resolution))
+        else:
+            raise ValueError("Invalid dataset")
 
     cfg = ReconConfig(
         compute_dtype=args.compute_dtype,
@@ -140,15 +151,100 @@ def main(argv=None, datasets=None) -> int:
     workdir = os.path.join("checkpoints_recon", args.name)
     trainer = ReconTrainer(cfg, dataset_size=len(train_ds), template=template,
                            workdir=workdir, device=args.device)
-    trainer.restore(step=None if args.which_epoch in ("latest", "best")
-                    else int(args.which_epoch))
-    # drop_last=False: the evaluator pads the tail batch and weighs the pads
-    # 0, so every validation image scores
-    means = trainer.evaluate(batch_iterator(
-        val_ds, args.batch_size, shuffle=False, drop_last=False,
-        keys=("image", "scale", "translation", "rotation", "idx"),
-        num_workers=args.num_workers))
-    print({k: round(v, 5) for k, v in means.items()})
+    if args.evaluate or args.generate_pseudogt or args.continue_train:
+        trainer.restore(step=None if args.which_epoch in ("latest", "best")
+                        else int(args.which_epoch))
+    train_keys = ("image", "scale", "translation", "rotation", "idx")
+
+    if args.generate_pseudogt:
+        cache_dir = os.path.join("cache", args.dataset)
+        os.makedirs(cache_dir, exist_ok=True)
+
+        def loader():
+            for batch in batch_iterator(train_ds, args.batch_size,
+                                        shuffle=False, drop_last=False,
+                                        num_workers=args.num_workers):
+                batch["hd_image"] = (batch.pop(f"image_{renderer_res}") / 2.0
+                                     + 0.5)
+                batch["inception_image"] = batch.pop("image_299")
+                yield batch
+
+        def val_loader():
+            for batch in batch_iterator(val_ds, args.batch_size,
+                                        shuffle=False, drop_last=False,
+                                        num_workers=args.num_workers):
+                key = "image_299" if "image_299" in batch else "image"
+                yield {"inception_image": batch[key]}
+
+        trainer.generate_pseudogt(
+            loader(), cache_dir, args.dataset,
+            pseudogt_resolution=args.pseudogt_resolution,
+            inception_resolution=inception_res,
+            paths=train_ds.get_paths(),
+            val_loader=val_loader() if args.dataset == "cub" else None,
+            renderer_resolution=renderer_res)
+        return 0
+
+    def val_batches():
+        # drop_last=False: the evaluator pads the tail batch and weighs the
+        # pads 0, so every validation image scores
+        return batch_iterator(val_ds, args.batch_size, shuffle=False,
+                              drop_last=False, keys=train_keys,
+                              num_workers=args.num_workers)
+
+    if args.evaluate:
+        means = trainer.evaluate(val_batches())
+        print({k: round(v, 5) for k, v in means.items()})
+        return 0
+
+    logger = MetricsLogger(workdir, "recon", tensorboard=args.tensorboard)
+    # the same sample is rendered every image_freq epochs
+    viz_batch = next(iter(batch_iterator(train_ds, args.batch_size,
+                                         shuffle=False, keys=train_keys,
+                                         num_workers=args.num_workers)))
+    profiler = None
+    if args.profile_dir:
+        from im23d_tpu_torch.core.profiler import StepProfiler
+
+        profiler = StepProfiler(args.profile_dir)
+    try:
+        for epoch in range(trainer.epoch, args.epochs):
+            trainer.epoch = epoch
+            t0 = time.time()
+            for it_in_epoch, batch in enumerate(batch_iterator(
+                    train_ds, args.batch_size, seed=epoch, keys=train_keys,
+                    num_workers=args.num_workers)):
+                if profiler is not None:
+                    profiler.tick()
+                losses = trainer.train_step(batch)
+                if it_in_epoch % 10 == 0:
+                    logger.log(trainer.total_it,
+                               {k: float(v) for k, v in losses.items()})
+            logger.log_text(f"epoch {epoch}: {time.time() - t0:.1f}s")
+            trainer.epoch = epoch + 1
+            if (epoch + 1) % args.checkpoint_freq == 0:
+                trainer.save()
+            elif (epoch + 1) % args.save_freq == 0:
+                trainer.save(tag="latest")
+            if (epoch + 1) % args.evaluate_freq == 0 and val_ds is not None:
+                means = trainer.evaluate(val_batches())
+                logger.log(trainer.total_it,
+                           {f"val/{k}": v for k, v in means.items()})
+            if (epoch + 1) % args.image_freq == 0:
+                tex, mesh_map = trainer.predict(viz_batch["image"])
+                grid = trainer.render_multiview(
+                    trainer.template.get_vertex_positions(mesh_map), tex,
+                    idx=0)
+                logger.log_images(trainer.total_it, "render_multiview",
+                                  grid[None], nrow=1)
+    except KeyboardInterrupt:
+        logger.log_text("KeyboardInterrupt: saving final checkpoint")
+        trainer.save(tag="latest")
+        return 130
+    finally:
+        if profiler is not None:
+            profiler.close()
+    trainer.save()
     return 0
 
 

@@ -1,6 +1,6 @@
 """JAX params -> the port's ``state_dict``: ``UnsupervisedPart`` /
 ``SupervisedPart`` (Pipeline A), ``ReconstructionNetwork`` and
-``DatasetParams`` (Pipeline B).
+``DatasetParams`` (Pipeline B), ``InceptionV3Features`` (FID).
 
 Input is the flax param tree as nested dicts of numpy arrays (what
 ``jax.tree.map(np.asarray, params)`` gives), with or without the top-level
@@ -152,3 +152,27 @@ def dataset_params_state_dict(dp_params: dict) -> dict:
     state dict (the same names)."""
     dp = dp_params.get("params", dp_params)
     return {k: _tensor(v) for k, v in dp.items()}
+
+
+def inception_state_dict(variables: dict) -> dict:
+    """Flax ``InceptionV3Features`` variables ``{params, batch_stats}`` ->
+    the port's ``InceptionV3Features.state_dict`` (torchvision names); the
+    inverse of the JAX package's ``load_torch_state_dict``: conv kernels
+    HWIO -> OIHW, batch-norm scale / bias / mean / var -> weight / bias /
+    running_mean / running_var."""
+    sd: dict[str, torch.Tensor] = {}
+    names = {"kernel": "weight", "scale": "weight", "bias": "bias",
+             "mean": "running_mean", "var": "running_var"}
+
+    def walk(tree: dict, prefix: tuple) -> None:
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                walk(val, prefix + (key,))
+            else:
+                name = ".".join(prefix + (names[key],))
+                sd[name] = (_conv_weight(val) if key == "kernel"
+                            else _tensor(val))
+
+    walk(variables["params"], ())
+    walk(variables["batch_stats"], ())
+    return sd

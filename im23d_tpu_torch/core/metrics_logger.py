@@ -59,19 +59,28 @@ class MetricsLogger:
     """``metrics_<name>.jsonl`` (one dict per event), ``log.txt`` (the
     command line of each run) and ``images/*.png`` under ``workdir``."""
 
-    def __init__(self, workdir: str, name: str = "train"):
+    def __init__(self, workdir: str, name: str = "train",
+                 tensorboard: bool = True):
         self.dir = os.path.abspath(workdir)
         os.makedirs(self.dir, exist_ok=True)
         self._fh = open(os.path.join(self.dir, f"metrics_{name}.jsonl"), "a",
                         buffering=1)
         self._txt = open(os.path.join(self.dir, "log.txt"), "a", buffering=1)
         print(" ".join(sys.argv), file=self._txt)
-        try:  # optional TensorBoard mirror
-            from torch.utils.tensorboard import SummaryWriter
+        self._tb = None
+        if tensorboard:
+            try:  # optional TensorBoard mirror
+                from torch.utils.tensorboard import SummaryWriter
 
-            self._tb = SummaryWriter(log_dir=os.path.join(self.dir, "tb", name))
-        except Exception:
-            self._tb = None
+                self._tb = SummaryWriter(
+                    log_dir=os.path.join(self.dir, "tb", name))
+            except Exception:
+                self._tb = None
+
+    def log_text(self, text: str) -> None:
+        """A line to log.txt and stdout."""
+        print(text, file=self._txt)
+        print(text)
 
     def log(self, step: int, scalars: Mapping[str, float]) -> None:
         rec = {"step": int(step), "time": time.time()}

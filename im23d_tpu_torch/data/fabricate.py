@@ -186,7 +186,11 @@ class StructuredReconSet:
     """``n`` photos rendered in memory from structured (texture, mesh)
     pairs, with the CMR item contract: ``image`` (R, R, 4) masked RGBA in
     [-1, 1] (white background outside the alpha > 0.5 mask, then masked),
-    ``scale``, ``translation`` (x, y, 0), ``rotation`` (wxyz) and ``idx``.
+    ``scale``, ``translation`` (x, y, 0), ``rotation`` (wxyz) and ``idx``;
+    for each extra resolution S of ``sizes``, ``image_S`` (S, S, 3), the
+    masked RGB of the same photo rendered at S (as the CMR loaders'
+    multi-resolution items; pseudo-GT generation reads ``image_299`` and
+    ``image_1024``).  ``get_paths`` names the photos as the JAX tree does.
 
     The poses are drawn as in ``build_structured_cmr_tree`` and are already
     normalised: the JAX tree writes each photo as a PNG with its pose in
@@ -197,7 +201,8 @@ class StructuredReconSet:
 
     def __init__(self, template, n: int, photo_res: int = 256,
                  texture_resolution: int = 128, n_classes: int = 4,
-                 seed: int = 0, batch: int = 10, device="cpu"):
+                 seed: int = 0, batch: int = 10, device="cpu",
+                 sizes=()):
         fab = StructuredPseudoGT(n, texture_resolution, n_classes=n_classes,
                                  seed=seed)
         rng = np.random.default_rng(np.random.SeedSequence([seed, 3]))
@@ -209,6 +214,8 @@ class StructuredReconSet:
             [t_n, np.zeros((n, 1))], axis=1).astype(np.float32)
         self.rotation = quat.astype(np.float32)
         self.images = np.zeros((n, photo_res, photo_res, 4), np.float32)
+        self.extra = {int(r): np.zeros((n, r, r, 3), np.float32)
+                      for r in sizes}
         for start in range(0, n, batch):
             sel = list(range(start, min(start + batch, n)))
             maps = [fab.maps(i) for i in sel]
@@ -218,21 +225,32 @@ class StructuredReconSet:
                     [m[key].transpose(1, 2, 0) for m in maps]),
                     dtype=torch.float32, device=device)
 
-            with torch.no_grad():
-                img, alpha = render_generated(
-                    template, photo_res, stack("mesh"), stack("texture"),
-                    *(torch.as_tensor(a[sel], device=device) for a in (
-                        self.scale, self.translation, self.rotation)))
-            img, alpha = img.cpu().numpy(), alpha.cpu().numpy()
-            mask = (alpha > 0.5).astype(np.float32)
-            photo = np.where(alpha > 0.5, img, 1.0)
-            self.images[start:start + len(sel)] = np.concatenate(
-                [(np.clip(photo, 0.0, 1.0) * 2 - 1) * mask, mask], axis=-1)
+            for res in (photo_res, *self.extra):
+                with torch.no_grad():
+                    img, alpha = render_generated(
+                        template, res, stack("mesh"), stack("texture"),
+                        *(torch.as_tensor(a[sel], device=device) for a in (
+                            self.scale, self.translation, self.rotation)))
+                img, alpha = img.cpu().numpy(), alpha.cpu().numpy()
+                mask = (alpha > 0.5).astype(np.float32)
+                rgb = (np.clip(np.where(alpha > 0.5, img, 1.0), 0.0, 1.0)
+                       * 2 - 1) * mask
+                if res == photo_res:
+                    self.images[start:start + len(sel)] = np.concatenate(
+                        [rgb, mask], axis=-1)
+                else:
+                    self.extra[res][start:start + len(sel)] = rgb
 
     def __len__(self) -> int:
         return len(self.images)
 
+    def get_paths(self) -> list[str]:
+        return [f"img_{i}.png" for i in range(len(self))]
+
     def __getitem__(self, index: int) -> dict:
-        return dict(image=self.images[index], scale=self.scale[index],
+        item = dict(image=self.images[index], scale=self.scale[index],
                     translation=self.translation[index],
                     rotation=self.rotation[index], idx=np.int32(index))
+        for res, images in self.extra.items():
+            item[f"image_{res}"] = images[index]
+        return item

@@ -12,7 +12,10 @@ variables onto them.  Inputs and outputs are NHWC like the JAX model.
 Mixed precision follows the JAX rule: ``compute_dtype`` sets the conv and
 linear compute dtype (parameters stay float32 and are cast at the call);
 batch norm runs in float32, and both outputs are float32.  BatchNorm
-momentum 0.01 is flax's 0.99; eps 1e-5 as in flax.
+momentum 0.01 is flax's 0.99; eps 1e-5 as in flax.  In train mode batch
+norm is flax's: the batch moments in float32 (variance E[x²] − E[x]²,
+biased, clipped at 0), and the running statistics move by momentum with
+that biased variance, where ``F.batch_norm`` would take the unbiased one.
 """
 
 from __future__ import annotations
@@ -52,10 +55,24 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 
 def _bn(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
-    """Batch norm in float32 (running statistics in eval mode), returned in
-    ``x``'s dtype."""
-    return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight,
-                        bn.bias, bn.training, bn.momentum, bn.eps).to(x.dtype)
+    """Batch norm in float32, returned in ``x``'s dtype: the running
+    statistics in eval mode; in train mode flax's batch statistics and
+    running-statistics update (updated in place)."""
+    xf = x.float()
+    if not bn.training:
+        return F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight,
+                            bn.bias, False, 0.0, bn.eps).to(x.dtype)
+    dims = [0, *range(2, xf.dim())]
+    mean = xf.mean(dims)
+    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+    shape = [1, -1] + [1] * (xf.dim() - 2)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+    return y.to(x.dtype)
 
 
 def _batch_norm(ch: int, dims: int = 2):

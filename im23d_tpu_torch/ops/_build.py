@@ -41,11 +41,18 @@ _SIGNATURES = {
                              _P, _P, _I, _I, _I, _F, _P],
     # x, y, out, B, N, M, stream
     "im23d_nn_dist2": [_P, _P, _P, _I, _I, _I, _P],
-    # fv, attrs, feat, soft, B, F, A, H, W, sx, sy, sigma, margin, cull, stream
-    "im23d_rasterize_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
-                            _F, _I, _P],
+    # fv, attrs, feat, soft, win, wz, B, F, A, H, W, sx, sy, sigma, margin,
+    # cull, stream
+    "im23d_rasterize_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                            _F, _F, _F, _I, _P],
+    # fv, attrs, dfeat, dsoft, soft, win, wz, dfv, dattrs, B, F, A, H, W,
+    # sx, sy, sigma, margin, cull, stream
+    "im23d_rasterize_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _F, _F, _F, _F, _I, _P],
     # img, grid, out, B, H, W, C, P, stream
     "im23d_grid_sample_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # img, grid, dout, dimg, dgrid, B, H, W, C, P, stream
+    "im23d_grid_sample_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -3,7 +3,8 @@
 
 ``grid_sample_bilinear`` is the texture lookup of the mesh renderer: it runs
 the plain ``grid_sample_bilinear_torch`` on CPU tensors and the CUDA kernel
-K5 (``csrc/grid_sample.cu``) on CUDA tensors.  ``resize_bilinear`` is the
+K5 (``csrc/grid_sample.cu``) on CUDA tensors, with K5's backward as the
+gradient when one is needed (``_GridSample``).  ``resize_bilinear`` is the
 separable hat-matmul resize of the JAX version (the mask downsample of the
 projection loss, and the texture down-resize of pseudo-ground-truth
 generation).
@@ -93,12 +94,91 @@ def grid_sample_bilinear_kernel(img: torch.Tensor,
 grid_sample_bilinear_kernel.launches = 0
 
 
+def grid_sample_bilinear_backward_torch(img: torch.Tensor, grid: torch.Tensor,
+                                        dout: torch.Tensor):
+    """Plain backward: (d img, d grid) by autograd of
+    ``grid_sample_bilinear_torch``."""
+    with torch.enable_grad():
+        img = img.detach().requires_grad_()
+        grid = grid.detach().requires_grad_()
+        out = grid_sample_bilinear_torch(img, grid)
+        return torch.autograd.grad(out, (img, grid), dout)
+
+
+def grid_sample_bilinear_backward_kernel(img: torch.Tensor,
+                                         grid: torch.Tensor,
+                                         dout: torch.Tensor,
+                                         need_img: bool = True,
+                                         need_grid: bool = True):
+    """Launch K5's backward: (d img or None, d grid or None) for float32,
+    contiguous CUDA tensors img (B, H, W, C), grid (B, Hg, Wg, 2) and
+    dout (B, Hg, Wg, C).
+
+    Replaces the Pallas kernel ``_bwd_kernel``
+    (``im23d_tpu/ops/sampling_pallas.py:213``).  One thread per sample: d
+    grid from its four corners, d img scattered with ``atomicAdd`` (order of
+    the sums changes between runs), a zero product not added, so a texel
+    no sample weighs stays exactly 0 (see ``csrc/grid_sample.cu``).
+    """
+    dev = img.device
+    if dev.type != "cuda" or grid.device != dev or dout.device != dev:
+        raise ValueError("grid_sample_bilinear_backward_kernel needs CUDA "
+                         "tensors on one device")
+    for name, t in (("img", img), ("grid", grid), ("dout", dout)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous rank-4 tensor, "
+                             f"got {tuple(t.shape)}")
+    B, H, W, C = img.shape
+    Hg, Wg = grid.shape[1:3]
+    if (grid.shape[0] != B or grid.shape[-1] != 2
+            or tuple(dout.shape) != (B, Hg, Wg, C)):
+        raise ValueError(f"shapes {tuple(img.shape)}, {tuple(grid.shape)} "
+                         f"and {tuple(dout.shape)} do not pair up")
+    dimg = torch.zeros_like(img) if need_img else None
+    dgrid = torch.empty_like(grid) if need_grid else None
+    if Hg * Wg == 0 or not (need_img or need_grid):
+        return dimg, (dgrid.zero_() if need_grid else None)
+    lib = _build.load_kernels()
+    rc = lib.im23d_grid_sample_bwd(
+        img.data_ptr(), grid.data_ptr(), dout.data_ptr(),
+        dimg.data_ptr() if need_img else None,
+        dgrid.data_ptr() if need_grid else None, B, H, W, C, Hg * Wg,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "grid_sample backward kernel (K5 bwd)")
+    grid_sample_bilinear_backward_kernel.launches += 1
+    return dimg, dgrid
+
+
+grid_sample_bilinear_backward_kernel.launches = 0
+
+
+class _GridSample(torch.autograd.Function):
+    """K5 forward, K5 backward as its gradient (CUDA, float32)."""
+
+    @staticmethod
+    def forward(ctx, img, grid):
+        ctx.save_for_backward(img, grid)
+        return grid_sample_bilinear_kernel(img, grid)
+
+    @staticmethod
+    def backward(ctx, dout):
+        img, grid = ctx.saved_tensors
+        need_img, need_grid = ctx.needs_input_grad[:2]
+        return grid_sample_bilinear_backward_kernel(
+            img, grid, dout.float().contiguous(), need_img, need_grid)
+
+
 def grid_sample_bilinear(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Bilinear texture lookup: plain on CPU, K5 on CUDA (float32)."""
+    """Bilinear texture lookup: plain on CPU; on CUDA (float32) K5, with K5's
+    backward as the gradient when one is needed."""
     if img.device.type == "cpu":
         return grid_sample_bilinear_torch(img, grid)
-    return grid_sample_bilinear_kernel(img.float().contiguous(),
-                                       grid.float().contiguous())
+    img, grid = img.float().contiguous(), grid.float().contiguous()
+    if torch.is_grad_enabled() and (img.requires_grad or grid.requires_grad):
+        return _GridSample.apply(img, grid)
+    return grid_sample_bilinear_kernel(img, grid)
 
 
 def circpad(x: torch.Tensor, amount: int = 1) -> torch.Tensor:

@@ -1,20 +1,30 @@
 """Mesh-estimation trainer, renderer in the loop (counterpart of
 ``im23d_tpu/train/recon_trainer.py``), on one device.
 
-This slice carries the inference surface: config, seeded init,
-``load_params`` from the JAX package's variables, ``predict``,
-``eval_step`` (recon loss, flatness loss and mIoU, weighted per sample),
-``evaluate`` (the tail batch padded with repeats of weight 0, so every image
-scores once), ``render_multiview`` and checkpoints ``{params, batch_stats,
-dp_params, epoch, total_it}`` by ``torch.save``, numbered or under the
-rolling tag ``latest``.  The training step and pseudo-ground-truth
-generation come with the next slice.
+* ``train_step``: the network in train mode (flax batch norm), posing with
+  the learnable ``DatasetParams`` deltas, the render (K4 and K5 with their
+  backward kernels on CUDA), loss = recon + mesh_regularization x warm-up x
+  flatness, the warm-up read and then decayed by 0.1 a step to 1.0; two
+  Adam optimizers, the network's at lr x 0.5 ** (epoch // lr_decay_every)
+  and ``DatasetParams``' at lr_dataset (dense gradients, so every row's
+  moments move each step, as optax's).
+* ``eval_step`` (recon loss, flatness loss and mIoU, weighted per sample),
+  ``evaluate`` (the tail batch padded with repeats of weight 0, so every
+  image scores once), ``predict``, ``render_multiview``.
+* ``generate_pseudogt``: the pseudo-ground-truth cache of the reference
+  layout (per-image npz, poses metadata, FID statistics).
+* Checkpoints ``{params, batch_stats, opt, dp_params, opt_dp, epoch,
+  total_it}`` by ``torch.save``, numbered or under the rolling tag
+  ``latest``; a checkpoint without optimizer state restores with fresh
+  optimizers.  The flatness warm-up is replayed from ``total_it`` on
+  restore, so a resumed run continues the uninterrupted one.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -33,7 +43,21 @@ from im23d_tpu_torch.models.reconstruction import (
     lecun_init_,
 )
 from im23d_tpu_torch.ops.quaternion import qmul, qnormalize, qrot
+from im23d_tpu_torch.ops.sampling import resize_bilinear
 from im23d_tpu_torch.render.renderer import render_mesh
+
+FLAT_WARMUP = 10.0  # flatness weight multiplier at step 0, decays to 1.0
+
+
+def _flat_warmup_after(steps: int) -> float:
+    """The warm-up multiplier after ``steps`` decays of 0.1, in the float
+    arithmetic of the step-by-step decay."""
+    w = FLAT_WARMUP
+    for _ in range(steps):
+        if w == 1.0:
+            break
+        w = max(w - 0.1, 1.0)
+    return w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,8 +134,15 @@ class ReconTrainer:
             DatasetParams(dataset_size, config.optimize_deltas,
                           config.optimize_z0).to(self.device)
             if self.use_dp else None)
+        self.opt = torch.optim.Adam(self.model.parameters(), lr=config.lr,
+                                    betas=(0.9, 0.999), eps=1e-8)
+        self.opt_dp = (torch.optim.Adam(self.dp_model.parameters(),
+                                        lr=config.lr_dataset,
+                                        betas=(0.9, 0.999), eps=1e-8)
+                       if self.use_dp else None)
         self.total_it = 0
         self.epoch = 0
+        self.flat_warmup = FLAT_WARMUP
 
     # -- batches and the forward -------------------------------------------
 
@@ -125,9 +156,10 @@ class ReconTrainer:
             out[k] = t.long() if k == "idx" else t.float()
         return out
 
-    def _pose_and_render(self, mesh_map, tex, batch):
+    def _pose(self, raw_vtx, batch):
+        """Screen-space vertices: the batch's pose plus the learnable
+        ``DatasetParams`` refinement of its indices."""
         cfg = self.cfg
-        raw_vtx = self.template.get_vertex_positions(mesh_map)
         t_delta, s_delta, z0 = 0.0, 0.0, None
         if self.use_dp and batch.get("idx") is not None:
             if cfg.optimize_deltas:
@@ -135,8 +167,14 @@ class ReconTrainer:
                 s_delta = s_delta[:, 0]
             if cfg.optimize_z0:
                 z0 = self.dp_model(batch["idx"], "z0")
-        vtx = transform_vertices(raw_vtx, batch["scale"], batch["translation"],
-                                 batch["rotation"], t_delta, s_delta, z0)
+        return transform_vertices(raw_vtx, batch["scale"],
+                                  batch["translation"], batch["rotation"],
+                                  t_delta, s_delta, z0)
+
+    def _pose_and_render(self, mesh_map, tex, batch):
+        cfg = self.cfg
+        raw_vtx = self.template.get_vertex_positions(mesh_map)
+        vtx = self._pose(raw_vtx, batch)
         uvs, tex_adj = self.template.adjust_uv_and_texture(tex)
         res = cfg.image_resolution
         dev = vtx.device
@@ -150,6 +188,45 @@ class ReconTrainer:
         per = (err.abs() if self.cfg.loss == "l1" else err ** 2).mean(
             dim=(1, 2, 3))
         return per if per_sample else per.mean()
+
+    # -- training -----------------------------------------------------------
+
+    def _lr_factor(self) -> float:
+        return 0.5 ** (self.epoch // self.cfg.lr_decay_every)
+
+    def train_step(self, batch: dict) -> dict:
+        """One Adam step on a batch: image (B, H, W, 4), scale (B,),
+        translation (B, 3), rotation (B, 4), idx (B,) int or absent.
+        Returns recon_loss, flat_loss and the soft alpha's iou as device
+        scalars."""
+        cfg = self.cfg
+        nb = self._put(batch)
+        flat_coeff = cfg.mesh_regularization * self.flat_warmup
+        self.flat_warmup = max(self.flat_warmup - 0.1, 1.0)
+        for group in self.opt.param_groups:
+            group["lr"] = cfg.lr * self._lr_factor()
+        self.model.train()
+        try:
+            tex, mesh_map = self.model(nb["image"])
+        finally:
+            self.model.eval()
+        raw_vtx, _, image, alpha = self._pose_and_render(mesh_map, tex, nb)
+        x_fake = torch.cat([image, alpha], dim=-1)
+        recon = self._recon_loss(x_fake, nb["image"])
+        flat = flatness_loss(self.template.compute_normals(raw_vtx),
+                             self.template.tensor("ff", self.device))
+        loss = recon + flat_coeff * flat
+        optimizers = [o for o in (self.opt, self.opt_dp) if o is not None]
+        for opt in optimizers:
+            opt.zero_grad(set_to_none=True)
+        loss.backward()
+        for opt in optimizers:
+            opt.step()
+        self.total_it += 1
+        with torch.no_grad():
+            miou = mean_iou(x_fake[..., 3], nb["image"][..., 3])
+        return dict(recon_loss=recon.detach(), flat_loss=flat.detach(),
+                    iou=miou)
 
     # -- inference ----------------------------------------------------------
 
@@ -265,16 +342,146 @@ class ReconTrainer:
         params, stats, dp = self._split_state()
         return save_checkpoint(
             workdir or self.workdir, self.total_it if tag is None else tag,
-            dict(params=params, batch_stats=stats, dp_params=dp,
+            dict(params=params, batch_stats=stats, opt=self.opt.state_dict(),
+                 dp_params=dp,
+                 opt_dp=(self.opt_dp.state_dict() if self.opt_dp is not None
+                         else {}),
                  epoch=self.epoch, total_it=self.total_it))
 
     def restore(self, workdir: str | None = None, step=None) -> None:
         """Load the checkpoint of ``step`` (an int or "latest"; by default
-        the newest)."""
+        the newest).  A checkpoint without optimizer state (the inference
+        slice's) leaves the optimizers fresh."""
         path = resolve_checkpoint(workdir or self.workdir, step)
         tree = torch.load(path, map_location=self.device, weights_only=True)
         self.model.load_state_dict({**tree["params"], **tree["batch_stats"]})
         if self.dp_model is not None:
             self.dp_model.load_state_dict(tree["dp_params"])
+        if tree.get("opt"):
+            self.opt.load_state_dict(tree["opt"])
+        if self.opt_dp is not None and tree.get("opt_dp"):
+            self.opt_dp.load_state_dict(tree["opt_dp"])
         self.epoch = int(tree["epoch"])
         self.total_it = int(tree["total_it"])
+        self.flat_warmup = _flat_warmup_after(self.total_it)
+
+    # -- pseudo-ground-truth generation --------------------------------------
+
+    def generate_pseudogt(self, loader, cache_dir: str, dataset_name: str,
+                          pseudogt_resolution: int = 512,
+                          inception_resolution: int = 299,
+                          paths: list | None = None, val_loader=None,
+                          renderer_resolution: int | None = None,
+                          inception=None) -> None:
+        """Write the pseudo-ground-truth cache in the reference layout:
+        per-image ``pseudogt_<R>x<R>/<idx>.npz`` holding ``data`` = {mesh,
+        texture, texture_alpha, image}, float16 NCHW; ``poses_metadata.npz``;
+        ``precomputed_fid_<r>x<r>_train.npz`` (and ``_testval`` for CUB with
+        ``val_loader``), ``stats_s`` lower-triangular float32.
+
+        Per batch: predict, pose, down-resize the texture to
+        ``renderer_res // 8``; visibility is the gradient of the summed
+        render at ``renderer_res`` with respect to that texture (K5's
+        backward on CUDA); the photo ``hd_image`` is inverse-rendered into
+        UV space at ``pseudogt_resolution`` and masked where the resized
+        visibility is > 0 in any channel; Inception activations of
+        ``inception_image`` (in [-1, 1]).  ``renderer_resolution`` defaults
+        to max(1024, 2 R); ``inception`` defaults to the calibrated random
+        ``init_inception()`` (288-d Mixed_5d features, as the JAX
+        package)."""
+        from im23d_tpu_torch.metrics.fid import calculate_stats
+        from im23d_tpu_torch.metrics.inception import init_inception
+        from im23d_tpu_torch.render.inverse import (
+            inverse_render,
+            visibility_mask,
+        )
+
+        R = pseudogt_resolution
+        renderer_res = renderer_resolution or max(1024, 2 * R)
+        pseudogt_dir = os.path.join(cache_dir, f"pseudogt_{R}x{R}")
+        os.makedirs(pseudogt_dir, exist_ok=True)
+        if inception is None:
+            inception = init_inception(device=self.device)
+        template = self.template
+        dev = self.device
+
+        def render_for_vis(vtx, tex):
+            uvs, tex_adj = template.adjust_uv_and_texture(tex)
+            image, _, _ = render_mesh(
+                vtx, template.tensor("faces", dev), uvs,
+                template.tensor("face_uvs", dev), tex_adj, renderer_res,
+                renderer_res)
+            return image
+
+        def activations(images):
+            x = torch.as_tensor(np.asarray(images), dtype=torch.float32,
+                                device=dev)
+            with torch.no_grad():
+                return inception(x / 2.0 + 0.5).cpu().numpy()
+
+        all_act, all_path = [], []
+        poses = {k: [] for k in ("scale", "translation", "rotation")}
+        for batch in loader:
+            nb = self._put({k: batch[k] for k in
+                            ("scale", "translation", "rotation", "idx")
+                            if k in batch})
+            tex, mesh_map = self.predict(batch["image"])
+            with torch.no_grad():
+                vtx = self._pose(template.get_vertex_positions(mesh_map), nb)
+            if tex.shape[1] > renderer_res // 8:
+                tex = resize_bilinear(tex, renderer_res // 8,
+                                      renderer_res // 8, align_corners=False)
+            visibility = visibility_mask(render_for_vis, vtx, tex)
+            hd = torch.as_tensor(np.asarray(batch["hd_image"]),
+                                 dtype=torch.float32, device=dev)
+            with torch.no_grad():
+                inv_tex, inv_alpha = inverse_render(template, vtx, hd, R)
+                mask = resize_bilinear(visibility, R, R, align_corners=False)
+                mask = (mask > 0).any(dim=-1, keepdim=True).to(inv_tex.dtype)
+                inv_tex = inv_tex * mask
+                inv_alpha = inv_alpha * mask
+
+            all_act.append(activations(batch["inception_image"]))
+            for k in poses:
+                poses[k].append(np.asarray(batch[k]))
+            mesh_np = mesh_map.cpu().numpy()
+            tex_np = inv_tex.cpu().numpy().astype(np.float16)
+            alpha_np = inv_alpha.cpu().numpy().astype(np.float16)
+            img_np = np.asarray(batch["inception_image"], np.float16)
+            for i, idx in enumerate(np.asarray(batch["idx"]).reshape(-1)):
+                idx = int(idx)
+                if paths is not None:
+                    all_path.append(paths[idx])
+                pseudogt = {  # NCHW, the reference cache layout
+                    "mesh": mesh_np[i].transpose(2, 0, 1),
+                    "texture": tex_np[i].transpose(2, 0, 1),
+                    "texture_alpha": alpha_np[i].transpose(2, 0, 1),
+                    "image": img_np[i].transpose(2, 0, 1),
+                }
+                np.savez_compressed(os.path.join(pseudogt_dir, f"{idx}"),
+                                    data=pseudogt)
+
+        np.savez_compressed(os.path.join(cache_dir, "poses_metadata"), data={
+            "scale": np.concatenate(poses["scale"], axis=0)[:, None],
+            "translation": np.concatenate(poses["translation"], axis=0),
+            "rotation": np.concatenate(poses["rotation"], axis=0),
+            "path": all_path,
+        })
+
+        def write_stats(act, split):
+            m, sigma = calculate_stats(act)
+            r = inception_resolution
+            np.savez_compressed(
+                os.path.join(cache_dir, f"precomputed_fid_{r}x{r}_{split}"),
+                stats_m=m, stats_s=np.tril(sigma.astype(np.float32)),
+                num_images=len(act), resolution=r)
+
+        act = np.concatenate(all_act, axis=0)
+        if dataset_name == "p3d" and all_path:
+            act = act[[i for i, p in enumerate(all_path)
+                       if str(p).startswith("car_imagenet")]]
+        write_stats(act, "train")
+        if dataset_name == "cub" and val_loader is not None:
+            write_stats(np.concatenate(
+                [activations(np.asarray(b["inception_image"])[..., :3])
+                 for b in val_loader], axis=0), "testval")

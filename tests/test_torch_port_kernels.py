@@ -19,6 +19,17 @@ arithmetic with FMA contraction ruled out: feat by the 0.999 quantile of
 |kernel - plain| <= 1e-5 (an edge function rounded to the other side would
 move a boundary pixel to the other face), soft atol 1e-5 (its log1p terms
 are summed in another order); K5 is bit-equal to the plain gather.
+
+The backward kernels are held to the autograd of the plain forwards.  K5's
+backward by relative L2 per output (d img sums by atomicAdd in another
+order; d grid differs from autograd in the order of its additions): 1e-5,
+and the set of texels with d img > 0 exactly (pseudo-GT visibility tests
+> 0).  K4's backward by the limits of the JAX package's rasterizer gradient
+test (``tests/test_rasterizer_pallas.py:76-80``): max |d verts| error
+< 1e-3 x max(max |d verts|, 1), max |d attrs| error < 1e-4 x
+max(max |d attrs|, 1), read on the per-corner gradients d fv: per-face
+sums by atomicAdd in another order, the segment-parameter chain that
+vanishes at the nearest point dropped, and d log_miss taken from 1 − soft.
 """
 
 import numpy as np
@@ -42,11 +53,15 @@ from im23d_tpu_torch.ops.projection import (
 )
 from im23d_tpu_torch.ops.sampling import (
     grid_sample_bilinear,
+    grid_sample_bilinear_backward_kernel,
+    grid_sample_bilinear_backward_torch,
     grid_sample_bilinear_kernel,
     grid_sample_bilinear_torch,
 )
 from im23d_tpu_torch.render.rasterizer import (
     rasterize,
+    rasterize_backward_kernel,
+    rasterize_backward_torch,
     rasterize_kernel,
     rasterize_torch,
 )
@@ -334,3 +349,145 @@ def test_render_mesh_on_the_card_matches_the_cpu(dev):
     ref = run("cpu")
     _check_k4(got[:2], ref[:2])
     torch.testing.assert_close(got[2], ref[2], atol=1e-5, rtol=1e-5)
+
+
+def _rel_l2(got, ref):
+    return float((got - ref).norm() / ref.norm().clamp(min=1e-30))
+
+
+@pytest.mark.parametrize("shape,grid_hw,integer", [
+    ((2, 128, 130, 3), (256, 256), False), ((3, 7, 5, 1), (9, 11), True),
+    ((1, 64, 64, 3), (300, 200), False),
+])
+def test_k5_backward_matches_plain(dev, shape, grid_hw, integer):
+    """d img and d grid against autograd of the plain gather, coordinates
+    beyond the edges and on exact texel centres included; launched by the
+    autograd Function."""
+    gen = torch.Generator(dev).manual_seed(2)
+    img = torch.rand(shape, device=dev, generator=gen)
+    grid = torch.rand((shape[0], *grid_hw, 2), device=dev,
+                      generator=gen) * 2.2 - 1.1
+    if integer:  # texel centres: x = i exactly
+        H, W = shape[1:3]
+        ix = torch.randint(0, W, grid.shape[:3], device=dev, generator=gen)
+        grid[..., 0] = ix.float() * 2.0 / (W - 1) - 1.0 if W > 1 else 0.0
+    dout = torch.randn((shape[0], *grid_hw, shape[3]), device=dev,
+                       generator=gen)
+    ref = grid_sample_bilinear_backward_torch(img, grid, dout)
+    n0 = grid_sample_bilinear_backward_kernel.launches
+    i = img.clone().requires_grad_()
+    g = grid.clone().requires_grad_()
+    got = torch.autograd.grad(grid_sample_bilinear(i, g), (i, g), dout)
+    torch.cuda.synchronize()
+    assert grid_sample_bilinear_backward_kernel.launches == n0 + 1
+    for a, b in zip(got, ref):
+        assert _rel_l2(a, b) <= 1e-5
+
+
+def test_k5_backward_visibility_zero_pattern(dev):
+    """A 0/1 upstream mask (the visibility render's): the texels with
+    d img > 0 are the plain version's, and d grid is not computed."""
+    gen = torch.Generator(dev).manual_seed(3)
+    img = torch.rand((2, 32, 34, 3), device=dev, generator=gen)
+    grid = torch.rand((2, 200, 200, 2), device=dev, generator=gen) * 1.6 - 0.8
+    dout = (torch.rand((2, 200, 200, 1), device=dev, generator=gen) > 0.6
+            ).float().expand(-1, -1, -1, 3).contiguous()
+    dimg, dgrid = grid_sample_bilinear_backward_kernel(img, grid, dout,
+                                                       need_grid=False)
+    ref, _ = grid_sample_bilinear_backward_torch(img, grid, dout)
+    torch.cuda.synchronize()
+    assert dgrid is None
+    assert torch.equal(dimg > 0, ref > 0)
+    assert 0 < float((ref > 0).float().mean()) < 1
+
+
+def _k4_grad_check(got, ref):
+    for g, r, k in zip(got, ref, (1e-3, 1e-4)):
+        scale = max(float(r.abs().max()), 1.0)
+        assert float((g - r).abs().max()) < k * scale, (k, scale)
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_k4_backward_matches_plain_sphere(dev, cull):
+    """The JAX rasterizer gradient test's scene: a jittered uv_sphere(8, 4)
+    at 48² with sigma 1e-3, random upstream gradients of feat and soft."""
+    from im23d_tpu_torch.geometry.objio import uv_sphere
+
+    tpl = uv_sphere(8, 4)
+    rng = np.random.RandomState(11)
+    B, F = 2, tpl.faces.shape[0]
+    verts = torch.from_numpy((tpl.vertices[None].repeat(B, 0) * 1.5
+                              + 0.05 * rng.randn(B, len(tpl.vertices), 3))
+                             .astype(np.float32)).to(dev)
+    faces = torch.from_numpy(tpl.faces.astype(np.int64)).to(dev)
+    attrs = torch.from_numpy(rng.rand(B, F, 3, 3).astype(np.float32)).to(dev)
+    dfeat = torch.from_numpy(rng.randn(B, 48, 48, 3).astype(np.float32)
+                             ).to(dev)
+    dsoft = torch.from_numpy(rng.randn(B, 48, 48, 1).astype(np.float32)
+                             ).to(dev)
+    fv = verts[:, faces]
+    ref = rasterize_backward_torch(fv, attrs, dfeat, dsoft, 48, 48, 1e-3, cull)
+    v = verts.clone().requires_grad_()
+    a = attrs.clone().requires_grad_()
+    n0 = rasterize_backward_kernel.launches
+    feat, soft = rasterize(v, faces, a, 48, 48, 1e-3, cull)
+    dv, da = torch.autograd.grad((feat, soft), (v, a), (dfeat, dsoft))
+    torch.cuda.synchronize()
+    assert rasterize_backward_kernel.launches == n0 + 1
+    ref_v = torch.zeros_like(verts).index_add_(
+        1, faces.reshape(-1), ref[0].reshape(B, -1, 3))
+    _k4_grad_check((dv, da), (ref_v, ref[1]))
+
+
+@pytest.mark.parametrize("cull,h,w,sigma,A,which", [
+    (True, 64, 64, 1e-3, 3, "both"), (False, 70, 45, 1e-4, 1, "soft"),
+    (False, 33, 97, 1e-4, 8, "feat"),
+])
+def test_k4_backward_matches_plain(dev, cull, h, w, sigma, A, which):
+    """Random overlapping faces of both windings, odd tile cuts, one to
+    eight attributes, one or both upstream gradients."""
+    verts, faces, attrs = _scene(12, dev, A=A)
+    gen = torch.Generator(dev).manual_seed(4)
+    dfeat = (torch.randn((2, h, w, A), device=dev, generator=gen)
+             if which != "soft" else None)
+    dsoft = (torch.randn((2, h, w, 1), device=dev, generator=gen)
+             if which != "feat" else None)
+    fv = verts[:, faces].contiguous()
+    from im23d_tpu_torch.render.rasterizer import _launch_forward
+
+    _, soft, win, wz = _launch_forward(fv, attrs, h, w, sigma, cull, True)
+    got = rasterize_backward_kernel(fv, attrs, dfeat, dsoft, soft, win, wz,
+                                    h, w, sigma, cull)
+    ref = rasterize_backward_torch(fv, attrs, dfeat, dsoft, h, w, sigma, cull)
+    torch.cuda.synchronize()
+    _k4_grad_check(got, ref)
+    assert not got[0][..., 2].any()  # z only selects winners
+
+
+def test_render_mesh_gradients_on_the_card_match_the_cpu(dev):
+    """d verts and d texture of a rendered image and soft alpha: K4 and K5
+    backward against the plain path on the CPU."""
+    from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
+    from im23d_tpu_torch.render.renderer import render_mesh
+
+    tpl = MeshTemplate(segments=16, rings=8)
+    rng = np.random.RandomState(13)
+    dmap = torch.from_numpy((rng.randn(2, 16, 16, 3) * 0.05).astype(
+        np.float32))
+    tex = torch.from_numpy(rng.rand(2, 16, 16, 3).astype(np.float32))
+    w_img = torch.from_numpy(rng.randn(2, 64, 64, 3).astype(np.float32))
+    w_a = torch.from_numpy(rng.randn(2, 64, 64, 1).astype(np.float32))
+
+    def run(device):
+        d = dmap.to(device).requires_grad_()
+        t = tex.to(device).requires_grad_()
+        v = tpl.get_vertex_positions(d) * 0.7
+        uvs, ta = tpl.adjust_uv_and_texture(t)
+        img, alpha, _ = render_mesh(v, tpl.tensor("faces", device), uvs,
+                                    tpl.tensor("face_uvs", device), ta, 64, 64)
+        loss = (img * w_img.to(device)).sum() + (alpha * w_a.to(device)).sum()
+        return [g.cpu() for g in torch.autograd.grad(loss, (d, t))]
+
+    got, ref = run(dev), run("cpu")
+    for g, r in zip(got, ref):
+        assert _rel_l2(g, r) <= 1e-4

@@ -28,8 +28,16 @@ loss fetch, then its parts: the host->device copy of the batch, the
 network forward (bf16), posing and rendering (vertex sampler, K4, K5), and
 K4 and K5 alone; the batch is 50 fabricated photos.
 
+The recon train windows (``--only recon_train``) are the CUB train step at
+``ReconConfig()`` with its loss fetch, then its parts: the host->device
+copy of the batch, the network forward + backward (bf16, train-mode batch
+norm), posing and rendering forward (vertex sampler, K4 with its winner
+cache, K5), K4's backward and K5's backward alone at the step's shapes,
+and the two Adam updates.
+
 Usage (from the repository root, on a machine with a CUDA device):
-    python3 tools/profile_eval.py [--iters 10] [--only eval|train|recon]
+    python3 tools/profile_eval.py [--iters 10]
+        [--only eval|train|recon|recon_train]
 """
 
 from __future__ import annotations
@@ -60,8 +68,15 @@ from im23d_tpu_torch.ops.projection import (  # noqa: E402
     _taps_and_scale,
     projection_backward_kernel,
 )
-from im23d_tpu_torch.ops.sampling import grid_sample_bilinear  # noqa: E402
-from im23d_tpu_torch.render.rasterizer import rasterize  # noqa: E402
+from im23d_tpu_torch.ops.sampling import (  # noqa: E402
+    grid_sample_bilinear,
+    grid_sample_bilinear_backward_kernel,
+)
+from im23d_tpu_torch.render.rasterizer import (  # noqa: E402
+    _launch_forward,
+    rasterize,
+    rasterize_backward_kernel,
+)
 from im23d_tpu_torch.train.recon_trainer import (  # noqa: E402
     ReconConfig,
     ReconTrainer,
@@ -236,12 +251,90 @@ def profile_recon(iters: int) -> None:
           f"{_peak_mib(lambda: trainer.eval_step(batch)):.3f}")
 
 
+def profile_recon_train(iters: int) -> None:
+    """The CUB train step's windows; shares are of the whole step's device
+    busy time."""
+    cfg = ReconConfig()
+    template = MeshTemplate(segments=32, rings=16)
+    B, res = cfg.batch_size, cfg.image_resolution
+    data = StructuredReconSet(template, B, res, cfg.texture_resolution,
+                              device="cuda")
+    batch = next(iter(batch_iterator(data, B, shuffle=False,
+                                     num_workers=1)))
+    trainer = ReconTrainer(cfg, dataset_size=len(data), template=template,
+                           device="cuda")
+    nb = trainer._put(batch)
+    faces = template.tensor("faces", "cuda")
+
+    def net_fwd_bwd():
+        trainer.model.train()
+        tex, mesh_map = trainer.model(nb["image"])
+        trainer.model.eval()
+        (tex.float().sum() + mesh_map.float().sum()).backward()
+
+    # the network's outputs as leaves that need a gradient, so the render
+    # runs as in the step (K4 with its winner cache)
+    with torch.no_grad():
+        tex, mesh_map = trainer.model(nb["image"])
+    tex_leaf = tex.clone().requires_grad_()
+    mesh_leaf = mesh_map.clone().requires_grad_()
+
+    def pose_render():
+        return trainer._pose_and_render(mesh_leaf, tex_leaf, nb)
+
+    # K4 and K5 backward operands at the step's shapes
+    with torch.no_grad():
+        _, vtx, _, _ = trainer._pose_and_render(mesh_map, tex, nb)
+        uvs, tex_adj = template.adjust_uv_and_texture(tex)
+    fv = vtx[:, faces].contiguous()
+    attrs = torch.cat([uvs[:, template.tensor("face_uvs", "cuda")],
+                       vtx.new_ones((B, faces.shape[0], 3, 1))],
+                      dim=-1).contiguous()
+    fwd = _launch_forward(fv, attrs, res, res, 1e-4, True, True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dfeat = torch.randn(fwd[0].shape, device="cuda", generator=gen)
+    dsoft = torch.randn(fwd[1].shape, device="cuda", generator=gen)
+    grid = ((fwd[0][..., :2] * 2 - 1) * fwd[0].new_tensor([1.0, -1.0])
+            ).contiguous()
+    # the step's d color is d image x hard mask: zero off the silhouette
+    dcolor = (torch.randn(grid.shape[:3] + (3,), device="cuda", generator=gen)
+              * fwd[0][..., 2:3]).contiguous()
+
+    def adam():
+        trainer.opt.step()
+        trainer.opt_dp.step()
+
+    trainer.train_step(batch)  # optimizer state exists for the Adam window
+    it = iters
+    total = report(f"recon train_step + loss fetch (bs {B}, {res}², "
+                   f"{faces.shape[0]} faces)",
+                   lambda: float(trainer.train_step(batch)["recon_loss"]), it)
+    parts = {
+        "H2D copy of the batch": lambda: trainer._put(batch),
+        "network forward + backward (bf16)": net_fwd_bwd,
+        "pose + render forward (vertex sampler, K4 + winners, K5)":
+            pose_render,
+        "K4 backward alone": lambda: rasterize_backward_kernel(
+            fv, attrs, dfeat, dsoft, *fwd[1:], res, res),
+        "K5 backward alone": lambda: grid_sample_bilinear_backward_kernel(
+            tex_adj.contiguous(), grid, dcolor),
+        "two Adam updates (network, DatasetParams)": adam,
+    }
+    for name, fn in parts.items():
+        busy = report(name, fn, it)
+        print(f"share of the recon train step's device busy: "
+              f"{busy / total:.3f}  {name}")
+    print(f"peak MiB of one recon train step "
+          f"{_peak_mib(lambda: trainer.train_step(batch)):.3f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
-    ap.add_argument("--only", choices=("eval", "train", "recon"),
+    ap.add_argument("--only", choices=("eval", "train", "recon",
+                                       "recon_train"),
                     default=None,
-                    help="profile one path (default: all three)")
+                    help="profile one path (default: all four)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_eval: no CUDA device", file=sys.stderr)
@@ -251,6 +344,10 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip())
 
+    if args.only in (None, "recon_train"):
+        profile_recon_train(args.iters)
+    if args.only == "recon_train":
+        return 0
     if args.only in (None, "recon"):
         profile_recon(args.iters)
     if args.only == "recon":
