@@ -58,12 +58,33 @@ Phases:
      steps/s at the full config;
  17. ``--generate_pseudogt`` through the CLI on 100 fabricated photos with
      their 299² and 1024² renders; the cache files checked, and the
-     visibility mask and inverse render of 4 images held to the plain path.
+     visibility mask and inverse render of 4 images held to the plain path;
+ 18. K8 forward (the GAN's texture-head conv) against its plain version at
+     the head's shape, 32 x 64 x 512 x 256 -> 3, in bfloat16 and float32,
+     replicate and circular padding; cuDNN's conv + bias + tanh timed
+     beside it;
+ 19. K8 dW against its float64 plain version at that shape with an
+     upstream dy·(1 − y²), on each of 3 launches, bit-equal between them;
+     cuDNN's weight gradient timed beside it;
+ 20. one 1G + 2D group at bs 8 in float32 through K8 and through the plain
+     head, from the same state: the losses, the head's output, the
+     gradients of the generator's and critics' parameters, and, with the
+     plain run's G step handed the kernel's head output, the head's
+     upstream gradient and its own dW, db and dx;
+ 21. the GAN CLI (``cli/main.main``) on phase 17's cache (100 items at
+     512²) at the full CUB configuration (bs 32, 3 critics, bf16, class
+     conditioning): 2 epochs with every frequency at 1, ``--continue_train``
+     for a third, then ``--evaluate`` and ``--save_results``; launch counts
+     of K8 forward and dW, K4 and K5; finite losses and FIDs, the files;
+ 22. a learning check: 40 D steps on one fixed batch against a frozen G,
+     then 40 G steps against the frozen critics;
+ 23. 1G + 2D groups/s at the full configuration, the batch on the card.
 
 Prints timings beside the GPU's name and power limit, then one JSON line
 with the per-kernel results (each with its bound: the larger of the bytes
-it must move over 3.35 TB/s and its operations over the float32 rate of
-67 TFLOP/s, from this run's inputs), the nvidia-smi line, and as the last
+it must move over 3.35 TB/s and its operations over the peak rate of
+their type, 67 TFLOP/s for float32 and 989 for bfloat16, from this run's
+inputs), the nvidia-smi line, and as the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no
 result, without a CUDA device or outside a checkout of the repository.
 
@@ -90,6 +111,7 @@ import torch.nn.functional as F
 
 # outside a checkout these imports fail before anything is printed
 from im23d_tpu_torch.cli import evaluation_test_shape_net as cli
+from im23d_tpu_torch.cli import main as gan_cli
 from im23d_tpu_torch.cli import run_reconstruction as recon_cli
 from im23d_tpu_torch.cli import training_test_shape_net as train_cli
 from im23d_tpu_torch.data.cmr import batch_iterator
@@ -97,6 +119,7 @@ from im23d_tpu_torch.data.fabricate import (
     StructuredPseudoGT,
     StructuredReconSet,
 )
+from im23d_tpu_torch.data.pseudogt import CubGANDataset, gan_batch_iterator
 from im23d_tpu_torch.data.synthetic import SyntheticSilhouettes, _random_shapes
 from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
 from im23d_tpu_torch.losses.effective import (
@@ -109,8 +132,18 @@ from im23d_tpu_torch.metrics.chamfer import (
     nn_dist2_kernel,
     nn_dist2_torch,
 )
+from im23d_tpu_torch.models import gan as gan_models
+from im23d_tpu_torch.models.gan import GANConfig
+from im23d_tpu_torch.models.reconstruction import replicate_pad_w
 from im23d_tpu_torch.ops import _build
 from im23d_tpu_torch.ops.camera import world_to_camera_zyx
+from im23d_tpu_torch.ops.conv import (
+    head_conv_dw_kernel,
+    head_conv_dw_torch,
+    head_conv_dx,
+    head_conv_kernel,
+    head_conv_tanh_torch,
+)
 from im23d_tpu_torch.ops.pointcloud import keep_mask
 from im23d_tpu_torch.ops.projection import (
     _prep_projection,
@@ -141,6 +174,7 @@ from im23d_tpu_torch.render.rasterizer import (
     rasterize_torch,
     soft_margin,
 )
+from im23d_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
 from im23d_tpu_torch.train.recon_trainer import (
     ReconConfig,
     ReconTrainer,
@@ -213,9 +247,29 @@ STEP_BS, STEP_RTOL, STEP_OUT_RL2, STEP_DP_RL2, STEP_NET_RL2 = (
 RECON_TRAIN_EPOCHS = 3  # the training CLI's run, then one more resumed
 PGT_IMAGES, PGT_RES = 100, 512  # pseudo-GT: photos, --pseudogt_resolution
 PGT_MASK_FRAC = 1e-4  # visibility-mask pixels differing from the plain path
+# the CUB GAN at the CLI's defaults for a 512² cache: bs 32, 3 critics,
+# 64 channels into the head, whose output is the 512 x 256 half texture
+GAN_B, GAN_RES, GAN_CIN = 32, 512, 64
+# K8 forward vs plain: 25·64 products per output summed in another order
+# than cuDNN's (~1e-7 of values <= 1 in float32); in bfloat16 both round
+# the tanh output, one bfloat16 ulp near 1 is 2^-7
+K8_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# K8 dW vs the float64 plain version, relative L2 per launch: 4.2 M-term
+# sums in float32 partial rows (read 1.9e-6 on the H100; cuDNN's float32
+# weight gradient reads 2.2e-2 at this shape, hence the float64 reference)
+K8_DW_REL_L2, K8_DW_REPEATS = 1e-4, 3
+# one 1G + 2D group, K8 vs the plain head, float32, cuDNN deterministic so
+# the other convs agree bit for bit: the losses, parameter gradients by
+# relative L2 per network, the texture by K8's float32 limit.  In the plain
+# run's G step the rest of the step takes the kernel's head output, so the
+# texture's gradient into the head is the same on both paths (the critics'
+# leaky-ReLU kinks would flip under the head's float32 rounding); that
+# gradient and the head's own dW, db and dx are held by relative L2 each.
+GROUP_BS, GROUP_RTOL, GROUP_PARAM_RL2, GROUP_HEAD_RL2 = 8, 1e-4, 1e-3, 1e-4
+GAN_EPOCHS = 2  # the GAN CLI's run, then one more resumed
 # peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, float32
-# FLOP/s outside the tensor cores
-PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# FLOP/s outside the tensor cores, dense bfloat16 FLOP/s on them
+PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
 
 
 def _gpu_line() -> str:
@@ -241,10 +295,11 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _bound(nbytes: float, ops: float) -> dict:
+def _bound(nbytes: float, ops: float, peak: float = PEAK_F32) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over the float32 rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    operations over the peak rate of their type (float32 unless given),
+    whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / peak * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -389,7 +444,8 @@ def phase_k3(gpu: str) -> dict:
 _KERNELS = dict(k1=projection_kernel, k2=projection_backward_kernel,
                 k3=nn_dist2_kernel, k4=rasterize_kernel,
                 k4b=rasterize_backward_kernel, k5=grid_sample_bilinear_kernel,
-                k5b=grid_sample_bilinear_backward_kernel)
+                k5b=grid_sample_bilinear_backward_kernel,
+                k8=head_conv_kernel, k8b=head_conv_dw_kernel)
 
 
 def _zero_counts() -> None:
@@ -1215,6 +1271,401 @@ def phase_pseudogt(gpu: str, template, tmp: str) -> None:
         raise AssertionError("pseudo-GT disagrees with the plain path")
 
 
+def _head_operands(dtype, seed: int):
+    """K8's operands at the head's shape: a leaky-ReLU activation like
+    blk6's output, LeCun-scaled weights rounded to ``dtype``, a bias."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = F.leaky_relu(torch.randn((GAN_B, GAN_CIN, GAN_RES, GAN_RES // 2),
+                                 device=DEVICE, generator=gen), 0.2).to(dtype)
+    w = (torch.randn((3, GAN_CIN, 5, 5), device=DEVICE, generator=gen)
+         / math.sqrt(25 * GAN_CIN)).to(dtype).float().contiguous()
+    b = torch.randn(3, device=DEVICE, generator=gen) * 0.1
+    return x, w, b
+
+
+def _head_ops(x) -> int:
+    """2 x 25 x C x 3 operations per output pixel of the head conv."""
+    return 2 * 25 * 3 * x.numel()
+
+
+def phase_k8(gpu: str) -> dict:
+    """K8 forward vs plain at the head's shape, both types and pad modes;
+    times at the main path's (bfloat16, replicate)."""
+    errs, timed = {}, None
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w, b = _head_operands(dtype, 20)
+        for mode in ("replicate", "circular"):
+            got = head_conv_kernel(x, w, b, mode)
+            ref = head_conv_tanh_torch(x, w, b, mode)
+            torch.cuda.synchronize()
+            e = float((got.float() - ref.float()).abs().max())
+            print(f"[K8] {str(dtype)[6:]} {mode}: max |kernel - plain| "
+                  f"{e:.3e} (atol {K8_ATOL[dtype]}); |y| mean "
+                  f"{float(ref.float().abs().mean()):.4f}")
+            if not (torch.isfinite(got).all() and e <= K8_ATOL[dtype]):
+                raise AssertionError(f"K8 disagrees with plain: {e}")
+            errs[dtype, mode] = e
+            del got, ref
+        if dtype == torch.bfloat16:
+            wd, bd = w.to(dtype), b.to(dtype)
+            ms = _time_ms(lambda: head_conv_kernel(x, w, b), 20)
+            plain_ms = _time_ms(lambda: head_conv_tanh_torch(x, w, b), 3)
+            library_ms = _time_ms(lambda: torch.tanh(F.conv2d(
+                replicate_pad_w(x, 2), wd, bd, padding=(2, 0))), 10)
+            # reads x, w, b, writes y (3 of x's C channels, in x's type)
+            bound = _bound(_nbytes(x, w, b) + x.numel() // GAN_CIN * 3
+                           * x.element_size(), _head_ops(x), PEAK_BF16)
+            print(f"[K8] {tuple(x.shape)} bf16 -> 3: kernel {ms:.3f} ms, "
+                  f"plain {plain_ms:.3f} ms, cuDNN pad + conv + bias + tanh "
+                  f"{library_ms:.3f} ms per call; bound {bound} [{gpu}]")
+            timed = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         **bound)
+        del x
+        torch.cuda.empty_cache()
+    return dict(max_abs_err=errs[torch.bfloat16, "replicate"], **timed)
+
+
+def phase_k8_dw(gpu: str) -> dict:
+    """K8 dW vs its float64 plain version on each of K8_DW_REPEATS launches,
+    bit-equal between them; times at the main path's (bfloat16,
+    replicate)."""
+    out, timed = {}, None
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w, b = _head_operands(dtype, 21)
+        gen = torch.Generator(device=DEVICE).manual_seed(22)
+        for mode in ("replicate", "circular"):
+            y = head_conv_kernel(x, w, b, mode).float()
+            g = (torch.randn(y.shape, device=DEVICE, generator=gen)
+                 * (1.0 - y * y)).contiguous()
+            del y
+            ref = head_conv_dw_torch(x, g, mode)
+            got = [head_conv_dw_kernel(x, g, mode)
+                   for _ in range(K8_DW_REPEATS)]
+            torch.cuda.synchronize()
+            rels = [_rel_l2(d, ref) for d in got]
+            same = all(torch.equal(d, got[0]) for d in got)
+            e = float((got[0] - ref).abs().max())
+            print(f"[K8 dW] {str(dtype)[6:]} {mode}: relative L2 vs float64 "
+                  f"plain {[f'{r:.3e}' for r in rels]} (limit {K8_DW_REL_L2})"
+                  f", bit-equal launches {same}, max |diff| {e:.3e} of "
+                  f"max |dW| {float(ref.abs().max()):.3e}")
+            if not (max(rels) <= K8_DW_REL_L2 and same):
+                raise AssertionError("K8 dW disagrees with plain or between "
+                                     "launches")
+            out[dtype, mode] = (e, max(rels))
+            if dtype == torch.bfloat16 and mode == "replicate":
+                gd = g.to(dtype)
+                ms = _time_ms(lambda: head_conv_dw_kernel(x, g), 10)
+                plain_ms = _time_ms(lambda: head_conv_dw_torch(x, g), 2)
+                library_ms = _time_ms(lambda: torch.nn.grad.conv2d_weight(
+                    replicate_pad_w(x, 2), w.shape, gd, padding=(2, 0)), 10)
+                # the function the TPU kernel computes: the JAX VJP casts
+                # the upstream to x's type, so bf16 products summed in
+                # float32; reads x and that upstream, writes dW (the port
+                # keeps the upstream in float32, its own choice)
+                bound = _bound(_nbytes(x, gd, got[0]), _head_ops(x),
+                               PEAK_BF16)
+                print(f"[K8 dW] {tuple(x.shape)} bf16: kernel {ms:.3f} ms, "
+                      f"plain (float64) {plain_ms:.3f} ms, cuDNN pad + weight "
+                      f"gradient {library_ms:.3f} ms per call; bound {bound} "
+                      f"[{gpu}]")
+                timed = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             **bound)
+                del gd
+            del g, ref, got
+        del x
+        torch.cuda.empty_cache()
+    e, rel = out[torch.bfloat16, "replicate"]
+    return dict(max_abs_err=e, max_rel_l2=rel, **timed)
+
+
+class _PlainHead(torch.autograd.Function):
+    """The head through its plain pieces: the plain forward, dx by the
+    transpose conv ``_HeadConv`` uses, dW by the float64 plain version."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, pad_mode):
+        w = weight.detach().to(x.dtype).float()
+        y = head_conv_tanh_torch(x, w, bias.detach(), pad_mode)
+        ctx.save_for_backward(x, w, y)
+        ctx.pad_mode = pad_mode
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, y = ctx.saved_tensors
+        g = (dy.float() * (1.0 - y.float() ** 2)).contiguous()
+        return (head_conv_dx(g, w, x.dtype, ctx.pad_mode),
+                head_conv_dw_torch(x, g, ctx.pad_mode), g.sum(dim=(0, 2, 3)),
+                None)
+
+
+def _plain_head(x, weight, bias, pad_mode="replicate"):
+    return _PlainHead.apply(x, weight, bias, pad_mode)
+
+
+def _gan_config(dtype: str) -> GANConfig:
+    """The CLI's CUB configuration for a 512² cache."""
+    return GANConfig(texture_resolution=GAN_RES, num_discriminators=3,
+                     conditional_class=True, compute_dtype=dtype)
+
+
+def _gan_batch(n: int, seed: int) -> dict:
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return dict(
+        texture=torch.rand((n, GAN_RES, GAN_RES, 3), device=DEVICE,
+                           generator=gen) * 2 - 1,
+        alpha=(torch.rand((n, GAN_RES, GAN_RES, 1), device=DEVICE,
+                          generator=gen) > 0.4).float(),
+        mesh=torch.randn((n, 32, 32, 3), device=DEVICE, generator=gen) * 0.02,
+        c=torch.randint(0, 200, (n, 1), device=DEVICE, generator=gen))
+
+
+class _Take(torch.autograd.Function):
+    """``value`` forward; the gradient goes to ``like`` unchanged."""
+
+    @staticmethod
+    def forward(ctx, like, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def phase_gan_group(gpu: str, template) -> None:
+    """One 1G + 2D group at bs GROUP_BS in float32 through K8 and through
+    the plain head, from the same state, optimizer updates left out: the
+    losses, the gradients, and the head's output, upstream and own
+    gradients in the G step."""
+    trainer = GANTrainer(GANTrainConfig(model=_gan_config("float32"),
+                                        batch_size=GROUP_BS),
+                         template=template, device=DEVICE)
+    for opt in (trainer.opt_g, trainer.opt_d):
+        opt.step = lambda *a, **k: None  # gradients only
+    nets = (trainer.generator, trainer.discriminator, trainer.g_ema)
+    state = [{k: v.clone() for k, v in m.state_dict().items()} for m in nets]
+    nb = trainer.put_batch(_gan_batch(GROUP_BS, 23))
+    z = trainer.sample_z(GROUP_BS)
+    head = {}  # the G step's head: output, its upstream, dx
+
+    def keep_head(module, args, out):
+        """In the G step keep the head's output and gradients; once the
+        kernel run's output is kept, hand it to the rest of the step."""
+        if not out.requires_grad:
+            return None
+        args[0].register_hook(lambda g: head.__setitem__("dx", g.clone()))
+        head["y"] = out.detach().clone()
+        if "y_kernel" in head:
+            out = _Take.apply(out, head["y_kernel"])
+        out.retain_grad()
+        head["out"] = out
+        return out
+
+    trainer.generator.conv_final.register_forward_hook(keep_head)
+
+    def group():
+        for m, sd in zip(nets, state):
+            m.load_state_dict(sd)
+        steps = []
+        for i, step in enumerate((trainer.g_step, trainer.d_step,
+                                  trainer.d_step)):
+            losses = step(nb, z)
+            net = nets[0] if i == 0 else nets[1]
+            steps.append(({k: float(v) for k, v in losses.items()},
+                          {n: p.grad.clone()
+                           for n, p in net.named_parameters()}))
+        grads = steps[0][1]
+        return steps, head["y"], {
+            "dy": head.pop("out").grad.clone(), "dW":
+            grads["conv_final.weight"], "db": grads["conv_final.bias"],
+            "dx": head.pop("dx")}
+
+    def rl2(a, b):
+        num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+        return (num / sum(float((v ** 2).sum()) for v in b.values())) ** 0.5
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the other convs agree
+    try:
+        counts0 = _counts()
+        got = group()
+        launched = {k: v - counts0[k] for k, v in _counts().items()}
+        head["y_kernel"] = got[1]
+        with mock.patch.object(gan_models, "head_conv_tanh", _plain_head):
+            ref = group()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    tex_err = float((got[1] - ref[1]).abs().max())
+    for i, ((gl, gg), (rl, rg)) in enumerate(zip(got[0], ref[0])):
+        prl = rl2(gg, rg)
+        print(f"[gan-group] step {i} ({'G' if i == 0 else 'D'}), bs "
+              f"{GROUP_BS}, float32: losses {gl} vs plain {rl}; parameter "
+              f"gradient rel L2 {prl:.3e} (limit {GROUP_PARAM_RL2})")
+        if not all(math.isclose(gl[k], rl[k], rel_tol=GROUP_RTOL)
+                   for k in rl):
+            raise AssertionError("the group's losses disagree")
+        if not prl <= GROUP_PARAM_RL2:
+            raise AssertionError("the group's gradients disagree")
+    head_rl = {k: _rel_l2(got[2][k], ref[2][k]) for k in ref[2]}
+    print(f"[gan-group] head output max |K8 - plain| {tex_err:.3e} (limit "
+          f"{K8_ATOL[torch.float32]}); G step, K8 vs plain head, rel L2 "
+          f"(limit {GROUP_HEAD_RL2}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in head_rl.items())
+          + f"; launches {launched}")
+    if not (tex_err <= K8_ATOL[torch.float32]
+            and max(head_rl.values()) <= GROUP_HEAD_RL2):
+        raise AssertionError("the head's output or gradients disagree")
+    if launched["k8"] < 3 or launched["k8b"] < 1:
+        raise AssertionError(f"K8 never launched in the group: {launched}")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+
+def _cub_labels(tmp: str) -> None:
+    """CUB's image and class lists for the cache's photos (the fabricated
+    photos carry no labels: 200 classes round robin)."""
+    with np.load(os.path.join(tmp, "cache", "cub", "poses_metadata.npz"),
+                 allow_pickle=True) as f:
+        paths = f["data"].item()["path"]
+    cub = os.path.join(tmp, "datasets", "cub", "CUB_200_2011")
+    os.makedirs(cub, exist_ok=True)
+    with open(os.path.join(cub, "images.txt"), "w") as fh:
+        fh.writelines(f"{i + 1} {p}\n" for i, p in enumerate(paths))
+    with open(os.path.join(cub, "image_class_labels.txt"), "w") as fh:
+        fh.writelines(f"{i + 1} {i % 200 + 1}\n" for i in range(len(paths)))
+
+
+def phase_gan_cli(gpu: str, tmp: str) -> dict:
+    """The GAN CLI on phase 17's cache: GAN_EPOCHS epochs, one more
+    resumed, --evaluate, --save_results; the launches of the training
+    runs."""
+    _cub_labels(tmp)
+    name = "chip_smoke_gan"
+    flags = ["--name", name, "--dataset", "cub", "--device", DEVICE,
+             "--texture_resolution", str(PGT_RES), "--batch_size",
+             str(GAN_B), "--conditional_class",
+             "--save_freq", "1", "--checkpoint_freq", "1", "--evaluate_freq",
+             "1"]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    walls, launches = [], []
+    buf = io.StringIO()
+    try:
+        for argv in ([*flags, "--epochs", str(GAN_EPOCHS)],
+                     [*flags, "--epochs", str(GAN_EPOCHS + 1),
+                      "--continue_train"],
+                     [*flags, "--evaluate"], [*flags, "--save_results"]):
+            _zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = gan_cli.main(argv)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append(_counts())
+            if rc != 0:
+                raise AssertionError(f"the GAN CLI returned {rc}: {argv}")
+    finally:
+        os.chdir(cwd)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if line.startswith(("epoch", "fid", "exported")):
+            print(f"[gan-cli] cli: {line}")
+    train = {k: launches[0][k] + launches[1][k] for k in launches[0]}
+    workdir = os.path.join(tmp, "gan_weights", name)
+    with open(os.path.join(workdir, "metrics_gan.jsonl")) as fh:
+        records = [json.loads(line) for line in fh]
+    values = [v for r in records for k, v in r.items()
+              if k not in ("step", "time")]
+    fids = {line.split(": ")[0]: float(line.split(": ")[1])
+            for line in out.splitlines() if line.startswith("fid")}
+    iters = (PGT_IMAGES // GAN_B) * (GAN_EPOCHS + 1)
+    g_steps = -(-iters // 3)
+    tree = torch.load(os.path.join(workdir, "checkpoints",
+                                   f"checkpoint_{iters}.pt"),
+                      map_location="cpu", weights_only=True)
+    res = os.path.join(tmp, "results", name)
+    files = sorted(os.listdir(res))
+    grid = os.path.join(tmp, "results", f"{name}.png")
+    print(f"[gan-cli] wall: {walls[0]:.2f} s ({GAN_EPOCHS} epochs of "
+          f"{PGT_IMAGES // GAN_B} iterations, FID and grids every epoch), "
+          f"{walls[1]:.2f} s (resumed epoch), {walls[2]:.2f} s (--evaluate), "
+          f"{walls[3]:.2f} s (--save_results) [{gpu}]")
+    print(f"[gan-cli] launches: training runs {train}; --evaluate "
+          f"{launches[2]}; --save_results {launches[3]}")
+    print(f"[gan-cli] {len(records)} metric records, losses "
+          f"{[(r['step'], round(r['g_loss'], 4)) for r in records if 'g_loss' in r]}"
+          f" / {[(r['step'], round(r['d_fake'] + r['d_real'], 4)) for r in records if 'd_fake' in r]}"
+          f"; --evaluate FIDs {fids}; {len(files)} result files + grid "
+          f"{os.path.exists(grid)}")
+    if not (values and all(math.isfinite(v) for v in values)):
+        raise AssertionError(f"non-finite or missing losses: {records}")
+    if len(fids) != 6 or not all(math.isfinite(v) for v in fids.values()):
+        raise AssertionError(f"--evaluate FIDs: {fids}")
+    if tree["total_it"] != iters or not tree["opt_g"]["state"]:
+        raise AssertionError(f"checkpoint total_it {tree['total_it']}, "
+                             f"expected {iters}")
+    want = sorted(f"mesh_{i}.{e}" for i in range(GAN_B)
+                  for e in ("obj", "mtl", "png"))
+    if files != want or not os.path.exists(grid):
+        raise AssertionError(f"--save_results wrote {files}")
+    if train["k8"] < iters or train["k8b"] < g_steps:
+        raise AssertionError(f"K8 launched {train['k8']} / {train['k8b']} "
+                             f"times in {iters} iterations")
+    if min(train[k] for k in ("k4", "k5")) < 1 or min(
+            launches[2][k] for k in ("k4", "k5", "k8")) < 1:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    return train
+
+
+def phase_gan_learn(gpu: str, tmp: str, template) -> float:
+    """LEARN_STEPS D steps on one fixed cache batch against a frozen G, then
+    LEARN_STEPS G steps against the frozen critics, at the full
+    configuration; then 1G + 2D groups/s with the batch on the card."""
+    ds = CubGANDataset(os.path.join(tmp, "cache", "cub"),
+                       texture_resolution=PGT_RES, conditional_class=True)
+    batch = next(gan_batch_iterator(ds, GAN_B, seed=0, num_workers=1))
+    trainer = GANTrainer(GANTrainConfig(model=_gan_config("bfloat16"),
+                                        batch_size=GAN_B),
+                         template=template, device=DEVICE)
+    nb = trainer.put_batch(batch)
+    z = trainer.sample_z(GAN_B)
+    d = [trainer.d_step(nb, z) for _ in range(LEARN_STEPS)]
+    d_vals = [float(x["d_fake"] + x["d_real"]) for x in d]
+    g_vals = [float(trainer.g_step(nb, z)["g_loss"])
+              for _ in range(LEARN_STEPS)]
+    d_ratio = np.mean(d_vals[-5:]) / np.mean(d_vals[:5])
+    g_first, g_last = np.mean(g_vals[:5]), np.mean(g_vals[-5:])
+    g_need = 0.05 * max(1.0, abs(g_first))
+    print(f"[gan-learn] d_fake + d_real {d_vals[0]:.4f} -> {d_vals[-1]:.4f} "
+          f"over {LEARN_STEPS} D steps on one batch; mean of the last 5 / "
+          f"first 5 {d_ratio:.4f} (limit 0.95)")
+    print(f"[gan-learn] g_loss {g_vals[0]:.4f} -> {g_vals[-1]:.4f} over "
+          f"{LEARN_STEPS} G steps; mean of the first 5 - last 5 "
+          f"{g_first - g_last:.4f} (at least {g_need:.4f})")
+    if not (all(math.isfinite(v) for v in d_vals + g_vals)
+            and d_ratio < 0.95 and g_first - g_last >= g_need):
+        raise AssertionError(f"the GAN did not learn: {d_vals} {g_vals}")
+    for _ in range(3):  # one warm 1G + 2D group
+        trainer.train_step(nb)
+    torch.cuda.synchronize()
+    groups = 5
+    t0 = time.perf_counter()
+    for _ in range(3 * groups):
+        losses = trainer.train_step(nb)
+    float(next(iter(losses.values())))
+    rate = groups / (time.perf_counter() - t0)
+    print(f"[gan-rate] {rate:.3f} 1G + 2D groups/s ({1e3 / rate:.1f} ms a "
+          f"group, {rate * GAN_B:.1f} images/s per step kind, bs {GAN_B}, "
+          f"{GAN_RES}², bf16, 3 critics, host clock, batch on the card) "
+          f"[{gpu}]")
+    del trainer
+    torch.cuda.empty_cache()
+    return rate
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1249,6 +1700,12 @@ def main() -> int:
     phase_recon_learn(gpu, template)
     with tempfile.TemporaryDirectory() as tmp:
         phase_pseudogt(gpu, template, tmp)
+        torch.cuda.empty_cache()
+        k8 = phase_k8(gpu)
+        k8b = phase_k8_dw(gpu)
+        phase_gan_group(gpu, template)
+        gan = phase_gan_cli(gpu, tmp)
+        phase_gan_learn(gpu, tmp, template)
 
     kernels = [
         dict(name="K1 projection forward", route="cuda",
@@ -1279,6 +1736,14 @@ def main() -> int:
              source="im23d_tpu_torch/csrc/grid_sample.cu",
              replaces="im23d_tpu/ops/sampling_pallas.py:213",
              launches=recon_train["k5b"], **k5b),
+        dict(name="K8 head conv forward", route="cuda",
+             source="im23d_tpu_torch/csrc/head_conv.cu",
+             replaces="im23d_tpu/ops/conv_pallas.py:91",
+             launches=gan["k8"], **k8),
+        dict(name="K8 head conv dW", route="cuda",
+             source="im23d_tpu_torch/csrc/head_conv.cu",
+             replaces="im23d_tpu/ops/conv_pallas.py:188",
+             launches=gan["k8b"], **k8b),
     ]
     print(json.dumps(dict(kernels=kernels)))
     print(_gpu_line())

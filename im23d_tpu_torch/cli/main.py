@@ -1,0 +1,409 @@
+"""Texture+mesh GAN training and evaluation CLI (counterpart of
+``im23d_tpu/cli/main.py``, with the same flags and defaults, plus
+``--device``).
+
+Without a mode flag it trains on the pseudo-ground-truth cache
+``cache/<dataset>`` (checkpoints under ``gan_weights/<name>/checkpoints``:
+a permanent one every ``--checkpoint_freq`` epochs, the rolling ``latest``
+every ``--save_freq``; FID and sample grids every ``--evaluate_freq``;
+Ctrl-C saves ``latest`` and exits 130).  ``--continue_train`` resumes,
+``--evaluate`` prints the FIDs of the EMA generator (``--which_epoch best``
+sweeps the numbered checkpoints), ``--save_results`` exports obj / mtl /
+png samples and a grid of renders under ``results/<name>``.
+``--conditional_text``, ``--device_cache``, ``--export_serving`` and
+``--multihost`` raise ``NotImplementedError``.
+
+Examples:
+    python -m im23d_tpu_torch.cli.main --name cub_512x512_class \
+        --conditional_class --dataset cub --batch_size 32 --epochs 600
+    python -m im23d_tpu_torch.cli.main --name cub_512x512_class \
+        --conditional_class --dataset cub --evaluate
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+
+from im23d_tpu_torch.cli.flags import str2bool
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--texture_resolution", type=int, default=512)
+    p.add_argument("--mesh_resolution", type=int, default=32)
+    p.add_argument("--symmetric_g", type=str2bool, default=True)
+    p.add_argument("--texture_only", action="store_true")
+    p.add_argument("--conditional_class", action="store_true")
+    p.add_argument("--conditional_color", action="store_true")
+    p.add_argument("--conditional_text", action="store_true")
+    p.add_argument("--norm_g", type=str, default="syncbatch",
+                   help="(syncbatch|batch|instance|none); syncbatch is batch "
+                        "on one device")
+    p.add_argument("--latent_dim", type=int, default=64)
+    p.add_argument("--mesh_path", type=str, default="autodetect")
+    p.add_argument("--epochs", type=int, default=600)
+    p.add_argument("--norm_d", type=str, default="none")
+    p.add_argument("--mesh_regularization", type=float, default=1e-4)
+    p.add_argument("--lr_g", type=float, default=1e-4)
+    p.add_argument("--lr_d", type=float, default=4e-4)
+    p.add_argument("--d_steps_per_g", type=int, default=2)
+    p.add_argument("--g_running_average_alpha", type=float, default=0.999)
+    p.add_argument("--lr_decay_after", type=int, default=1000)
+    p.add_argument("--loss", type=str, default="hinge")
+    p.add_argument("--mask_output", type=str2bool, default=True)
+    p.add_argument("--num_discriminators", type=int, default=-1)
+    p.add_argument("--compute_dtype", type=str, default="auto",
+                   choices=("auto", "float32", "bfloat16"),
+                   help="conv-stack compute dtype (auto = bfloat16 on CUDA, "
+                        "float32 on the CPU)")
+    p.add_argument("--name", "--weights", dest="name", type=str,
+                   required=True)
+    p.add_argument("--dataset", type=str, required=True, help="(p3d|cub)")
+    p.add_argument("--cache_dir", type=str, default=None,
+                   help="default: cache/<dataset>")
+    p.add_argument("--checkpoint_freq", type=int, default=20)
+    p.add_argument("--save_freq", type=int, default=5)
+    p.add_argument("--evaluate_freq", type=int, default=20)
+    p.add_argument("--tensorboard", action="store_true")
+    p.add_argument("--continue_train", action="store_true")
+    p.add_argument("--evaluate", action="store_true")
+    p.add_argument("--save_results", action="store_true")
+    p.add_argument("--which_epoch", type=str, default="latest")
+    p.add_argument("--export_serving", type=str, default=None)
+    p.add_argument("--export_platforms", type=str, default="tpu,cpu")
+    p.add_argument("--batch_size", type=int, default=32)
+    p.add_argument("--truncation_sigma", type=float, default=-1)
+    p.add_argument("--gpu_ids", type=str, default="0",
+                   help="accepted for reference parity; see --device")
+    p.add_argument("--num_workers", type=int, default=4,
+                   help="data-loading threads")
+    p.add_argument("--device_cache", action="store_true")
+    p.add_argument("--text_max_length", type=int, default=18)
+    p.add_argument("--text_pretrained_encoder", type=str,
+                   default="cache/cub/text_encoder200.pth")
+    p.add_argument("--text_train_encoder", action="store_true")
+    p.add_argument("--text_attention", type=str2bool, default=True)
+    p.add_argument("--text_embedding_dim", type=int, default=256)
+    p.add_argument("--inception_weights", type=str, default=None,
+                   help="torchvision inception_v3 state dict (.pth or .npz)")
+    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of a window of "
+                        "steady-state steps to this directory")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the networks and the renderer")
+    return p
+
+
+EVALUATION_RES = 299  # FID renders and Inception input, as the reference
+GRID_RES = 256  # the in-training sample grids' renders, as the JAX CLI
+
+# modes of the JAX CLI that later slices of the port bring
+_NOT_PORTED = (
+    ("conditional_text", "--conditional_text (SpatialAttention, the text "
+     "encoder and the caption cache) is not ported yet"),
+    ("device_cache", "--device_cache is not ported yet"),
+    ("export_serving", "--export_serving comes with the serving slice "
+     "(torch.export)"),
+    ("multihost", "--multihost comes with the multi-GPU slice"),
+)
+
+
+def load_inception(path, device):
+    """--inception_weights: a torchvision inception_v3 state dict (.pth or
+    .npz of the same tensors) in the port's extractor (pool3, 2048-d), or
+    None."""
+    if not path:
+        return None
+    import torch
+
+    from im23d_tpu_torch.metrics.inception import InceptionV3Features
+
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            sd = {k: torch.from_numpy(f[k]) for k in f.files}
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    model = InceptionV3Features(feature_layer="pool3")
+    missing = model.load_state_dict(sd, strict=False).missing_keys
+    if missing:
+        raise ValueError(f"{path} lacks {len(missing)} extractor tensors, "
+                         f"e.g. {missing[:3]}")
+    return model.to(device).eval()
+
+
+def load_dataset(args):
+    from im23d_tpu_torch.data.pseudogt import CubGANDataset, Pascal3DGANDataset
+
+    cache_dir = args.cache_dir or os.path.join("cache", args.dataset)
+    common = dict(texture_resolution=args.texture_resolution,
+                  evaluate=args.evaluate,
+                  conditional_class=args.conditional_class)
+    if args.dataset == "cub":
+        if args.conditional_color:
+            raise ValueError("--conditional_color is not supported for cub")
+        return CubGANDataset(cache_dir, **common)
+    if args.dataset == "p3d":
+        return Pascal3DGANDataset(
+            cache_dir, conditional_color=args.conditional_color, **common)
+    raise ValueError("Invalid dataset")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    for flag, why in _NOT_PORTED:
+        if getattr(args, flag):
+            raise NotImplementedError(why)
+    if args.save_results:
+        args.evaluate = True
+
+    import torch
+
+    from im23d_tpu_torch.core.checkpoint import numbered_steps
+    from im23d_tpu_torch.core.metrics_logger import MetricsLogger
+    from im23d_tpu_torch.data.cmr import batch_iterator
+    from im23d_tpu_torch.data.pseudogt import EvalDataset, gan_batch_iterator
+    from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
+    from im23d_tpu_torch.models.gan import GANConfig
+    from im23d_tpu_torch.train.gan_eval import (
+        FIDEvaluator,
+        export_results,
+        load_precomputed_stats,
+        load_val_stats,
+        render_generated,
+        val_fids,
+    )
+    from im23d_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
+
+    ds = load_dataset(args)
+    if args.num_discriminators == -1:
+        args.num_discriminators = ds.suggest_num_discriminators()
+    if args.truncation_sigma < 0:
+        args.truncation_sigma = ds.suggest_truncation_sigma()
+    if args.num_discriminators >= 3 and args.texture_resolution < 512:
+        raise ValueError("3 discriminators need --texture_resolution >= 512")
+    if args.mesh_path == "autodetect":
+        segments, rings = ds.suggest_mesh_template()
+        template = MeshTemplate(segments=segments, rings=rings)
+    else:
+        template = MeshTemplate(args.mesh_path)
+    device = torch.device(args.device)
+    if args.compute_dtype == "auto":
+        args.compute_dtype = ("bfloat16" if device.type == "cuda"
+                              else "float32")
+
+    mcfg = GANConfig(
+        compute_dtype=args.compute_dtype,
+        texture_resolution=args.texture_resolution,
+        mesh_resolution=args.mesh_resolution,
+        symmetric_g=args.symmetric_g,
+        texture_only=args.texture_only,
+        conditional_class=args.conditional_class,
+        conditional_color=args.conditional_color,
+        norm_g="batch" if args.norm_g == "syncbatch" else args.norm_g,
+        norm_d=args.norm_d,
+        latent_dim=args.latent_dim,
+        num_discriminators=args.num_discriminators,
+        mask_output=args.mask_output,
+        n_classes=tuple(getattr(ds, "n_classes", (1,))))
+    tcfg = GANTrainConfig(
+        model=mcfg, lr_g=args.lr_g, lr_d=args.lr_d,
+        d_steps_per_g=args.d_steps_per_g,
+        g_ema_alpha=args.g_running_average_alpha,
+        mesh_regularization=args.mesh_regularization, loss=args.loss,
+        epochs=args.epochs, lr_decay_after=args.lr_decay_after,
+        batch_size=args.batch_size)
+    workdir = os.path.join("gan_weights", args.name)
+    trainer = GANTrainer(tcfg, template=template, workdir=workdir,
+                         device=device)
+    if args.continue_train or args.evaluate:
+        if args.which_epoch not in ("latest", "best"):
+            trainer.restore(step=int(args.which_epoch))
+        elif args.which_epoch == "latest" or not args.evaluate:
+            trainer.restore()
+    if args.save_results and args.which_epoch == "best":
+        raise SystemExit("--save_results requires --which_epoch latest or a "
+                         "numeric epoch (run --evaluate --which_epoch best "
+                         "first to identify the best epoch)")
+
+    def sample_conditioning(n, seed=0):
+        """Random dataset indices -> (classes, poses, indices)."""
+        idx = np.random.RandomState(seed).randint(0, len(ds), size=n)
+        classes = (np.stack([np.atleast_1d(ds.classes[i]) for i in idx])
+                   if args.conditional_class else None)
+        poses = {k: np.asarray(ds.data[k])[idx]
+                 for k in ("scale", "translation", "rotation")}
+        return classes, poses, idx
+
+    if args.save_results:
+        out = os.path.join("results", args.name)
+        classes, poses, _ = sample_conditioning(args.batch_size)
+        files = export_results(trainer, template, out,
+                               n_samples=args.batch_size,
+                               truncation_sigma=args.truncation_sigma,
+                               classes=classes, poses=poses,
+                               render_res=min(args.texture_resolution, 512))
+        print(f"exported {len(files)} samples to {out}")
+        return 0
+
+    eval_ds = EvalDataset(ds)
+    cache_dir = args.cache_dir or os.path.join("cache", args.dataset)
+    stats_path = os.path.join(cache_dir, "precomputed_fid_299x299_train.npz")
+
+    def eval_batches():
+        # every image scores: the evaluator pads the tail batch
+        return batch_iterator(eval_ds, args.batch_size, shuffle=False,
+                              drop_last=False, num_workers=args.num_workers)
+
+    def make_evaluator():
+        return FIDEvaluator(trainer, template, EVALUATION_RES,
+                            load_inception(args.inception_weights, device))
+
+    if args.evaluate:
+        m_real, s_real, _, _ = load_precomputed_stats(stats_path)
+        val_stats = load_val_stats(cache_dir)
+        evaluator = make_evaluator()
+
+        def fid_now(variants: bool = True):
+            acts = evaluator.activations_for_batches(
+                eval_batches(), args.truncation_sigma, variants=variants)
+            fids = {key: evaluator.fid_against_stats(act, m_real, s_real)
+                    for key, act in acts.items()}
+            if val_stats is not None and variants:
+                fids.update(val_fids(acts, val_stats,
+                                     np.random.RandomState(1234)))
+            return fids
+
+        if args.which_epoch == "best":
+            steps = numbered_steps(os.path.join(workdir, "checkpoints"))
+            if not steps:
+                raise SystemExit(
+                    f"--which_epoch best: no numbered checkpoints to sweep "
+                    f"under {workdir}/checkpoints (only the rolling latest "
+                    f"exists; pass --which_epoch latest)")
+            best = (None, float("inf"))
+            for step in steps:
+                trainer.restore(step=step)
+                fid = fid_now(variants=False)["combined"]
+                print(f"checkpoint {step}: {evaluator.metric_prefix}/combined "
+                      f"{fid:.3f}")
+                if fid < best[1]:
+                    best = (step, fid)
+            print(f"best checkpoint: {best[0]} (fid {best[1]:.3f})")
+            trainer.restore(step=best[0])
+        for key, fid in fid_now().items():
+            print(f"{evaluator.metric_prefix}/{key}: {fid:.3f}")
+        return 0
+
+    logger = MetricsLogger(workdir, "gan", tensorboard=args.tensorboard)
+    evaluator = fid_real = val_stats = None
+    if os.path.exists(stats_path):
+        evaluator = make_evaluator()
+        fid_real = load_precomputed_stats(stats_path)[:2]
+        val_stats = load_val_stats(cache_dir)
+    else:
+        logger.log_text(f"no FID stats at {stats_path}; in-training eval "
+                        "logs image grids only")
+
+    # the same classes and poses in every grid
+    viz_n = min(args.batch_size, 16)
+    viz_classes, viz_poses, viz_idx = sample_conditioning(viz_n, seed=1234)
+    viz_real = None
+    if ds.has_pseudo_ground_truth:
+        items = [ds.load_pseudo_ground_truth(int(i)) for i in viz_idx]
+        viz_real = {k: np.stack([it[k] for it in items]).astype(np.float32)
+                    for k in ("image", "texture", "mesh")}
+
+    def evaluate_during_training(epoch):
+        if evaluator is not None:
+            acts = evaluator.activations_for_batches(
+                eval_batches(), args.truncation_sigma, variants=True)
+            prefix = evaluator.metric_prefix
+            fids = {f"{prefix}/{key}": evaluator.fid_against_stats(act,
+                                                                   *fid_real)
+                    for key, act in acts.items()}
+            if val_stats is not None:
+                fids.update({f"{prefix}/{k}": v for k, v in val_fids(
+                    acts, val_stats, np.random.RandomState(epoch)).items()})
+            logger.log(trainer.total_it, fids)
+            logger.log_text(f"epoch {epoch} " + " ".join(
+                f"{k} {v:.3f}" for k, v in fids.items()))
+        z = trainer.truncation_sample(1234, viz_n, args.truncation_sigma)
+        tex, mesh_map = trainer.generate(z, viz_classes)
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                   device=device)
+
+        poses = (f32(viz_poses["scale"]).reshape(-1),
+                 f32(viz_poses["translation"]), f32(viz_poses["rotation"]))
+
+        def render(m, t):
+            with torch.no_grad():
+                img, alpha = render_generated(template, GRID_RES, m, t,
+                                              *poses)
+            return torch.where(alpha > 0, img, torch.ones_like(img)).cpu()
+
+        it = trainer.total_it
+        logger.log_images(it, "samples/render", render(mesh_map, tex))
+        logger.log_images(it, "samples/texture", tex.cpu() / 2.0 + 0.5)
+        m = mesh_map.cpu().numpy()
+        lo = m.min(axis=(1, 2), keepdims=True)
+        hi = m.max(axis=(1, 2), keepdims=True)
+        logger.log_images(it, "samples/mesh_map",
+                          (m - lo) / np.maximum(hi - lo, 1e-8))
+        if viz_real is not None:
+            logger.log_images(it, "samples/real_image", viz_real["image"])
+            logger.log_images(it, "samples/real_texture",
+                              viz_real["texture"] / 2.0 + 0.5)
+            logger.log_images(it, "samples/render_fake_texture",
+                              render(f32(viz_real["mesh"]), tex))
+            logger.log_images(it, "samples/render_fake_mesh",
+                              render(mesh_map, f32(viz_real["texture"])))
+
+    profiler = None
+    if args.profile_dir:
+        from im23d_tpu_torch.core.profiler import StepProfiler
+
+        profiler = StepProfiler(args.profile_dir)
+    try:
+        for epoch in range(trainer.epoch, args.epochs):
+            trainer.epoch = epoch
+            t0 = time.time()
+            # a loss fetch stalls the device: the first 1G + 2D group of an
+            # epoch and every 10th iteration after
+            for it_in_epoch, batch in enumerate(gan_batch_iterator(
+                    ds, args.batch_size, seed=epoch,
+                    num_workers=args.num_workers)):
+                if profiler is not None:
+                    profiler.tick()
+                losses = trainer.train_step(batch)
+                if it_in_epoch < 3 or it_in_epoch % 10 == 0:
+                    scalars = {k: float(v) for k, v in losses.items()}
+                    logger.log(trainer.total_it, scalars)
+                    trainer.record_curves(scalars)
+            logger.log_text(f"epoch {epoch}: {time.time() - t0:.1f}s")
+            trainer.epoch = epoch + 1
+            if (epoch + 1) % args.checkpoint_freq == 0:
+                trainer.save()
+            elif (epoch + 1) % args.save_freq == 0:
+                trainer.save(tag="latest")
+            if (epoch + 1) % args.evaluate_freq == 0:
+                evaluate_during_training(epoch)
+    except KeyboardInterrupt:
+        logger.log_text("KeyboardInterrupt: saving final checkpoint")
+        trainer.save(tag="latest")
+        return 130
+    finally:
+        if profiler is not None:
+            profiler.close()
+    trainer.save()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -29,12 +29,18 @@ def save_checkpoint(workdir: str, step, tree: dict) -> str:
     return path
 
 
+def numbered_steps(workdir: str) -> list[int]:
+    """The steps of the numbered checkpoints under ``workdir``, sorted."""
+    names = os.listdir(workdir) if os.path.isdir(workdir) else []
+    return sorted(int(m.group(1)) for m in map(_CKPT.match, names) if m)
+
+
 def resolve_checkpoint(workdir: str, step=None) -> str:
     """Path of the checkpoint of ``step`` (an int or "latest"); by default
     the newer, by file time, of the highest numbered one and the rolling
     "latest".  Raises FileNotFoundError when there is none."""
     names = os.listdir(workdir) if os.path.isdir(workdir) else []
-    steps = sorted(int(m.group(1)) for m in map(_CKPT.match, names) if m)
+    steps = numbered_steps(workdir)
     if step is None:
         candidates = [checkpoint_path(workdir, s) for s in steps[-1:]]
         if f"checkpoint_{LATEST}.pt" in names:

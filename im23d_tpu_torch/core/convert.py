@@ -1,6 +1,7 @@
 """JAX params -> the port's ``state_dict``: ``UnsupervisedPart`` /
 ``SupervisedPart`` (Pipeline A), ``ReconstructionNetwork`` and
-``DatasetParams`` (Pipeline B), ``InceptionV3Features`` (FID).
+``DatasetParams`` (Pipeline B), the GAN's ``Generator`` and
+``MultiScaleDiscriminator``, ``InceptionV3Features`` (FID).
 
 Input is the flax param tree as nested dicts of numpy arrays (what
 ``jax.tree.map(np.asarray, params)`` gives), with or without the top-level
@@ -152,6 +153,92 @@ def dataset_params_state_dict(dp_params: dict) -> dict:
     state dict (the same names)."""
     dp = dp_params.get("params", dp_params)
     return {k: _tensor(v) for k, v in dp.items()}
+
+
+def _sn_convs(sd: dict, p: dict, s: dict, names: list[str]) -> None:
+    """flax ``SpectralNorm(Conv)`` layers ``Conv_i`` (kernel, bias) with
+    their ``SpectralNorm_i`` ``u`` -> ``<name>.weight_orig``, ``.bias``,
+    ``.weight_u``, in creation order (no ``u`` when ``s`` has none: a tree
+    shaped like the params alone, such as Adam's moments)."""
+    for i, name in enumerate(names):
+        layer = p[f"Conv_{i}"]
+        sd[f"{name}.weight_orig"] = _conv_weight(layer["kernel"])
+        if "bias" in layer:
+            sd[f"{name}.bias"] = _tensor(layer["bias"])
+        if f"SpectralNorm_{i}" in s:
+            sd[f"{name}.weight_u"] = _tensor(
+                np.asarray(s[f"SpectralNorm_{i}"][f"Conv_{i}/kernel/u"])[0])
+
+
+def _linear_entries(sd: dict, name: str, layer: dict) -> None:
+    sd[f"{name}.weight"] = _tensor(np.asarray(layer["kernel"]).T)
+    sd[f"{name}.bias"] = _tensor(layer["bias"])
+
+
+def generator_state_dict(variables: dict) -> dict:
+    """Flax ``Generator`` variables ``{params, batch_stats}`` (batch-norm
+    moments and spectral-norm ``u``) -> the port's ``Generator.state_dict``
+    (the reference's torch names).
+
+    flax reshapes ``fc``'s output as an (8, W, 512) HWC map where the
+    reference views a (512, 8, W) CHW one: its columns and bias are
+    permuted accordingly.  A ResBlockUp's convs are named by creation order:
+    the 1 × 1 shortcut, when the channel count changes, comes first.
+    """
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: dict[str, torch.Tensor] = {}
+    k = np.asarray(p["fc"]["kernel"], np.float32)  # (z, 8 * W * 512)
+    base_w = k.shape[1] // (8 * 512)
+    sd["fc.weight"] = torch.from_numpy(
+        k.T.reshape(8, base_w, 512, -1).transpose(2, 0, 1, 3)
+        .reshape(-1, k.shape[0]).copy())
+    sd["fc.bias"] = torch.from_numpy(
+        np.asarray(p["fc"]["bias"], np.float32).reshape(8, base_w, 512)
+        .transpose(2, 0, 1).reshape(-1).copy())
+    for emb in ("emb_class", "emb_color"):
+        if emb in p:
+            sd[f"{emb}.weight"] = _tensor(p[emb]["embedding"])
+    for blk in ("blk1", "blk2", "blk3a", "blk3b", "blk3c", "blk4", "blk5",
+                "blk6", "blk3_mesh"):
+        if blk not in p:
+            continue
+        bp, bs = p[blk], s.get(blk, {})
+        n_convs = sum(key.startswith("Conv_") for key in bp)
+        names = ["shortcut"] * (n_convs == 3) + ["conv1", "conv2"]
+        _sn_convs(sd, bp, bs, [f"{blk}.{n}" for n in names])
+        for norm in ("norm1", "norm2"):
+            for fc in ("fc_gamma", "fc_beta"):
+                _linear_entries(sd, f"{blk}.{norm}.{fc}", bp[norm][fc])
+            stats = bs.get(norm, {}).get("BatchNorm_0")
+            if stats is not None:
+                sd[f"{blk}.{norm}.norm.running_mean"] = _tensor(stats["mean"])
+                sd[f"{blk}.{norm}.norm.running_var"] = _tensor(stats["var"])
+    for name in ("conv_final", "conv_mesh"):
+        if name in p:
+            sd[f"{name}.weight"] = _conv_weight(p[name]["kernel"])
+            sd[f"{name}.bias"] = _tensor(p[name]["bias"])
+    return sd
+
+
+def discriminator_state_dict(variables: dict) -> dict:
+    """Flax ``MultiScaleDiscriminator`` variables ``{params, batch_stats}``
+    -> the port's ``MultiScaleDiscriminator.state_dict``: ``d<k>.conv<i>``
+    from ``Conv_<i-1>`` and its ``SpectralNorm_<i-1>`` ``u``, the instance
+    norms' scale and bias, the projection embeddings."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    sd: dict[str, torch.Tensor] = {}
+    for d, dp in p.items():
+        n_convs = sum(key.startswith("Conv_") for key in dp)
+        _sn_convs(sd, dp, s.get(d, {}),
+                  [f"{d}.conv{i + 1}" for i in range(n_convs)])
+        for bn in ("bn2", "bn3", "bn4"):
+            if bn in dp:
+                sd[f"{d}.{bn}.weight"] = _tensor(dp[bn]["scale"])
+                sd[f"{d}.{bn}.bias"] = _tensor(dp[bn]["bias"])
+        for emb in ("projector", "projector_col1"):
+            if emb in dp:
+                sd[f"{d}.{emb}.weight"] = _tensor(dp[emb]["embedding"])
+    return sd
 
 
 def inception_state_dict(variables: dict) -> dict:

@@ -40,15 +40,15 @@ def write_png(path: str, img: np.ndarray) -> None:
                  + chunk(b"IEND", b""))
 
 
-def tile_grid(images, ncol: int) -> np.ndarray:
+def tile_grid(images, ncol: int, fill: float = 0.0) -> np.ndarray:
     """Tile (N, H, W[, C]) floats in [0, 1] into one (H', W', C) grid; the
-    remainder cells of a non-full last row stay black."""
+    remainder cells of a non-full last row hold ``fill``."""
     arr = np.clip(np.asarray(images, np.float32), 0.0, 1.0)
     if arr.ndim == 3:
         arr = arr[..., None]
     n, h, w, c = arr.shape
     nrows = -(-n // ncol)
-    grid = np.zeros((nrows * h, ncol * w, c), np.float32)
+    grid = np.full((nrows * h, ncol * w, c), fill, np.float32)
     for i in range(n):
         r, col = divmod(i, ncol)
         grid[r * h:(r + 1) * h, col * w:(col + 1) * w] = arr[i]

@@ -18,8 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from im23d_tpu_torch.ops.quaternion import qnormalize, qrot
-from im23d_tpu_torch.render.renderer import render_mesh
+from im23d_tpu_torch.train.gan_eval import render_generated
 
 
 def _unit(v: np.ndarray) -> np.ndarray:
@@ -161,25 +160,6 @@ class StructuredPseudoGT:
             ),
             rotation=rot.astype(np.float32),
         )
-
-
-def render_generated(template, renderer_res: int, mesh_map: torch.Tensor,
-                     texture: torch.Tensor, scale: torch.Tensor,
-                     translation: torch.Tensor, rotation: torch.Tensor):
-    """Pose and render UV mesh maps (B, m, m, 3) with [-1, 1] textures
-    (B, T, T, 3) under (scale (B,), translation (B, 3), rotation (B, 4));
-    returns (image (B, R, R, 3), alpha (B, R, R, 1)).  Counterpart of
-    ``render_generated`` in ``im23d_tpu/train/gan_eval.py``."""
-    vtx = template.get_vertex_positions(mesh_map)
-    vtx = qrot(qnormalize(rotation), scale.reshape(-1, 1, 1) * vtx)
-    vtx = (vtx + translation[:, None, :]) * vtx.new_tensor([1.0, -1.0, -1.0])
-    uvs, tex_adj = template.adjust_uv_and_texture(texture / 2.0 + 0.5)
-    dev = vtx.device
-    image, alpha, _ = render_mesh(
-        vtx, template.tensor("faces", dev), uvs,
-        template.tensor("face_uvs", dev), tex_adj, renderer_res,
-        renderer_res)
-    return image, alpha
 
 
 class StructuredReconSet:

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from im23d_tpu_torch.geometry.objio import Mesh, load_obj, uv_sphere
+from im23d_tpu_torch.geometry.objio import Mesh, load_obj, save_obj, uv_sphere
 from im23d_tpu_torch.ops.sampling import circpad
 
 
@@ -241,3 +241,10 @@ class MeshTemplate:
         else:
             texture = torch.cat([texture, texture[:, :, :1]], dim=2)
         return uvs[None].expand(B, -1, -1), texture
+
+    def export_obj(self, path_prefix: str, vertex_positions,
+                   texture=None) -> None:
+        """Write ``<prefix>.obj``, ``.mtl`` and, with a (H, W, 3) texture in
+        [0, 1], ``.png`` for (V, 3) vertex positions on this topology."""
+        save_obj(path_prefix, self.mesh, np.asarray(vertex_positions),
+                 None if texture is None else np.asarray(texture))

@@ -1,6 +1,6 @@
 """Host-side OBJ mesh IO and procedural UV-sphere templates, numpy only (a
-copy of ``im23d_tpu/geometry/objio.py``; PIL is imported only by
-``save_obj`` when it writes a texture).
+copy of ``im23d_tpu/geometry/objio.py``; ``save_obj`` writes the texture
+PNG with ``core/metrics_logger.write_png``, no imaging library).
 
 A dependency-free OBJ parser, and Blender-style UV spheres generated
 procedurally; a user-supplied template .obj loads through ``load_obj``.
@@ -13,6 +13,8 @@ import os
 from typing import NamedTuple
 
 import numpy as np
+
+from im23d_tpu_torch.core.metrics_logger import write_png
 
 
 class Mesh(NamedTuple):
@@ -81,10 +83,8 @@ def save_obj(path_prefix: str, mesh: Mesh, vertex_positions: np.ndarray,
         print("map_Ka " + material_name + ".png", file=fh)
         print("map_Kd " + material_name + ".png", file=fh)
     if texture is not None:
-        from PIL import Image
-
         arr = np.clip(np.asarray(texture) * 255.0, 0, 255).astype(np.uint8)
-        Image.fromarray(arr).save(path_prefix + ".png")
+        write_png(path_prefix + ".png", arr)
 
 
 def uv_sphere(segments: int = 32, rings: int = 16) -> Mesh:

@@ -70,8 +70,12 @@ def _bn(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
         bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
         bn.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
     shape = [1, -1] + [1] * (xf.dim() - 2)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    y = (xf - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+    mul = torch.rsqrt(var + bn.eps)
+    if bn.weight is not None:
+        mul = mul * bn.weight
+    y = (xf - mean.view(shape)) * mul.view(shape)
+    if bn.bias is not None:
+        y = y + bn.bias.view(shape)
     return y.to(x.dtype)
 
 

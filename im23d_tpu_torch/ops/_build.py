@@ -53,6 +53,10 @@ _SIGNATURES = {
     "im23d_grid_sample_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # img, grid, dout, dimg, dgrid, B, H, W, C, P, stream
     "im23d_grid_sample_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, bias, y, B, C, H, W, circular, bf16, stream
+    "im23d_head_conv_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, g, partial, dw, B, C, H, W, circular, bf16, nrows, stream
+    "im23d_head_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""CUDA kernels K1, K2, K3, K4 and K5 of the PyTorch port against their
-plain versions.
+"""CUDA kernels K1, K2, K3, K4, K5 and K8 of the PyTorch port against
+their plain versions.
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
 one.  Imports no JAX, so it runs where JAX is not installed; the repository's
@@ -30,6 +30,12 @@ test (``tests/test_rasterizer_pallas.py:76-80``): max |d verts| error
 max(max |d attrs|, 1), read on the per-corner gradients d fv: per-face
 sums by atomicAdd in another order, the segment-parameter chain that
 vanishes at the nearest point dropped, and d log_miss taken from 1 − soft.
+
+K8 (the GAN head conv) sums 25·C products per output in another order than
+cuDNN: forward atol 1e-5 in float32 and 1e-2 in bfloat16 (one bfloat16
+ulp near 1); dW by relative L2 <= 1e-4 against the float64 plain version,
+bit-equal between launches (a two-pass reduction with no atomics); the
+autograd Function's dx, dW and db against autograd of the plain forward.
 """
 
 import numpy as np
@@ -40,6 +46,13 @@ from im23d_tpu_torch.metrics.chamfer import (
     nn_dist2,
     nn_dist2_kernel,
     nn_dist2_torch,
+)
+from im23d_tpu_torch.ops.conv import (
+    head_conv_dw_kernel,
+    head_conv_dw_torch,
+    head_conv_kernel,
+    head_conv_tanh,
+    head_conv_tanh_torch,
 )
 from im23d_tpu_torch.ops.projection import (
     _prep_projection,
@@ -491,3 +504,70 @@ def test_render_mesh_gradients_on_the_card_match_the_cpu(dev):
     got, ref = run(dev), run("cpu")
     for g, r in zip(got, ref):
         assert _rel_l2(g, r) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("pad_mode", ["replicate", "circular"])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 48), (3, 8, 17, 5),
+                                   (1, 64, 33, 70)])
+def test_k8_matches_plain(dev, shape, pad_mode, dtype, atol):
+    """Forward and dW at tile-aligned and ragged sizes, 8 and 64 input
+    channels."""
+    gen = torch.Generator(dev).manual_seed(8)
+    x = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    w = (torch.randn((3, shape[1], 5, 5), device=dev, generator=gen)
+         * 0.05).to(dtype).float()
+    b = torch.randn(3, device=dev, generator=gen) * 0.1
+    n0 = head_conv_kernel.launches
+    y = head_conv_kernel(x, w, b, pad_mode)
+    ref = head_conv_tanh_torch(x, w, b, pad_mode)
+    g = torch.randn((shape[0], 3, *shape[2:]), device=dev, generator=gen)
+    d1 = head_conv_dw_kernel(x, g, pad_mode)
+    d2 = head_conv_dw_kernel(x, g, pad_mode)
+    dref = head_conv_dw_torch(x, g, pad_mode)
+    torch.cuda.synchronize()
+    assert head_conv_kernel.launches == n0 + 1
+    assert y.dtype == dtype and y.shape == (shape[0], 3, *shape[2:])
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=0)
+    assert torch.equal(d1, d2)
+    assert _rel_l2(d1, dref) <= 1e-4
+
+
+@pytest.mark.parametrize("pad_mode", ["replicate", "circular"])
+def test_k8_autograd_matches_plain(dev, pad_mode):
+    gen = torch.Generator(dev).manual_seed(9)
+    x = torch.randn((2, 16, 24, 40), device=dev, generator=gen)
+    w = torch.randn((3, 16, 5, 5), device=dev, generator=gen) * 0.1
+    b = torch.randn(3, device=dev, generator=gen) * 0.1
+    co = torch.randn((2, 3, 24, 40), device=dev, generator=gen)
+
+    def grads(fn):
+        args = [t.clone().requires_grad_() for t in (x, w, b)]
+        return torch.autograd.grad((fn(*args, pad_mode) * co).sum(), args)
+
+    n0 = head_conv_dw_kernel.launches
+    got, ref = grads(head_conv_tanh), grads(head_conv_tanh_torch)
+    assert head_conv_dw_kernel.launches == n0 + 1
+    # dW against the float64 plain version (cuDNN's float32 weight
+    # gradient is the less precise of the two)
+    y = head_conv_tanh_torch(x, w, b, pad_mode)
+    dw = head_conv_dw_torch(x, (co * (1 - y * y)).contiguous(), pad_mode)
+    assert _rel_l2(got[0], ref[0]) <= 1e-5
+    assert _rel_l2(got[1], dw) <= 1e-5
+    assert _rel_l2(got[2], ref[2]) <= 1e-5
+
+
+def test_k8_rejects_bad_operands(dev):
+    x = torch.randn((1, 8, 8, 8), device=dev)
+    w = torch.zeros((3, 8, 5, 5), device=dev)
+    b = torch.zeros(3, device=dev)
+    with pytest.raises(TypeError):
+        head_conv_kernel(x.half(), w, b)
+    with pytest.raises(ValueError):
+        head_conv_kernel(x, w[:, :4].contiguous(), b)
+    with pytest.raises(ValueError):
+        head_conv_kernel(x, w, b, "reflect")
+    with pytest.raises(ValueError):
+        head_conv_kernel(x.cpu(), w, b)
+

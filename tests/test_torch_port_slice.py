@@ -150,6 +150,9 @@ def test_port_never_imports_jax():
     mods = [m.name for m in pkgutil.walk_packages(
         im23d_tpu_torch.__path__, "im23d_tpu_torch.")]
     assert "im23d_tpu_torch.ops.projection" in mods
+    for m in ("ops.conv", "models.gan", "data.pseudogt", "train.gan_trainer",
+              "train.gan_eval", "cli.main"):
+        assert f"im23d_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'im23d_tpu'):\n"

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of the chairs eval and train steps and of the Pipeline-B
-(CUB mesh estimation) eval step goes on one GPU (PyTorch port).
+"""Where the time of the chairs eval and train steps, of the Pipeline-B
+(CUB mesh estimation) eval and train steps and of the CUB GAN's 1G + 2D
+group goes on one GPU (PyTorch port).
 
 For each window of the eval path (the whole eval step with its loss fetch,
 then its parts: host->device normalize, model forward, keep mask, the eval
@@ -35,9 +36,17 @@ norm), posing and rendering forward (vertex sampler, K4 with its winner
 cache, K5), K4's backward and K5's backward alone at the step's shapes,
 and the two Adam updates.
 
+The GAN windows (``--only gan_train``) are the CUB GAN at the CLI's
+full configuration (bs 32, 512² textures, bf16, 3 critics, class
+conditioning): one 1G + 2D group with its loss fetch, then a G step and a
+D step alone, the generator's train-mode forward, the critics' forward +
+backward on the D step's concatenated batch of 2B, K8 forward and K8 dW
+alone at the head's shape, and the EMA update; the batch is random, on
+the card.
+
 Usage (from the repository root, on a machine with a CUDA device):
     python3 tools/profile_eval.py [--iters 10]
-        [--only eval|train|recon|recon_train]
+        [--only eval|train|recon|recon_train|gan_train]
 """
 
 from __future__ import annotations
@@ -62,6 +71,11 @@ from im23d_tpu_torch.losses.effective import (  # noqa: E402
     _candidate_cam,
     unsupervised_loss,
 )
+from im23d_tpu_torch.models.gan import GANConfig  # noqa: E402
+from im23d_tpu_torch.ops.conv import (  # noqa: E402
+    head_conv_dw_kernel,
+    head_conv_kernel,
+)
 from im23d_tpu_torch.ops.pointcloud import keep_mask  # noqa: E402
 from im23d_tpu_torch.ops.projection import (  # noqa: E402
     _prep_projection,
@@ -76,6 +90,10 @@ from im23d_tpu_torch.render.rasterizer import (  # noqa: E402
     _launch_forward,
     rasterize,
     rasterize_backward_kernel,
+)
+from im23d_tpu_torch.train.gan_trainer import (  # noqa: E402
+    GANTrainConfig,
+    GANTrainer,
 )
 from im23d_tpu_torch.train.recon_trainer import (  # noqa: E402
     ReconConfig,
@@ -328,13 +346,88 @@ def profile_recon_train(iters: int) -> None:
           f"{_peak_mib(lambda: trainer.train_step(batch)):.3f}")
 
 
+def profile_gan_train(iters: int) -> None:
+    """The GAN's 1G + 2D group and its parts; shares are of the group's
+    device busy time."""
+    B, res = 32, 512
+    cfg = GANTrainConfig(model=GANConfig(compute_dtype="bfloat16",
+                                         num_discriminators=3,
+                                         conditional_class=True),
+                         batch_size=B)
+    trainer = GANTrainer(cfg, template=MeshTemplate(segments=32, rings=16),
+                         device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    nb = trainer.put_batch(dict(
+        texture=torch.rand((B, res, res, 3), device="cuda",
+                           generator=gen) * 2 - 1,
+        alpha=(torch.rand((B, res, res, 1), device="cuda", generator=gen)
+               > 0.4).float(),
+        mesh=torch.randn((B, 32, 32, 3), device="cuda", generator=gen) * 0.02,
+        c=torch.randint(0, 200, (B, 1), device="cuda", generator=gen)))
+    z = trainer.sample_z(B)
+    G, D = trainer.generator, trainer.discriminator
+
+    def group():
+        losses = [trainer.train_step(nb) for _ in range(3)]
+        return [float(v) for ls in losses for v in ls.values()]
+
+    def g_forward():
+        G.train()
+        with torch.no_grad():
+            G(z, nb["c"])
+        G.eval()
+
+    with torch.no_grad():
+        G.train()
+        x_fake, mesh = trainer._fake(z, nb["c"], nb["alpha"])
+        G.eval()
+    x_comb = torch.cat([x_fake, torch.cat([nb["texture"], nb["alpha"]], -1)])
+    mesh_comb = torch.cat([mesh, nb["mesh"].float()])
+    c_comb = torch.cat([nb["c"], nb["c"]])
+    a_comb = torch.cat([nb["alpha"], nb["alpha"]])
+
+    def d_fwd_bwd():
+        D.train()
+        preds, _ = D(x_comb, mesh_comb, c_comb, alpha=a_comb)
+        sum(p.sum() for p in preds).backward()
+        D.eval()
+
+    # K8's operands at the head's shape: blk6's output (B, 64, 512, 256)
+    x8 = torch.randn((B, 64, res, res // 2), device="cuda",
+                     generator=gen).to(torch.bfloat16)
+    w8 = G.conv_final.weight.detach().to(torch.bfloat16).float().contiguous()
+    b8 = G.conv_final.bias.detach().float().contiguous()
+    y8 = head_conv_kernel(x8, w8, b8)
+    g8 = (torch.randn(y8.shape, device="cuda", generator=gen)
+          * (1 - y8.float() ** 2)).contiguous()
+
+    group()  # optimizer state exists for every window
+    it = iters
+    total = report(f"1G + 2D group + loss fetch (bs {B}, {res}², bf16, 3 "
+                   "critics)", group, it)
+    parts = {
+        "G step": lambda: trainer.g_step(nb, z),
+        "D step": lambda: trainer.d_step(nb, z),
+        "generator forward (train mode)": g_forward,
+        f"critics forward + backward ({2 * B} textures)": d_fwd_bwd,
+        "K8 forward alone": lambda: head_conv_kernel(x8, w8, b8),
+        "K8 dW alone": lambda: head_conv_dw_kernel(x8, g8),
+        "EMA update": lambda: trainer._update_ema(0.999),
+    }
+    for name, fn in parts.items():
+        busy = report(name, fn, it)
+        print(f"share of the group's device busy: {busy / total:.3f}  "
+              f"{name}")
+    print(f"peak MiB of one group {_peak_mib(group):.3f}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--only", choices=("eval", "train", "recon",
-                                       "recon_train"),
+                                       "recon_train", "gan_train"),
                     default=None,
-                    help="profile one path (default: all four)")
+                    help="profile one path (default: all five)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_eval: no CUDA device", file=sys.stderr)
@@ -344,6 +437,10 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip())
 
+    if args.only in (None, "gan_train"):
+        profile_gan_train(args.iters)
+    if args.only == "gan_train":
+        return 0
     if args.only in (None, "recon_train"):
         profile_recon_train(args.iters)
     if args.only == "recon_train":
