@@ -78,7 +78,21 @@ Phases:
      of K8 forward and dW, K4 and K5; finite losses and FIDs, the files;
  22. a learning check: 40 D steps on one fixed batch against a frozen G,
      then 40 G steps against the frozen critics;
- 23. 1G + 2D groups/s at the full configuration, the batch on the card.
+ 23. 1G + 2D groups/s at the full configuration, the batch on the card;
+ 24. (run after phase 4) K6 (the standalone splat) against its plain
+     version at the candidate sweep's shape (480 x 8000 at 64^3, keep-prob
+     0.07) and at the eval CLI's IoU shape ((24, 8000) at 32^3); K6
+     backward against autograd of the plain splat at 120 x 8000 at 64^3;
+ 25. (after phase 24) K7 (splat, clamp, Y/X blur) forward and backward
+     against the plain versions at 480 x 8000 at 64^3 at sigma 3.0 and 0.2,
+     and at the meshing shapes (1, 8000) at 96^3 and 128^3;
+ 26. (in phase 6) the eval CLI's launch counts include K6, and its 3D IoU
+     is held against the plain splat on the same clouds;
+ 27. (after phase 6) the meshing CLI (``cli/pointcloud_to_mesh.main
+     --input``) on a cloud the port predicts from phase 5's checkpoint, at
+     its defaults (96^3, sigma 1.5): its K7 launch and wall, the occupancy
+     and the vertex and face counts against the plain path on the same
+     cloud.
 
 Prints timings beside the GPU's name and power limit, then one JSON line
 with the per-kernel results (each with its bound: the larger of the bytes
@@ -112,6 +126,7 @@ import torch.nn.functional as F
 # outside a checkout these imports fail before anything is printed
 from im23d_tpu_torch.cli import evaluation_test_shape_net as cli
 from im23d_tpu_torch.cli import main as gan_cli
+from im23d_tpu_torch.cli import pointcloud_to_mesh as mesh_cli
 from im23d_tpu_torch.cli import run_reconstruction as recon_cli
 from im23d_tpu_torch.cli import training_test_shape_net as train_cli
 from im23d_tpu_torch.data.cmr import batch_iterator
@@ -121,6 +136,7 @@ from im23d_tpu_torch.data.fabricate import (
 )
 from im23d_tpu_torch.data.pseudogt import CubGANDataset, gan_batch_iterator
 from im23d_tpu_torch.data.synthetic import SyntheticSilhouettes, _random_shapes
+from im23d_tpu_torch.geometry.marching import point_cloud_to_mesh
 from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
 from im23d_tpu_torch.losses.effective import (
     _candidate_cam,
@@ -132,6 +148,7 @@ from im23d_tpu_torch.metrics.chamfer import (
     nn_dist2_kernel,
     nn_dist2_torch,
 )
+from im23d_tpu_torch.metrics.iou import iou_3d
 from im23d_tpu_torch.models import gan as gan_models
 from im23d_tpu_torch.models.gan import GANConfig
 from im23d_tpu_torch.models.reconstruction import replicate_pad_w
@@ -155,6 +172,20 @@ from im23d_tpu_torch.ops.projection import (
     projection_silhouette_torch,
 )
 from im23d_tpu_torch.ops.quaternion import qnormalize
+from im23d_tpu_torch.ops.splat import (
+    _prep_splat,
+    splat_backward_kernel,
+    splat_backward_torch,
+    splat_blur,
+    splat_blur_backward_kernel,
+    splat_blur_backward_torch,
+    splat_blur_grid_torch,
+    splat_blur_kernel,
+    splat_blur_torch,
+    splat_grid_torch,
+    splat_kernel,
+    trilinear_splat_torch,
+)
 from im23d_tpu_torch.ops.sampling import (
     grid_sample_bilinear,
     grid_sample_bilinear_backward_kernel,
@@ -267,6 +298,16 @@ K8_DW_REL_L2, K8_DW_REPEATS = 1e-4, 3
 # gradient and the head's own dW, db and dx are held by relative L2 each.
 GROUP_BS, GROUP_RTOL, GROUP_PARAM_RL2, GROUP_HEAD_RL2 = 8, 1e-4, 1e-3, 1e-4
 GAN_EPOCHS = 2  # the GAN CLI's run, then one more resumed
+# K6 and K7 vs plain: atomicAdd order changes between runs and K7 blurs in
+# another order than the plain band matmul; values <= 1, rounding ~1e-7
+K6_ATOL = K7_ATOL = 1e-5
+# their backward vs autograd of the plain forward, relative L2 per output:
+# the recomputed splat adds in another order, so a voxel within rounding of
+# the clamp's bound can flip its mask (as K2)
+K6B_REL_L2 = K7B_REL_L2 = 1e-4
+IOU_S, IOU_ATOL = 32, 1e-3  # the eval CLI's 3D IoU grid; one flipped voxel
+# at the 0.1 threshold moves an IoU by 1 / union (~2e-4 here)
+MESH_S, MESH_SIGMA = 96, 1.5  # the meshing CLI's defaults
 # peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, float32
 # FLOP/s outside the tensor cores, dense bfloat16 FLOP/s on them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -441,10 +482,187 @@ def phase_k3(gpu: str) -> dict:
     return dict(max_abs_err=err, **timed)
 
 
+def _sweep_points(seed: int, clouds: int, dev) -> torch.Tensor:
+    """(clouds, N, 3) camera-space points of random clouds under random
+    rotations, as the candidate sweep projects them."""
+    rng = np.random.RandomState(seed)
+    cloud = _clouds(rng, clouds, N, dev)
+    quats = qnormalize(torch.as_tensor(rng.randn(clouds, 4).astype(
+        np.float32), device=dev))
+    return torch.stack(world_to_camera_zyx(cloud, quats), dim=-1)
+
+
+# float32 operations: per splatted point 8 corners x 4 (weights, multiply,
+# add); per gathered point 8 corners x 14 (three derivative products, one
+# weight product, their sums, the mask)
+SPLAT_OPS, GATHER_OPS = 32, 112
+
+
+def _splat_ops(c: torch.Tensor) -> int:
+    """Splat operations this run's data needs: zero-weight points add
+    nothing."""
+    return SPLAT_OPS * int((c != 0).sum())
+
+
+def _check_grads(tag: str, got, ref, limit: float) -> tuple[float, float]:
+    err = rel = 0.0
+    for name, g, r in zip(("dgz", "dgy", "dgx", "dc"), got, ref):
+        e, rl = float((g - r).abs().max()), _rel_l2(g, r)
+        print(f"[{tag}] {name}: rel L2 {rl:.3e} (limit {limit}), max "
+              f"|kernel - plain| {e:.3e}, max |plain| "
+              f"{float(r.abs().max()):.3e}")
+        if not (torch.isfinite(g).all() and rl <= limit):
+            raise AssertionError(f"{tag} disagrees with plain ({name}): {rl}")
+        err, rel = max(err, e), max(rel, rl)
+    return err, rel
+
+
+def phase_k6(gpu: str) -> tuple[dict, dict]:
+    """K6 forward against ``splat_grid_torch`` at the candidate sweep's
+    shape (480 x 8000 at 64^3, keep-prob 0.07) and at the eval CLI's IoU
+    shape ((24, 8000) at 32^3, the one the JSON line times); K6 backward
+    against autograd of the plain splat at the winners' shape (120 x 8000
+    at 64^3, keep-prob 0.07), timed there."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    err, timed = 0.0, None
+    for tag, pts, size, p in (
+            ("sweep", _sweep_points(6, B * V * K, dev), S, 0.07),
+            ("iou", _clouds(np.random.RandomState(7), B, N, dev), IOU_S,
+             None)):
+        w = None if p is None else keep_mask(gen, pts.shape[0], N, p)
+        gz, gy, gx, c = _prep_splat(pts, size, w, 1e-6)
+        got = splat_kernel(gz, gy, gx, c, size)
+        ref = splat_grid_torch(gz, gy, gx, c, size)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        print(f"[K6] {tag} {tuple(pts.shape)} at {size}^3: max |kernel - "
+              f"plain| {e:.3e} (atol {K6_ATOL}); occupied voxels "
+              f"{float((ref > 0).float().mean()):.4f}, at the clamp "
+              f"{float((ref == 1).float().mean()):.2e}")
+        if not (torch.isfinite(got).all() and e <= K6_ATOL):
+            raise AssertionError(f"K6 disagrees with plain ({tag}): {e}")
+        err = max(err, e)
+        del got, ref
+        ms = _time_ms(lambda: splat_kernel(gz, gy, gx, c, size), 20)
+        plain_ms = _time_ms(lambda: splat_grid_torch(gz, gy, gx, c, size), 5)
+        # reads the planes and weights, writes the grid; the clamp reads and
+        # writes it again, which the bound does not count
+        bound = _bound(_nbytes(gz, gy, gx, c) + pts.shape[0] * size ** 3 * 4,
+                       _splat_ops(c) + pts.shape[0] * size ** 3)
+        print(f"[K6] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per "
+              f"call; bound {bound} [{gpu}]")
+        timed = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **bound)
+    fwd = dict(max_abs_err=err, **timed)
+
+    pts = _sweep_points(8, B * V, dev)
+    w = keep_mask(gen, B * V, N, 0.07)
+    gz, gy, gx, c = _prep_splat(pts, S, w, 1e-6)
+    g = torch.randn((B * V, S, S, S), device=dev, generator=gen)
+    got = splat_backward_kernel(gz, gy, gx, c, g)
+    ref = splat_backward_torch(gz, gy, gx, c, g)
+    torch.cuda.synchronize()
+    err, rel = _check_grads("K6 bwd", got, ref, K6B_REL_L2)
+    del got, ref
+    ms = _time_ms(lambda: splat_backward_kernel(gz, gy, gx, c, g), 20)
+    plain_ms = _time_ms(lambda: splat_backward_torch(gz, gy, gx, c, g), 3)
+    # reads the planes, weights and cotangent, writes four planes; the
+    # recomputed splat for the mask and the gather of every point
+    bound = _bound(_nbytes(gz, gy, gx, c, g) + 4 * B * V * N * 4,
+                   _splat_ops(c) + GATHER_OPS * B * V * N)
+    print(f"[K6 bwd] {tuple(pts.shape)} at {S}^3, p 0.07: kernel {ms:.3f} "
+          f"ms, plain {plain_ms:.3f} ms per call; bound {bound} [{gpu}]")
+    bwd = dict(max_abs_err=err, max_rel_l2=rel, ms=ms, plain_ms=plain_ms,
+               library_ms=None, **bound)
+    return fwd, bwd
+
+
+def _k7_bound(gz, c, taps, size: int, backward: bool) -> dict:
+    """Reads the planes, weights and taps (and the cotangent), writes the
+    grid (or four planes); per voxel 2 K operations along each of Y and X
+    and the clamp or mask; the splat, and in the backward the gather."""
+    clouds, n = gz.shape
+    voxels = clouds * size ** 3
+    nbytes = 4 * (4 * clouds * n + taps.numel()) + 4 * voxels
+    if backward:
+        nbytes += 4 * 4 * clouds * n
+    ops = (4 * taps.numel() + 1) * voxels + _splat_ops(c)
+    if backward:
+        ops += GATHER_OPS * clouds * n
+    return _bound(nbytes, ops)
+
+
+def phase_k7(gpu: str) -> tuple[dict, dict]:
+    """K7 forward and backward against the plain splat + clamp + Y/X blur
+    at the candidate sweep's shape (480 x 8000 at 64^3, keep-prob 0.07) at
+    the sigma schedule's ends, and at the meshing shapes ((1, 8000) at 96^3,
+    the CLI's default, which the JSON line times, and at 128^3)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sweep = _sweep_points(9, B * V * K, dev)
+    sweep_w = keep_mask(gen, B * V * K, N, 0.07)
+    cloud = _clouds(np.random.RandomState(10), 1, N, dev)
+    errs, rels, timed = [], [], {}
+    for tag, pts, w, size, sigma in (
+            ("sweep", sweep, sweep_w, S, 3.0),
+            ("sweep", sweep, sweep_w, S, 0.2),
+            ("mesh", cloud, None, MESH_S, MESH_SIGMA),
+            ("mesh", cloud, None, 128, MESH_SIGMA)):
+        gz, gy, gx, c = _prep_splat(pts, size, w, 1e-6)
+        taps, _ = _taps_and_scale(torch.tensor(sigma, device=dev), 1.0, 21,
+                                  pts.shape[0], dev)
+        taps = taps.contiguous()
+        got = splat_blur_kernel(gz, gy, gx, c, taps, size)
+        ref = splat_blur_grid_torch(gz, gy, gx, c, taps, size)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        print(f"[K7] {tag} {tuple(pts.shape)} at {size}^3, sigma {sigma}: "
+              f"max |kernel - plain| {e:.3e} (atol {K7_ATOL}); max "
+              f"{float(ref.max()):.4f}")
+        if not (torch.isfinite(got).all() and e <= K7_ATOL):
+            raise AssertionError(f"K7 disagrees with plain ({tag}): {e}")
+        g = torch.randn(got.shape, device=dev, generator=gen)
+        del got, ref
+        grads = splat_blur_backward_kernel(gz, gy, gx, c, taps, g)
+        ref = splat_blur_backward_torch(gz, gy, gx, c, taps, g)
+        torch.cuda.synchronize()
+        e_b, rel = _check_grads(f"K7 bwd {tag} {size} {sigma}", grads, ref,
+                                K7B_REL_L2)
+        errs.append((e, e_b))
+        rels.append(rel)
+        del grads, ref
+        reps = 20 if tag == "sweep" else 50
+        row = []
+        for kernel, plain, backward in (
+                (lambda: splat_blur_kernel(gz, gy, gx, c, taps, size),
+                 lambda: splat_blur_grid_torch(gz, gy, gx, c, taps, size),
+                 False),
+                (lambda: splat_blur_backward_kernel(gz, gy, gx, c, taps, g),
+                 lambda: splat_blur_backward_torch(gz, gy, gx, c, taps, g),
+                 True)):
+            ms = _time_ms(kernel, reps)
+            plain_ms = _time_ms(plain, 3)
+            bound = _k7_bound(gz, c, taps, size, backward)
+            print(f"[K7{' bwd' if backward else ''}] {tag} at {size}^3, sigma "
+                  f"{sigma}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per "
+                  f"call; bound {bound} [{gpu}]")
+            row.append(dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                            **bound))
+        timed.setdefault((tag, size), row)
+        del g
+        torch.cuda.empty_cache()
+    fwd, bwd = timed[("mesh", MESH_S)]
+    return (dict(max_abs_err=max(e for e, _ in errs), **fwd),
+            dict(max_abs_err=max(e for _, e in errs), max_rel_l2=max(rels),
+                 **bwd))
+
+
 _KERNELS = dict(k1=projection_kernel, k2=projection_backward_kernel,
                 k3=nn_dist2_kernel, k4=rasterize_kernel,
                 k4b=rasterize_backward_kernel, k5=grid_sample_bilinear_kernel,
                 k5b=grid_sample_bilinear_backward_kernel,
+                k6=splat_kernel, k6b=splat_backward_kernel,
+                k7=splat_blur_kernel, k7b=splat_blur_backward_kernel,
                 k8=head_conv_kernel, k8b=head_conv_dw_kernel)
 
 
@@ -522,7 +740,7 @@ def phase_slice(gpu: str, workdir: str) -> dict:
     if metrics["candidate_projection_shape"] != [B * V, K, S, S]:
         raise AssertionError(
             f"candidate grid {metrics['candidate_projection_shape']}")
-    if launches["k1"] < 1 or launches["k3"] < 1:
+    if min(launches[k] for k in ("k1", "k3", "k6")) < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     learner = ShapeNetLearner(cfg, device=DEVICE)
     learner.restore(workdir)
@@ -554,6 +772,21 @@ def phase_slice(gpu: str, workdir: str) -> dict:
             if e > K1_ATOL or not math.isclose(got_loss, ref_loss,
                                                rel_tol=SLICE_RTOL):
                 raise AssertionError("slice disagrees with the plain chain")
+        # the CLI's 3D IoU (K6) against the plain splat on the same clouds
+        gt = torch.as_tensor(_random_shapes(np.random.RandomState(123), B,
+                                            GT_POINTS_CLI), device=DEVICE)
+        pred = out["point_cloud"]
+        iou_k = iou_3d(pred, gt, voxel_size=IOU_S)
+        va, vb = (trilinear_splat_torch(x, IOU_S) > 0.1 for x in (pred, gt))
+        iou_p = ((va & vb).float().sum(dim=(1, 2, 3))
+                 / (va | vb).float().sum(dim=(1, 2, 3)).clamp(min=1.0))
+    e = float((iou_k - iou_p).abs().max())
+    e_cli = abs(metrics["iou_3d"] - float(iou_p.mean()))
+    print(f"[slice] 3D IoU at {IOU_S}^3: per cloud max |K6 - plain| {e:.3e}, "
+          f"CLI mean {metrics['iou_3d']:.6f} vs plain "
+          f"{float(iou_p.mean()):.6f} (atol {IOU_ATOL})")
+    if not (e <= IOU_ATOL and e_cli <= IOU_ATOL):
+        raise AssertionError("the 3D IoU disagrees with the plain splat")
 
     data = SyntheticSilhouettes(B, cfg.image_size, V, n_points=512, seed=2)
     batches = [data.next_batch() for _ in range(3)]
@@ -567,6 +800,61 @@ def phase_slice(gpu: str, workdir: str) -> dict:
     rate = reps * len(batches) / (time.perf_counter() - t0)
     print(f"[slice] eval {rate:.2f} batches/s ({rate * B:.1f} images/s, "
           f"bs {B}, host clock incl. host->device copies) [{gpu}]")
+    return launches
+
+
+def phase_mesh(gpu: str, workdir: str) -> dict:
+    """The meshing CLI on the cloud the port predicts from the training
+    phase's checkpoint (``--input``: this machine has no PIL for
+    ``--workdir --image``), at its defaults (96^3, sigma 1.5, level 0.2);
+    its K7 launches and wall; the occupancy and the mesh against the plain
+    path on the same cloud."""
+    cfg = ShapeNetConfig.chairs()
+    learner = ShapeNetLearner(cfg, device=DEVICE)
+    learner.restore(workdir)
+    batch = SyntheticSilhouettes(B, cfg.image_size, V, n_points=512,
+                                 seed=3).next_batch()
+    with torch.no_grad():
+        nb = learner._normalize(batch)
+        cloud = learner.model(nb["images"], nb["pose_input"])["point_cloud"]
+    with tempfile.TemporaryDirectory() as tmp:
+        src, out = os.path.join(tmp, "cloud.npy"), os.path.join(tmp, "m.obj")
+        np.save(src, cloud[0].float().cpu().numpy())
+        _zero_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = mesh_cli.main(["--input", src, "--output", out,
+                                "--voxel_size", str(MESH_S), "--sigma",
+                                str(MESH_SIGMA), "--device", DEVICE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        with open(out) as fh:
+            lines = fh.read().splitlines()
+        pts = mesh_cli.load_points(src)
+    print(f"[mesh] cli: {buf.getvalue().strip()}")
+    n_v = sum(line.startswith("v ") for line in lines)
+    n_f = sum(line.startswith("f ") for line in lines)
+    pts_d = torch.as_tensor(pts, device=DEVICE)[None]
+    one = torch.ones(1, device=DEVICE)
+    with torch.no_grad():
+        occ = splat_blur(pts_d, MESH_S, MESH_SIGMA, one)
+        ref = splat_blur_torch(pts_d, MESH_S, MESH_SIGMA, one)
+    torch.cuda.synchronize()
+    e = float((occ - ref).abs().max())
+    verts, faces = point_cloud_to_mesh(pts, MESH_S, MESH_SIGMA, device="cpu")
+    print(f"[mesh] CLI rc {rc} in {wall:.3f} s ({N} points, {MESH_S}^3, "
+          f"host marching tetrahedra included); launches {launches}; "
+          f"occupancy max |K7 path - plain| {e:.3e} (atol {K7_ATOL}); "
+          f"{n_v} vertices, {n_f} faces vs plain path on the CPU "
+          f"{len(verts)}, {len(faces)} [{gpu}]")
+    if rc != 0 or n_f == 0:
+        raise AssertionError(f"the meshing CLI returned {rc}, {n_f} faces")
+    if launches["k7"] != 1:
+        raise AssertionError(f"K7 launched {launches['k7']} times, not 1")
+    if e > K7_ATOL or (n_v, n_f) != (len(verts), len(faces)):
+        raise AssertionError("the meshing path disagrees with the plain path")
     return launches
 
 
@@ -1680,10 +1968,13 @@ def main() -> int:
     k1 = phase_k1(gpu)
     k2 = phase_k2(gpu)
     k3 = phase_k3(gpu)
+    k6, k6b = phase_k6(gpu)
+    k7, k7b = phase_k7(gpu)
     with tempfile.TemporaryDirectory() as tmp:
         workdir = os.path.join(tmp, "train")
         train = phase_train(gpu, workdir)
         evals = phase_slice(gpu, workdir)
+        mesh = phase_mesh(gpu, workdir)
     phase_learn(gpu)
     template = MeshTemplate(segments=32, rings=16)
     k4, uv, tex_adj, scene = phase_k4(gpu, template)
@@ -1736,6 +2027,22 @@ def main() -> int:
              source="im23d_tpu_torch/csrc/grid_sample.cu",
              replaces="im23d_tpu/ops/sampling_pallas.py:213",
              launches=recon_train["k5b"], **k5b),
+        dict(name="K6 splat forward", route="cuda",
+             source="im23d_tpu_torch/csrc/splat.cu",
+             replaces="im23d_tpu/ops/splat_pallas.py:59",
+             launches=evals["k6"], **k6),
+        dict(name="K6 splat backward", route="cuda",
+             source="im23d_tpu_torch/csrc/splat.cu",
+             replaces="im23d_tpu/ops/splat_pallas.py:93",
+             launches=evals["k6b"], **k6b),
+        dict(name="K7 splat + Y/X blur forward", route="cuda",
+             source="im23d_tpu_torch/csrc/splat.cu",
+             replaces="im23d_tpu/ops/splat_pallas.py:224",
+             launches=mesh["k7"], **k7),
+        dict(name="K7 splat + Y/X blur backward", route="cuda",
+             source="im23d_tpu_torch/csrc/splat.cu",
+             replaces="im23d_tpu/ops/splat_pallas.py:234",
+             launches=mesh["k7b"], **k7b),
         dict(name="K8 head conv forward", route="cuda",
              source="im23d_tpu_torch/csrc/head_conv.cu",
              replaces="im23d_tpu/ops/conv_pallas.py:91",

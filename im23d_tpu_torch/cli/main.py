@@ -113,29 +113,6 @@ _NOT_PORTED = (
 )
 
 
-def load_inception(path, device):
-    """--inception_weights: a torchvision inception_v3 state dict (.pth or
-    .npz of the same tensors) in the port's extractor (pool3, 2048-d), or
-    None."""
-    if not path:
-        return None
-    import torch
-
-    from im23d_tpu_torch.metrics.inception import InceptionV3Features
-
-    if path.endswith(".npz"):
-        with np.load(path) as f:
-            sd = {k: torch.from_numpy(f[k]) for k in f.files}
-    else:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-    model = InceptionV3Features(feature_layer="pool3")
-    missing = model.load_state_dict(sd, strict=False).missing_keys
-    if missing:
-        raise ValueError(f"{path} lacks {len(missing)} extractor tensors, "
-                         f"e.g. {missing[:3]}")
-    return model.to(device).eval()
-
-
 def load_dataset(args):
     from im23d_tpu_torch.data.pseudogt import CubGANDataset, Pascal3DGANDataset
 
@@ -168,6 +145,7 @@ def main(argv=None) -> int:
     from im23d_tpu_torch.data.cmr import batch_iterator
     from im23d_tpu_torch.data.pseudogt import EvalDataset, gan_batch_iterator
     from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
+    from im23d_tpu_torch.metrics.inception import load_inception
     from im23d_tpu_torch.models.gan import GANConfig
     from im23d_tpu_torch.train.gan_eval import (
         FIDEvaluator,

@@ -8,9 +8,10 @@ every ``--save_freq``; validation every ``--evaluate_freq``, a multi-view
 render every ``--image_freq``; Ctrl-C saves ``latest`` and exits 130).
 ``--continue_train`` resumes, ``--evaluate`` prints the validation means,
 ``--generate_pseudogt`` writes the pseudo-ground-truth cache under
-``cache/<dataset>``.  ``--export_serving``, ``--multihost`` and
-``--data_processes > 0`` raise ``NotImplementedError`` naming the slice that
-brings them.
+``cache/<dataset>`` (its FID statistics from ``--inception_weights`` where
+given, so that the GAN CLI with the same file can read them).
+``--export_serving``, ``--multihost`` and ``--data_processes > 0`` raise
+``NotImplementedError`` naming the slice that brings them.
 
 Examples:
     python -m im23d_tpu_torch.cli.run_reconstruction --name cub_recon \
@@ -48,6 +49,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimize_z0", action="store_true")
     p.add_argument("--generate_pseudogt", action="store_true")
     p.add_argument("--pseudogt_resolution", type=int, default=512)
+    p.add_argument("--inception_weights", type=str, default=None,
+                   help="torchvision inception_v3 state dict (.pth or .npz) "
+                        "for the pseudo-GT FID statistics (2048-d pool3, as "
+                        "the GAN CLI's flag of the same name); without it "
+                        "the calibrated random extractor (288-d)")
     p.add_argument("--evaluate", action="store_true")
     p.add_argument("--continue_train", action="store_true")
     p.add_argument("--which_epoch", type=str, default="latest")
@@ -103,6 +109,7 @@ def main(argv=None, datasets=None) -> int:
         batch_iterator,
     )
     from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
+    from im23d_tpu_torch.metrics.inception import load_inception
     from im23d_tpu_torch.train.recon_trainer import ReconConfig, ReconTrainer
 
     if args.mesh_path == "autodetect":
@@ -182,7 +189,8 @@ def main(argv=None, datasets=None) -> int:
             inception_resolution=inception_res,
             paths=train_ds.get_paths(),
             val_loader=val_loader() if args.dataset == "cub" else None,
-            renderer_resolution=renderer_res)
+            renderer_resolution=renderer_res,
+            inception=load_inception(args.inception_weights, trainer.device))
         return 0
 
     def val_batches():

@@ -22,109 +22,19 @@
 //       its rays' z-columns in shared memory, blurs along Z, scales, clamps
 //       and runs the termination recurrence in registers.
 // Atomic accumulation order varies between runs, so results agree with the
-// plain chain to float rounding, not bit for bit.
+// plain chain to float rounding, not bit for bit.  The splat, the Y/X blur
+// and the gather are shared with K6 and K7 (splat_common.cuh).
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <algorithm>
 
+#include "splat_common.cuh"
+
 namespace {
 
 constexpr int kMaxS = 64;
-constexpr int kMaxTaps = 64;
-constexpr int kBlurThreads = 256;
 constexpr int kRayThreads = 128;
-
-__global__ void splat_kernel(const float* __restrict__ gz,
-                             const float* __restrict__ gy,
-                             const float* __restrict__ gx,
-                             const float* __restrict__ c,
-                             float* __restrict__ grid, int B, int N, int S) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(B) * N) return;
-  const float w = c[i];
-  if (w == 0.f) return;  // culled or dropped point
-  const int b = static_cast<int>(i / N);
-  const float pz = gz[i], py = gy[i], px = gx[i];
-  const float fz = floorf(pz), fy = floorf(py), fx = floorf(px);
-  const int iz = static_cast<int>(fz), iy = static_cast<int>(fy),
-            ix = static_cast<int>(fx);
-  const float tz = pz - fz, ty = py - fy, tx = px - fx;
-  const float wz[2] = {1.f - tz, tz};
-  const float wy[2] = {1.f - ty, ty};
-  const float wx[2] = {1.f - tx, tx};
-  float* g = grid + static_cast<size_t>(b) * S * S * S;
-#pragma unroll
-  for (int dz = 0; dz < 2; ++dz) {
-    const int z = iz + dz;
-    if (z < 0 || z >= S) continue;
-#pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const int y = iy + dy;
-      if (y < 0 || y >= S) continue;
-      const float wzy = w * wz[dz] * wy[dy];
-#pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        const int x = ix + dx;
-        if (x < 0 || x >= S) continue;
-        const float v = wzy * wx[dx];
-        if (v != 0.f) atomicAdd(&g[(z * S + y) * S + x], v);
-      }
-    }
-  }
-}
-
-// Zero-padded 'same' correlation of one strided line with the taps at
-// position i: sum_t k[t] * line[i + t - half] (forward), or its transpose
-// sum_t k[t] * line[i - t + half].  The band of taps is not assumed
-// symmetric.
-template <bool kTranspose>
-__device__ __forceinline__ float correlate(const float* line, int stride,
-                                           int i, const float* k, int K,
-                                           int S) {
-  const int half = K / 2;
-  float acc = 0.f;
-  if (!kTranspose) {
-    const int t0 = max(0, half - i), t1 = min(K, S + half - i);
-    for (int t = t0; t < t1; ++t) acc += k[t] * line[(i + t - half) * stride];
-  } else {
-    const int t0 = max(0, i + half - S + 1), t1 = min(K, i + half + 1);
-    for (int t = t0; t < t1; ++t) acc += k[t] * line[(i - t + half) * stride];
-  }
-  return acc;
-}
-
-// grid: blockIdx.x = z-plane, blockIdx.y = cloud.  The block reads its whole
-// plane before it writes, so src may alias dst.
-//   forward:   dst = blur_x(blur_y(min(src, 1)))
-//   transpose: dst = blur_y^T(blur_x^T(src)) * (keep <= 1), keep = the raw
-//              splat (the min's gradient passes on ties, like torch.clamp)
-template <bool kTranspose>
-__global__ void blur_yx_kernel(const float* src, float* dst,
-                               const float* __restrict__ keep,
-                               const float* __restrict__ taps, int K, int S) {
-  __shared__ float plane[kMaxS * kMaxS];
-  __shared__ float tmp[kMaxS * kMaxS];
-  __shared__ float k[kMaxTaps];
-  const int SS = S * S;
-  const size_t off = (static_cast<size_t>(blockIdx.y) * S + blockIdx.x) * SS;
-  for (int t = threadIdx.x; t < K; t += blockDim.x) k[t] = taps[t];
-  for (int i = threadIdx.x; i < SS; i += blockDim.x)
-    // splat sums are >= 0: only the top of the clamp binds
-    plane[i] = kTranspose ? src[off + i] : fminf(src[off + i], 1.f);
-  __syncthreads();
-  for (int i = threadIdx.x; i < SS; i += blockDim.x) {
-    const int y = i / S, x = i - y * S;
-    tmp[i] = correlate<kTranspose>(plane + x, S, y, k, K, S);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < SS; i += blockDim.x) {
-    const int y = i / S, x = i - y * S;
-    const float v = correlate<kTranspose>(tmp + y * S, 1, x, k, K, S);
-    dst[off + i] = kTranspose ? (keep[off + i] <= 1.f ? v : 0.f) : v;
-  }
-}
 
 // block (S, R): threadIdx.x = x, threadIdx.y picks one of R rows;
 // blockIdx.x = row group, blockIdx.y = cloud.  Each thread stages its own
@@ -173,8 +83,8 @@ __global__ void zblur_term_kernel(const float* __restrict__ grid,
 //       probabilities front to back, their VJP back to front into du,
 //       dscale += sum du * zb, then work <- scale * zblur^T(du);
 //   (c) blur_yx_kernel<true> work -> work, times (raw <= 1);
-//   (d) splat_bwd_kernel: splat transpose as a gather, one thread per point
-//       reading its 8 corners; no atomics.
+//   (d) splat_grad_kernel: splat transpose as a gather, one thread per
+//       point reading its 8 corners; no atomics.
 // The only atomics are the splat's and one per block for dscale, so the
 // gradients agree with the plain chain to float rounding, except where a
 // clamp mask (raw <= 1, u <= 1, eps <= o <= 1 - eps) sits within rounding
@@ -249,70 +159,6 @@ __global__ void term_bwd_kernel(float* __restrict__ work,
   }
 }
 
-// One thread per point: d(gz, gy, gx) = c * sum over the 8 corners of
-// dvox * the derivative of the trilinear weight (d tz / d gz = 1; the floor
-// has no gradient, as in the plain chain).
-__global__ void splat_bwd_kernel(const float* __restrict__ gz,
-                                 const float* __restrict__ gy,
-                                 const float* __restrict__ gx,
-                                 const float* __restrict__ c,
-                                 const float* __restrict__ dvox,
-                                 float* __restrict__ dgz,
-                                 float* __restrict__ dgy,
-                                 float* __restrict__ dgx, int B, int N,
-                                 int S) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(B) * N) return;
-  const float w = c[i];
-  float sz = 0.f, sy = 0.f, sx = 0.f;
-  if (w != 0.f) {
-    const int b = static_cast<int>(i / N);
-    const float pz = gz[i], py = gy[i], px = gx[i];
-    const float fz = floorf(pz), fy = floorf(py), fx = floorf(px);
-    const int iz = static_cast<int>(fz), iy = static_cast<int>(fy),
-              ix = static_cast<int>(fx);
-    const float tz = pz - fz, ty = py - fy, tx = px - fx;
-    const float wz[2] = {1.f - tz, tz};
-    const float wy[2] = {1.f - ty, ty};
-    const float wx[2] = {1.f - tx, tx};
-    const float dw[2] = {-1.f, 1.f};
-    const float* d = dvox + static_cast<size_t>(b) * S * S * S;
-#pragma unroll
-    for (int dz = 0; dz < 2; ++dz) {
-      const int z = iz + dz;
-      if (z < 0 || z >= S) continue;
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-        const int y = iy + dy;
-        if (y < 0 || y >= S) continue;
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const int x = ix + dx;
-          if (x < 0 || x >= S) continue;
-          const float v = d[(z * S + y) * S + x];
-          sz += v * dw[dz] * wy[dy] * wx[dx];
-          sy += v * wz[dz] * dw[dy] * wx[dx];
-          sx += v * wz[dz] * wy[dy] * dw[dx];
-        }
-      }
-    }
-  }
-  dgz[i] = w * sz;
-  dgy[i] = w * sy;
-  dgx[i] = w * sx;
-}
-
-int splat_launch(const float* gz, const float* gy, const float* gx,
-                 const float* c, float* grid, int B, int N, int S,
-                 cudaStream_t st) {
-  const long long n_pts = static_cast<long long>(B) * N;
-  const int blocks = static_cast<int>((n_pts + 255) / 256);
-  if (blocks == 0) return cudaSuccess;
-  splat_kernel<<<blocks, 256, 0, st>>>(gz, gy, gx, c, grid, B, N, S);
-  return cudaGetLastError();
-}
-
 // ray kernels: R rows of S threads per block, R = max(1, kRayThreads / S)
 dim3 ray_blocks(int S) {
   const int rows = std::max(1, kRayThreads / S);
@@ -341,9 +187,7 @@ extern "C" int im23d_projection_fwd(const void* gz, const void* gy,
                          static_cast<const float*>(gx),
                          static_cast<const float*>(c), g, B, N, S, st);
   if (err != cudaSuccess) return err;
-  blur_yx_kernel<false><<<dim3(S, B), kBlurThreads, 0, st>>>(g, g, nullptr, k,
-                                                             K, S);
-  err = cudaGetLastError();
+  err = blur_yx_launch<false>(g, g, nullptr, k, K, B, S, st);
   if (err != cudaSuccess) return err;
   const dim3 threads = ray_blocks(S);
   zblur_term_kernel<<<dim3((S + threads.y - 1) / threads.y, B), threads,
@@ -374,9 +218,7 @@ extern "C" int im23d_projection_bwd(const void* gz, const void* gy,
   // (a) recompute: raw splat, then its clamped Y/X blur
   int err = splat_launch(pz, py, px, w, a, B, N, S, st);
   if (err != cudaSuccess) return err;
-  blur_yx_kernel<false><<<dim3(S, B), kBlurThreads, 0, st>>>(a, v, nullptr, k,
-                                                             K, S);
-  err = cudaGetLastError();
+  err = blur_yx_launch<false>(a, v, nullptr, k, K, B, S, st);
   if (err != cudaSuccess) return err;
   // (b) termination VJP and the Z blur's transpose, per ray
   const dim3 threads = ray_blocks(S);
@@ -387,15 +229,10 @@ extern "C" int im23d_projection_bwd(const void* gz, const void* gy,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // (c) the Y/X blur's transpose and the splat clamp's mask
-  blur_yx_kernel<true><<<dim3(S, B), kBlurThreads, 0, st>>>(v, v, a, k, K, S);
-  err = cudaGetLastError();
+  err = blur_yx_launch<true>(v, v, a, k, K, B, S, st);
   if (err != cudaSuccess) return err;
   // (d) the splat's transpose, gathered per point
-  const long long n_pts = static_cast<long long>(B) * N;
-  const int blocks = static_cast<int>((n_pts + 255) / 256);
-  if (blocks == 0) return cudaSuccess;
-  splat_bwd_kernel<<<blocks, 256, 0, st>>>(
-      pz, py, px, w, v, static_cast<float*>(dgz), static_cast<float*>(dgy),
-      static_cast<float*>(dgx), B, N, S);
-  return cudaGetLastError();
+  return splat_grad_launch(pz, py, px, w, v, nullptr,
+                           static_cast<float*>(dgz), static_cast<float*>(dgy),
+                           static_cast<float*>(dgx), nullptr, B, N, S, st);
 }

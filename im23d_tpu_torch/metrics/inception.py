@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -247,3 +248,23 @@ def init_inception(seed: int = 0, calibrate: bool = True, gain: float = 1.0,
         for _ in range(CALIBRATION_PASSES):
             calibrate_pass(model, probe)
     return model
+
+
+def load_inception(path, device):
+    """``--inception_weights`` of the GAN and reconstruction CLIs: a
+    torchvision inception_v3 state dict (.pth, or .npz of the same tensors)
+    in the pool3 (2048-d) extractor on ``device``, or None without a path.
+    A state dict that lacks an extractor tensor raises ``ValueError``."""
+    if not path:
+        return None
+    if path.endswith(".npz"):
+        with np.load(path) as f:
+            sd = {k: torch.from_numpy(f[k]) for k in f.files}
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    model = InceptionV3Features(feature_layer="pool3")
+    missing = model.load_state_dict(sd, strict=False).missing_keys
+    if missing:
+        raise ValueError(f"{path} lacks {len(missing)} extractor tensors, "
+                         f"e.g. {missing[:3]}")
+    return model.to(device).eval()

@@ -1,12 +1,13 @@
 """IoU metrics (counterpart of ``im23d_tpu/metrics/iou.py``): 2D
-silhouette mIoU, and voxelized 3D IoU with the plain splat, as the JAX
-version does."""
+silhouette mIoU, and voxelized 3D IoU through ``ops/splat.trilinear_splat``
+(the kernel K6 on CUDA, the plain splat on the CPU; the JAX version uses its
+XLA splat, the same function)."""
 
 from __future__ import annotations
 
 import torch
 
-from im23d_tpu_torch.ops.voxel import trilinear_splat
+from im23d_tpu_torch.ops.splat import trilinear_splat
 
 
 def mean_iou(alpha_pred: torch.Tensor, alpha_real: torch.Tensor,

@@ -4,8 +4,9 @@ All ``csrc/*.cu`` files compile into one shared library with a plain C
 interface, at first use, into ``build/im23d_kernels/`` at the repository
 root: one ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c`` per source,
 all started together, then one link.  The file name carries a hash of the
-sources and flags, so an edited kernel is rebuilt and a current one is
-loaded as it is.  A failed build raises.
+sources, the ``csrc/*.cuh`` headers they share and the flags, so an edited
+kernel or header is rebuilt and a current one is loaded as it is.  A failed
+build raises.
 
 Every C entry point takes device pointers and the CUDA stream as ``void*``
 and returns the ``cudaError_t`` of its launches; ``check`` raises on a
@@ -57,6 +58,17 @@ _SIGNATURES = {
     "im23d_head_conv_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, g, partial, dw, B, C, H, W, circular, bf16, nrows, stream
     "im23d_head_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # gz, gy, gx, c, out, B, N, S, stream
+    "im23d_splat_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # gz, gy, gx, c, g, raw, dgz, dgy, dgx, dc, B, N, S, stream
+    "im23d_splat_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _P],
+    # gz, gy, gx, c, taps, K, out, B, N, S, stream
+    "im23d_splat_blur_fwd": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+    # gz, gy, gx, c, taps, K, g, raw, work, dgz, dgy, dgx, dc, B, N, S,
+    # stream
+    "im23d_splat_blur_bwd": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                             _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -74,8 +86,10 @@ def _nvcc() -> str:
 
 
 def _library_path(sources: list[Path]) -> Path:
+    """The library's file name, from a hash of the flags, the sources and
+    the headers they include (``csrc/*.cuh``)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cuh")) + sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libim23d_kernels_{h.hexdigest()[:16]}.so"

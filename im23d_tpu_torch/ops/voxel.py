@@ -90,12 +90,13 @@ def _band_matrix(kernel: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def blur_3d(voxels: torch.Tensor, taps: torch.Tensor,
-            scale: torch.Tensor | None = None) -> torch.Tensor:
-    """Separable blur of (B, Z, Y, X) by the 1-D ``taps`` along x, y, z
-    (zero-padded 'same' correlation), then the optional per-cloud ``scale``
-    multiply and clamp to [0, 1]."""
+            scale: torch.Tensor | None = None,
+            axes: tuple[int, ...] = (3, 2, 1)) -> torch.Tensor:
+    """Separable blur of (B, Z, Y, X) by the 1-D ``taps`` along ``axes``
+    (x, y, z by default; zero-padded 'same' correlation), then the optional
+    per-cloud ``scale`` multiply and clamp to [0, 1]."""
     out = voxels
-    for axis in (3, 2, 1):
+    for axis in axes:
         band = _band_matrix(taps, voxels.shape[axis]).to(out.dtype)
         out = torch.matmul(out.movedim(axis, -1), band).movedim(-1, axis)
     if scale is not None:

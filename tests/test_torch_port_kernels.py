@@ -1,5 +1,4 @@
-"""CUDA kernels K1, K2, K3, K4, K5 and K8 of the PyTorch port against
-their plain versions.
+"""CUDA kernels K1–K8 of the PyTorch port against their plain versions.
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
 one.  Imports no JAX, so it runs where JAX is not installed; the repository's
@@ -30,6 +29,12 @@ test (``tests/test_rasterizer_pallas.py:76-80``): max |d verts| error
 max(max |d attrs|, 1), read on the per-corner gradients d fv: per-face
 sums by atomicAdd in another order, the segment-parameter chain that
 vanishes at the nearest point dropped, and d log_miss taken from 1 − soft.
+
+K6 (the standalone splat) and K7 (splat, clamp, Y/X blur) add with
+atomicAdd (order changes between runs) and K7 blurs in another order than
+the plain band matmul: values atol 1e-5.  Their backward kernels recompute
+the splat for the clamp's mask, so a voxel within rounding of 1 can flip
+it: relative L2 per output <= 1e-4, as K2.
 
 K8 (the GAN head conv) sums 25·C products per output in another order than
 cuDNN: forward atol 1e-5 in float32 and 1e-2 in bfloat16 (one bfloat16
@@ -70,6 +75,19 @@ from im23d_tpu_torch.ops.sampling import (
     grid_sample_bilinear_backward_torch,
     grid_sample_bilinear_kernel,
     grid_sample_bilinear_torch,
+)
+from im23d_tpu_torch.ops.splat import (
+    _prep_splat,
+    splat_backward_kernel,
+    splat_backward_torch,
+    splat_blur,
+    splat_blur_backward_kernel,
+    splat_blur_backward_torch,
+    splat_blur_grid_torch,
+    splat_blur_kernel,
+    splat_grid_torch,
+    splat_kernel,
+    trilinear_splat,
 )
 from im23d_tpu_torch.render.rasterizer import (
     rasterize,
@@ -571,3 +589,87 @@ def test_k8_rejects_bad_operands(dev):
     with pytest.raises(ValueError):
         head_conv_kernel(x.cpu(), w, b)
 
+
+
+def _splat_operands(dev, S, ks=21, sigma=1.5, b=3, n=2000, seed=0):
+    """Grid-coordinate planes of points partly outside the cull, keep
+    weights scaled to (0, 1.5), the taps and a cotangent."""
+    pts, w, _ = _points(seed, b, n, dev=dev)
+    w = w * torch.rand(w.shape, device=dev,
+                       generator=torch.Generator(dev).manual_seed(seed)) * 1.5
+    gz, gy, gx, c = _prep_splat(pts, S, w, 1e-6)
+    taps, _ = _taps_and_scale(torch.tensor(sigma, device=dev), 1.0, ks, b,
+                              dev)
+    g = torch.randn((b, S, S, S), device=dev,
+                    generator=torch.Generator(dev).manual_seed(seed + 1))
+    return gz, gy, gx, c, taps.contiguous(), g
+
+
+@pytest.mark.parametrize("S", [13, 16, 32, 64])
+def test_k6_matches_plain(dev, S):
+    gz, gy, gx, c, _, g = _splat_operands(dev, S)
+    n0, b0 = splat_kernel.launches, splat_backward_kernel.launches
+    got = splat_kernel(gz, gy, gx, c, S)
+    ref = splat_grid_torch(gz, gy, gx, c, S)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    if S <= 16:
+        assert float(ref.max()) == 1.0  # the clamp binds
+    for d, r in zip(splat_backward_kernel(gz, gy, gx, c, g),
+                    splat_backward_torch(gz, gy, gx, c, g)):
+        assert torch.isfinite(d).all()
+        assert _rel_l2(d, r) <= 1e-4, (_rel_l2(d, r), float((d - r).abs().max()))
+    assert (splat_kernel.launches, splat_backward_kernel.launches) == (
+        n0 + 1, b0 + 1)
+
+
+@pytest.mark.parametrize("S,ks,sigma", [(16, 9, 0.8), (64, 21, 3.0),
+                                        (96, 21, 1.5), (170, 21, 0.2)])
+def test_k7_matches_plain(dev, S, ks, sigma):
+    gz, gy, gx, c, taps, g = _splat_operands(dev, S, ks, sigma, n=4000)
+    n0, b0 = splat_blur_kernel.launches, splat_blur_backward_kernel.launches
+    got = splat_blur_kernel(gz, gy, gx, c, taps, S)
+    ref = splat_blur_grid_torch(gz, gy, gx, c, taps, S)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    for d, r in zip(splat_blur_backward_kernel(gz, gy, gx, c, taps, g),
+                    splat_blur_backward_torch(gz, gy, gx, c, taps, g)):
+        assert torch.isfinite(d).all()
+        assert _rel_l2(d, r) <= 1e-4, (_rel_l2(d, r), float((d - r).abs().max()))
+    assert (splat_blur_kernel.launches,
+            splat_blur_backward_kernel.launches) == (n0 + 1, b0 + 1)
+
+
+def test_splat_autograd_runs_k6_and_k7(dev):
+    """trilinear_splat and splat_blur with grad on the card (K6, K7 and
+    their backward) against the plain paths' autograd on the CPU: values,
+    and the gradients of the points, the weights and the scale."""
+    pts, w, scale = _points(7, 2, 1500, dev=dev)
+    w = w * 0.8
+    g6 = torch.randn((2, 24, 24, 24), device=dev)
+    g7 = torch.randn((2, 40, 40, 40), device=dev)
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        p, wt, sc = (t.detach().to(where).requires_grad_()
+                     for t in (pts, w, scale))
+        v6 = trilinear_splat(p, 24, wt)
+        v7 = splat_blur(p, 40, 1.1, sc, wt)
+        ((v6 * g6.to(where)).sum() + (v7 * g7.to(where)).sum()).backward()
+        runs[where.type] = [t.detach().cpu() for t in
+                            (v6, v7, p.grad, wt.grad, sc.grad)]
+    for got, ref in zip(runs["cuda"], runs["cpu"]):
+        assert _rel_l2(got, ref) <= 1e-4, _rel_l2(got, ref)
+
+
+def test_k6_k7_reject_bad_operands(dev):
+    gz, gy, gx, c, taps, g = _splat_operands(dev, 16, b=2, n=64)
+    with pytest.raises(TypeError):
+        splat_kernel(gz.double(), gy, gx, c, 16)
+    with pytest.raises(ValueError):
+        splat_blur_kernel(gz, gy, gx, c, taps, 171)
+    with pytest.raises(ValueError):
+        splat_blur(torch.zeros((1, 8, 3), device=dev), 171, 1.0, 1.0)
+    with pytest.raises(ValueError):
+        splat_backward_kernel(gz, gy, gx, c, g[:, :8].contiguous())
+    with pytest.raises(ValueError):
+        splat_blur_kernel(gz.cpu(), gy, gx, c, taps, 16)
