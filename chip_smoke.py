@@ -66,16 +66,18 @@ Phases:
  19. K8 dW against its float64 plain version at that shape with an
      upstream dy·(1 − y²), on each of 3 launches, bit-equal between them;
      cuDNN's weight gradient timed beside it;
- 20. one 1G + 2D group at bs 8 in float32 through K8 and through the plain
-     head, from the same state: the losses, the head's output, the
-     gradients of the generator's and critics' parameters, and, with the
-     plain run's G step handed the kernel's head output, the head's
-     upstream gradient and its own dW, db and dx;
+ 20. one 1G + 2D group at bs 8 in float32 through K8 and K9 and through
+     the plain head and plain folded conv, from the same state: the
+     losses, the head's output, the gradients of the generator's and
+     critics' parameters, and, with the plain run's G step handed the
+     kernel's head output, the head's upstream gradient and its own dW, db
+     and dx; at least 24 K9 launches (8 ResBlockUps a generator pass);
  21. the GAN CLI (``cli/main.main``) on phase 17's cache (100 items at
      512²) at the full CUB configuration (bs 32, 3 critics, bf16, class
      conditioning): 2 epochs with every frequency at 1, ``--continue_train``
      for a third, then ``--evaluate`` and ``--save_results``; launch counts
-     of K8 forward and dW, K4 and K5; finite losses and FIDs, the files;
+     of K8 forward and dW, K9, K4 and K5; finite losses and FIDs, the
+     files;
  22. a learning check: 40 D steps on one fixed batch against a frozen G,
      then 40 G steps against the frozen critics;
  23. 1G + 2D groups/s at the full configuration, the batch on the card;
@@ -92,7 +94,23 @@ Phases:
      --input``) on a cloud the port predicts from phase 5's checkpoint, at
      its defaults (96^3, sigma 1.5): its K7 launch and wall, the occupancy
      and the vertex and face counts against the plain path on the same
-     cloud.
+     cloud;
+ 28. (before phase 20) K9 (the ResBlockUp's folded affine + leaky ReLU +
+     3 x 3 conv) against its plain version at blk6's shapes in bfloat16,
+     32 x 128 x 512 x 256 -> 64 without the affine (the conv1 of
+     ``benchmarks/fusedconv_bench.py``) and 32 x 64 x 512 x 256 -> 64 with
+     it (the ResBlockUp's conv2), at each of the 8 ResBlockUp conv2
+     shapes of the CLI's 512 generator at bs 32 in bfloat16 with the
+     affine and replicate padding (blk1's 512 x 8 x 4 -> 512 up to blk6),
+     and at 8 x 64 x 128 x 64 -> 64 in both types and pad modes; its
+     autograd Function's dx, da, db and dW against autograd of the plain
+     version there in float32, and in bfloat16 (with some pre exactly 0)
+     against float64 autograd of the plain version; cuDNN's pad + conv,
+     with and without the affine + leaky ReLU chain, timed beside it;
+ 29. (after phase 28) the bf16 generator at the CLI's configuration, bs 8,
+     against the float32 one with the same weights: the K9 route's
+     relative L2 error at most 1.5x that of the unfused chain it replaced
+     (norm1, leaky ReLU, pad and cuDNN's conv2, each rounding to bf16).
 
 Prints timings beside the GPU's name and power limit, then one JSON line
 with the per-kernel results (each with its bound: the larger of the bytes
@@ -155,6 +173,8 @@ from im23d_tpu_torch.models.reconstruction import replicate_pad_w
 from im23d_tpu_torch.ops import _build
 from im23d_tpu_torch.ops.camera import world_to_camera_zyx
 from im23d_tpu_torch.ops.conv import (
+    fused_affine_conv3x3_kernel,
+    fused_affine_conv3x3_torch,
     head_conv_dw_kernel,
     head_conv_dw_torch,
     head_conv_dx,
@@ -298,6 +318,27 @@ K8_DW_REL_L2, K8_DW_REPEATS = 1e-4, 3
 # gradient and the head's own dW, db and dx are held by relative L2 each.
 GROUP_BS, GROUP_RTOL, GROUP_PARAM_RL2, GROUP_HEAD_RL2 = 8, 1e-4, 1e-3, 1e-4
 GAN_EPOCHS = 2  # the GAN CLI's run, then one more resumed
+# K9 vs plain, max |kernel - plain| over max(1, max |y|): 9·Cin products
+# per output summed in another order than cuDNN's (~1e-7 relative in
+# float32); the plain version rounds the activation to x's type as the
+# kernel does, so in bfloat16 only the order and y's own rounding (2^-8
+# relative) differ
+K9_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# its autograd Function (the JAX VJP's formula, cuDNN in float32) against
+# autograd of the plain version, relative L2 per gradient, float32
+K9B_REL_L2 = 1e-4
+# the same in bfloat16 against float64 autograd of the plain version: the
+# backward's convs take bf16 operands and round their outputs to bf16
+# (2.7e-3 to 3.5e-3 on the CPU; a dropped W-pad fold reads 1.4e-1 and the
+# slope at pre = 0 9.0e-2)
+K9B_BF16_REL_L2 = 6e-3
+# blk6 of the 512 generator at bs 32, bf16: (Cin, Cout, affine) of the
+# fused-conv benchmark's conv1 (no affine) and of the ResBlockUp's conv2
+K9_MAIN = ((128, 64, False), (64, 64, True))
+K9_SMALL = (8, 64, 128, 64, 64)  # B, Cin, H, W, Cout
+# the bf16 generator's relative L2 error to the float32 one: the K9 route
+# at most this times the unfused chain's
+K9_GEN_RATIO, K9_GEN_BS = 1.5, 8
 # K6 and K7 vs plain: atomicAdd order changes between runs and K7 blurs in
 # another order than the plain band matmul; values <= 1, rounding ~1e-7
 K6_ATOL = K7_ATOL = 1e-5
@@ -663,7 +704,8 @@ _KERNELS = dict(k1=projection_kernel, k2=projection_backward_kernel,
                 k5b=grid_sample_bilinear_backward_kernel,
                 k6=splat_kernel, k6b=splat_backward_kernel,
                 k7=splat_blur_kernel, k7b=splat_blur_backward_kernel,
-                k8=head_conv_kernel, k8b=head_conv_dw_kernel)
+                k8=head_conv_kernel, k8b=head_conv_dw_kernel,
+                k9=fused_affine_conv3x3_kernel)
 
 
 def _zero_counts() -> None:
@@ -1667,6 +1709,215 @@ def phase_k8_dw(gpu: str) -> dict:
     return dict(max_abs_err=e, max_rel_l2=rel, **timed)
 
 
+def _k9_operands(B, cin, H, W, cout, affine, dtype, seed):
+    """K9's operands: x, per-(batch, channel) affine rows like a folded
+    batch norm's, LeCun-scaled weights."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((B, cin, H, W), device=DEVICE, generator=gen).to(dtype)
+    w = torch.randn((cout, cin, 3, 3), device=DEVICE,
+                    generator=gen) / math.sqrt(9 * cin)
+    a = b = None
+    if affine:
+        a = 1.0 + 0.3 * torch.randn((B, cin), device=DEVICE, generator=gen)
+        b = 0.3 * torch.randn((B, cin), device=DEVICE, generator=gen)
+    return x, a, b, w
+
+
+def _k9_check(x, a, b, w, mode) -> float:
+    """K9 against its plain version; returns max |kernel - plain|."""
+    got = fused_affine_conv3x3_kernel(x, a, b, w, mode)
+    ref = fused_affine_conv3x3_torch(x, a, b, w, mode)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(ref.float().abs().max()))
+    e = float((got.float() - ref.float()).abs().max())
+    limit = K9_RTOL[x.dtype] * scale
+    print(f"[K9] {tuple(x.shape)} -> {w.shape[0]} {str(x.dtype)[6:]} "
+          f"{mode}{' affine' if a is not None else ''}: max |kernel - "
+          f"plain| {e:.3e} (limit {limit:.3e})")
+    if not (torch.isfinite(got).all() and e <= limit):
+        raise AssertionError(f"K9 disagrees with plain: {e}")
+    return e
+
+
+def _k9_path_shapes() -> list[tuple[int, int, int, int]]:
+    """(Cin, H, W, Cout) of every K9 call in one pass of the CLI's 512
+    generator (bf16), read from a bs-1 pass."""
+    seen = []
+    fused = gan_models.fused_affine_conv3x3
+
+    def record(x, a, b, w, mode):
+        seen.append((x.shape[1], x.shape[2], x.shape[3], w.shape[0]))
+        return fused(x, a, b, w, mode)
+
+    g = gan_models.Generator(_gan_config("bfloat16"))
+    gan_models.gan_init_(g, torch.Generator().manual_seed(36))
+    g = g.to(DEVICE)
+    with mock.patch.object(gan_models, "fused_affine_conv3x3", record), \
+            torch.no_grad():
+        g(torch.zeros((1, 64), device=DEVICE),
+          torch.zeros((1, 1), dtype=torch.long, device=DEVICE))
+    if len(seen) != 8:
+        raise AssertionError(f"{len(seen)} K9 calls in a generator pass")
+    del g
+    return seen
+
+
+def _k9_bf16_backward(mode: str) -> list[float]:
+    """``_FusedConv``'s bf16 backward at K9_SMALL, with pre exactly 0 on a
+    quarter of channel 0's pixels, against float64 autograd of the plain
+    version on the same values: relative L2 of dx, da, db, dW."""
+    B, cin, H, W, cout = K9_SMALL
+    x, a, b, w = _k9_operands(B, cin, H, W, cout, True, torch.bfloat16, 37)
+    b[:, 0] = 0.0
+    x[:, 0, ::2, ::2] = 0.0
+    co = torch.randn((B, cout, H, W), device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(38))
+    args = [t.clone().requires_grad_() for t in (x, a, b, w)]
+    got = torch.autograd.grad((gan_models.fused_affine_conv3x3(
+        *args, mode).float() * co).sum(), args)
+    if [g.dtype for g in got] != [torch.bfloat16] + [torch.float32] * 3:
+        raise AssertionError(f"K9 bf16 gradient types {[g.dtype for g in got]}")
+    args = [t.double().requires_grad_() for t in (x, a, b, w)]
+    ref = torch.autograd.grad((fused_affine_conv3x3_torch(*args, mode)
+                               * co.double()).sum(), args)
+    torch.cuda.synchronize()
+    return [_rel_l2(g.double(), r) for g, r in zip(got, ref)]
+
+
+def phase_k9(gpu: str) -> dict:
+    """K9 forward vs plain at blk6's bf16 shapes (replicate), at each
+    conv2 shape of the CLI generator at bs 32 in bf16 and at K9_SMALL in
+    both types and pad modes; its autograd Function vs autograd of the
+    plain version there in float32, and in bf16 vs float64; times at
+    blk6."""
+    out = {}
+    for cin, cout, affine in K9_MAIN:
+        x, a, b, w = _k9_operands(GAN_B, cin, GAN_RES, GAN_RES // 2, cout,
+                                  affine, torch.bfloat16, 30)
+        e = _k9_check(x, a, b, w, "replicate")
+        wd = w.to(x.dtype)
+        ms = _time_ms(lambda: fused_affine_conv3x3_kernel(x, a, b, w), 20)
+        plain_ms = _time_ms(lambda: fused_affine_conv3x3_torch(x, a, b, w),
+                            3)
+        conv_ms = _time_ms(lambda: F.conv2d(replicate_pad_w(x, 1), wd,
+                                            padding=(1, 0)), 10)
+        chain_ms = None
+        if affine:
+            a4, b4 = a[:, :, None, None], b[:, :, None, None]
+            chain_ms = _time_ms(lambda: F.conv2d(replicate_pad_w(
+                F.leaky_relu(x.float() * a4 + b4, 0.2).to(x.dtype), 1), wd,
+                padding=(1, 0)), 10)
+        # reads x, a, b and the weights in x's type, writes y
+        bound = _bound(_nbytes(x, a, b, wd) + x.numel() // cin * cout
+                       * x.element_size(),
+                       2 * 9 * cin * cout * x.numel() // cin, PEAK_BF16)
+        print(f"[K9] {tuple(x.shape)} bf16 -> {cout}"
+              f"{' affine' if affine else ''}: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, cuDNN pad + conv {conv_ms:.3f} ms"
+              + (f", with the float32 affine + leaky ReLU chain "
+                 f"{chain_ms:.3f} ms" if affine else "")
+              + f" per call; bound {bound} [{gpu}]")
+        out[affine] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                           library_ms=chain_ms if affine else conv_ms,
+                           conv_ms=conv_ms, **bound)
+        del x, a, b, w, wd
+        torch.cuda.empty_cache()
+    for i, (cin, H, W, cout) in enumerate(_k9_path_shapes()):
+        x, a, b, w = _k9_operands(GAN_B, cin, H, W, cout, True,
+                                  torch.bfloat16, 40 + i)
+        _k9_check(x, a, b, w, "replicate")
+        del x, a, b, w
+    torch.cuda.empty_cache()
+    B, cin, H, W, cout = K9_SMALL
+    rels = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for affine in (True, False):
+            x, a, b, w = _k9_operands(B, cin, H, W, cout, affine, dtype, 31)
+            for mode in ("replicate", "circular"):
+                _k9_check(x, a, b, w, mode)
+    x, a, b, w = _k9_operands(B, cin, H, W, cout, True, torch.float32, 32)
+    co = torch.randn((B, cout, H, W), device=DEVICE,
+                     generator=torch.Generator(device=DEVICE).manual_seed(33))
+    for mode in ("replicate", "circular"):
+        def grads(fn):
+            args = [t.clone().requires_grad_() for t in (x, a, b, w)]
+            return torch.autograd.grad((fn(*args, mode) * co).sum(), args)
+        got = grads(gan_models.fused_affine_conv3x3)
+        ref = grads(fused_affine_conv3x3_torch)
+        torch.cuda.synchronize()
+        rel = [_rel_l2(g, r) for g, r in zip(got, ref)]
+        print(f"[K9 bwd] {tuple(x.shape)} float32 {mode}: rel L2 vs "
+              f"autograd of plain, dx / da / db / dW "
+              f"{[f'{r:.3e}' for r in rel]} (limit {K9B_REL_L2})")
+        if not max(rel) <= K9B_REL_L2:
+            raise AssertionError("K9's autograd Function disagrees")
+        rels += rel
+        rel16 = _k9_bf16_backward(mode)
+        print(f"[K9 bwd] {K9_SMALL[:4]} bf16 {mode}: rel L2 vs float64 "
+              f"autograd of plain, dx / da / db / dW "
+              f"{[f'{r:.3e}' for r in rel16]} (limit {K9B_BF16_REL_L2})")
+        if not max(rel16) <= K9B_BF16_REL_L2:
+            raise AssertionError("K9's bf16 backward disagrees")
+    res = dict(out[True])
+    res.update(max_rel_l2=max(rels), no_affine_ms=out[False]["ms"],
+               no_affine_bound_ms=out[False]["bound_ms"],
+               no_affine_conv_ms=out[False]["conv_ms"])
+    return res
+
+
+def _unfused_block(self, x, z):
+    """``ResBlockUp.forward`` before K9: norm1, its leaky ReLU, the pad and
+    cuDNN's conv2, each rounding to the compute dtype."""
+    shortcut = x if self.shortcut is None else self.shortcut(x)
+    h = gan_models.leaky_relu(self.norm1(self.conv1(self.pad_fn(x, 1)), z))
+    h = gan_models.leaky_relu(self.norm2(self.conv2(self.pad_fn(h, 1)), z))
+    return h + shortcut
+
+
+def phase_gen_bf16(gpu: str) -> None:
+    """The bf16 generator (CLI configuration, train mode, bs K9_GEN_BS)
+    against the float32 one with the same weights: the K9 route's error
+    at most K9_GEN_RATIO times the unfused chain's."""
+    g32 = gan_models.Generator(_gan_config("float32"))
+    init = torch.Generator().manual_seed(34)
+    gan_models.gan_init_(g32, init)
+    with torch.no_grad():  # a non-zero mesh map, so blk3_mesh shows
+        g32.conv_mesh.weight.normal_(0.0, 0.02, generator=init)
+    state = {k: v.to(DEVICE) for k, v in g32.state_dict().items()}
+    g32 = g32.to(DEVICE)
+    g16 = gan_models.Generator(_gan_config("bfloat16")).to(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(35)
+    z = torch.randn((K9_GEN_BS, 64), device=DEVICE, generator=gen)
+    c = torch.randint(0, 200, (K9_GEN_BS, 1), device=DEVICE, generator=gen)
+
+    def run(g):
+        g.load_state_dict(state)
+        g.train()
+        with torch.no_grad():
+            return [t.float() for t in g(z, c)]
+
+    ref = run(g32)
+    n0 = fused_affine_conv3x3_kernel.launches
+    k9 = run(g16)
+    launched = fused_affine_conv3x3_kernel.launches - n0
+    with mock.patch.object(gan_models.ResBlockUp, "forward", _unfused_block):
+        old = run(g16)
+    torch.cuda.synchronize()
+    for name, r, got, unfused in zip(("texture", "mesh map"), ref, k9, old):
+        e_k9, e_old = _rel_l2(got, r), _rel_l2(unfused, r)
+        print(f"[gen-bf16] {name}, bs {K9_GEN_BS}: rel L2 to float32, K9 "
+              f"route {e_k9:.4e}, unfused chain {e_old:.4e} (ratio "
+              f"{e_k9 / e_old:.3f}, limit {K9_GEN_RATIO}); K9 launches "
+              f"{launched} [{gpu}]")
+        if not e_k9 <= K9_GEN_RATIO * e_old:
+            raise AssertionError(f"the K9 route's bf16 error is too large "
+                                 f"({name})")
+    if launched < 8:
+        raise AssertionError(f"K9 launched {launched} times in a pass")
+    del g32, g16, state
+    torch.cuda.empty_cache()
+
+
 class _PlainHead(torch.autograd.Function):
     """The head through its plain pieces: the plain forward, dx by the
     transpose conv ``_HeadConv`` uses, dW by the float64 plain version."""
@@ -1780,7 +2031,9 @@ def phase_gan_group(gpu: str, template) -> None:
         got = group()
         launched = {k: v - counts0[k] for k, v in _counts().items()}
         head["y_kernel"] = got[1]
-        with mock.patch.object(gan_models, "head_conv_tanh", _plain_head):
+        with mock.patch.object(gan_models, "head_conv_tanh", _plain_head), \
+                mock.patch.object(gan_models, "fused_affine_conv3x3",
+                                  fused_affine_conv3x3_torch):
             ref = group()
         torch.cuda.synchronize()
     finally:
@@ -1805,8 +2058,8 @@ def phase_gan_group(gpu: str, template) -> None:
     if not (tex_err <= K8_ATOL[torch.float32]
             and max(head_rl.values()) <= GROUP_HEAD_RL2):
         raise AssertionError("the head's output or gradients disagree")
-    if launched["k8"] < 3 or launched["k8b"] < 1:
-        raise AssertionError(f"K8 never launched in the group: {launched}")
+    if launched["k8"] < 3 or launched["k8b"] < 1 or launched["k9"] < 24:
+        raise AssertionError(f"K8 or K9 missing in the group: {launched}")
     del trainer, state
     torch.cuda.empty_cache()
 
@@ -1898,11 +2151,13 @@ def phase_gan_cli(gpu: str, tmp: str) -> dict:
                   for e in ("obj", "mtl", "png"))
     if files != want or not os.path.exists(grid):
         raise AssertionError(f"--save_results wrote {files}")
-    if train["k8"] < iters or train["k8b"] < g_steps:
+    if (train["k8"] < iters or train["k8b"] < g_steps
+            or train["k9"] < 8 * iters):
         raise AssertionError(f"K8 launched {train['k8']} / {train['k8b']} "
-                             f"times in {iters} iterations")
+                             f"and K9 {train['k9']} times in {iters} "
+                             f"iterations")
     if min(train[k] for k in ("k4", "k5")) < 1 or min(
-            launches[2][k] for k in ("k4", "k5", "k8")) < 1:
+            launches[2][k] for k in ("k4", "k5", "k8", "k9")) < 1:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{launches}")
     return train
@@ -1994,6 +2249,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         k8 = phase_k8(gpu)
         k8b = phase_k8_dw(gpu)
+        k9 = phase_k9(gpu)
+        phase_gen_bf16(gpu)
         phase_gan_group(gpu, template)
         gan = phase_gan_cli(gpu, tmp)
         phase_gan_learn(gpu, tmp, template)
@@ -2051,6 +2308,10 @@ def main() -> int:
              source="im23d_tpu_torch/csrc/head_conv.cu",
              replaces="im23d_tpu/ops/conv_pallas.py:188",
              launches=gan["k8b"], **k8b),
+        dict(name="K9 folded affine conv3x3 forward", route="cuda",
+             source="im23d_tpu_torch/csrc/fused_conv.cu",
+             replaces="im23d_tpu/ops/conv_pallas.py:375",
+             launches=gan["k9"], **k9),
     ]
     print(json.dumps(dict(kernels=kernels)))
     print(_gpu_line())

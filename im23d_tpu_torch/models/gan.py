@@ -25,7 +25,9 @@ Mixed precision follows the JAX rule: ``compute_dtype`` is the conv and
 linear dtype (parameters and spectral norm stay float32); batch norm
 reduces in float32; the texture leaves in the compute dtype, the mesh map
 and the critics' outputs in float32.  The texture head is kernel K8 on
-CUDA (``ops/conv.py``).  ``conditional_text`` and ``wide_hires`` are not
+CUDA and each ResBlockUp's conv2, with norm1 and its leaky ReLU folded
+in, is kernel K9 (``ops/conv.py``); on the CPU both are their plain
+versions.  ``conditional_text`` and ``wide_hires`` are not
 ported and raise ``NotImplementedError``.
 """
 
@@ -42,11 +44,12 @@ from torch import nn
 
 from im23d_tpu_torch.models.reconstruction import (
     _bn,
+    bn_stats,
     circular_pad_w,
     replicate_pad_w,
     upsample_nearest,
 )
-from im23d_tpu_torch.ops.conv import head_conv_tanh
+from im23d_tpu_torch.ops.conv import fused_affine_conv3x3, head_conv_tanh
 from im23d_tpu_torch.ops.sampling import adjust_poles, symmetrize_texture
 
 BN_MOMENTUM = 0.01  # flax's 0.99
@@ -184,16 +187,42 @@ class ConditionalNorm(nn.Module):
         beta = _linear(self.fc_beta, z)[:, :, None, None]
         return h * (1.0 + gamma) + beta
 
+    def fold(self, x: torch.Tensor,
+             z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """This norm of ``x`` as one multiply-add per (batch, channel):
+        float32 rows (a, b) of shape (B, C) with forward(x, z) = x·a + b
+        up to rounding, a = rsqrt(var + eps)·(1 + γ), b = β − mean·a.  The
+        batch norm's statistics are ``bn_stats``'s (running statistics
+        updated once in train mode), the instance norm's per (b, c)."""
+        gamma = _linear(self.fc_gamma, z).float()
+        beta = _linear(self.fc_beta, z).float()
+        if self.kind == "none":
+            return (1.0 + gamma).contiguous(), beta.contiguous()
+        xf = x.float()
+        if self.kind == "batch":
+            mean, var = bn_stats(self.norm, xf)
+            eps = self.norm.eps
+        else:
+            mean = xf.mean(dim=(2, 3))
+            var = xf.var(dim=(2, 3), unbiased=False)
+            eps = 1e-5
+        a = torch.rsqrt(var + eps) * (1.0 + gamma)
+        return a.contiguous(), (beta - mean * a).contiguous()
+
 
 class ResBlockUp(nn.Module):
     """Spectral-norm 3 × 3 conv block with conditional norm (no upsampling
-    inside); the width pads with ``pad_fn``, the height with zeros."""
+    inside); the width pads as ``pad_mode`` says ("replicate" or
+    "circular"), the height with zeros.  norm1 and its leaky ReLU are
+    folded into conv2: ``fused_affine_conv3x3``, kernel K9 on CUDA."""
 
     def __init__(self, ch_in: int, ch_out: int, z_dim: int, norm: str,
-                 pad_fn):
+                 pad_mode: str):
         super().__init__()
         ch_mid = min(ch_in, ch_out)
-        self.pad_fn = pad_fn
+        self.pad_mode = pad_mode
+        self.pad_fn = {"replicate": replicate_pad_w,
+                       "circular": circular_pad_w}[pad_mode]
         self.shortcut = (SNConv2d(ch_in, ch_out, 1, bias=False)
                          if ch_in != ch_out else None)
         self.conv1 = SNConv2d(ch_in, ch_mid, 3, padding=(1, 0), bias=False)
@@ -203,8 +232,11 @@ class ResBlockUp(nn.Module):
 
     def forward(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         shortcut = x if self.shortcut is None else self.shortcut(x)
-        h = leaky_relu(self.norm1(self.conv1(self.pad_fn(x, 1)), z))
-        h = leaky_relu(self.norm2(self.conv2(self.pad_fn(h, 1)), z))
+        h = self.conv1(self.pad_fn(x, 1))
+        a, b = self.norm1.fold(h, z)
+        h = fused_affine_conv3x3(h, a, b, self.conv2.normalized_weight(),
+                                 self.pad_mode)
+        h = leaky_relu(self.norm2(h, z))
         return h + shortcut
 
 
@@ -242,11 +274,12 @@ class Generator(nn.Module):
                 self.emb_class = nn.Embedding(cfg.n_classes[0], emb)
             z_dim += emb
         self.pad = replicate_pad_w if cfg.symmetric_g else circular_pad_w
+        pad_mode = "replicate" if cfg.symmetric_g else "circular"
         self.base_w = 4 if cfg.symmetric_g else 8
         self.fc = nn.Linear(z_dim, 8 * self.base_w * 512)
 
         def blk(ci, co):
-            return ResBlockUp(ci, co, z_dim, cfg.norm_g, self.pad)
+            return ResBlockUp(ci, co, z_dim, cfg.norm_g, pad_mode)
 
         self.blk1 = blk(512, 512)
         self.blk2 = blk(512, 256)
@@ -258,8 +291,7 @@ class Generator(nn.Module):
         self.blk4 = blk(256, 128)
         self.blk5 = blk(128, 128)
         self.blk6 = blk(128, 64)
-        self.conv_final = HeadConvTanh(
-            64, "replicate" if cfg.symmetric_g else "circular")
+        self.conv_final = HeadConvTanh(64, pad_mode)
         if mesh_head:
             self.blk3_mesh = blk(256, 64)
             self.conv_mesh = nn.Conv2d(64, 3, 5, padding=(2, 0))

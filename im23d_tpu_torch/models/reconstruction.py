@@ -54,6 +54,24 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
                     conv.padding)
 
 
+def bn_stats(bn: nn.modules.batchnorm._BatchNorm,
+             xf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (mean, var) of the float32 ``xf`` that ``bn`` normalises
+    with: the running statistics in eval mode; in train mode flax's batch
+    statistics (the biased variance E[x²] − E[x]², clamped at 0), with the
+    running statistics updated in place."""
+    if not bn.training:
+        return bn.running_mean, bn.running_var
+    dims = [0, *range(2, xf.dim())]
+    mean = xf.mean(dims)
+    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+    return mean, var
+
+
 def _bn(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
     """Batch norm in float32, returned in ``x``'s dtype: the running
     statistics in eval mode; in train mode flax's batch statistics and
@@ -62,13 +80,7 @@ def _bn(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
     if not bn.training:
         return F.batch_norm(xf, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps).to(x.dtype)
-    dims = [0, *range(2, xf.dim())]
-    mean = xf.mean(dims)
-    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
-    with torch.no_grad():
-        m = bn.momentum
-        bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
-        bn.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+    mean, var = bn_stats(bn, xf)
     shape = [1, -1] + [1] * (xf.dim() - 2)
     mul = torch.rsqrt(var + bn.eps)
     if bn.weight is not None:

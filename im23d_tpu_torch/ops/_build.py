@@ -58,6 +58,9 @@ _SIGNATURES = {
     "im23d_head_conv_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, g, partial, dw, B, C, H, W, circular, bf16, nrows, stream
     "im23d_head_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, a, b, w9, y, B, Cin, Cout, H, W, circular, affine, bf16, stream
+    "im23d_fused_conv_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P],
     # gz, gy, gx, c, out, B, N, S, stream
     "im23d_splat_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # gz, gy, gx, c, g, raw, dgz, dgy, dgx, dc, B, N, S, stream

@@ -1,6 +1,10 @@
-"""The GAN generator's texture-head conv: 5×5 conv to 3 channels, zero H
-padding and replicate or circular W padding, plus bias and tanh
-(counterpart of ``head_conv_tanh`` in ``im23d_tpu/ops/conv_pallas.py``).
+"""The GAN generator's convs with a hand-written kernel: the texture head
+(K8) and the ResBlockUp conv2 with its folded norm (K9), counterparts of
+``head_conv_tanh`` and ``fused_affine_conv3x3`` in
+``im23d_tpu/ops/conv_pallas.py``.
+
+The head is a 5×5 conv to 3 channels, zero H padding and replicate or
+circular W padding, plus bias and tanh.
 
 ``head_conv_tanh`` runs the plain ``head_conv_tanh_torch`` on CPU tensors
 and, on CUDA tensors, the autograd Function ``_HeadConv``: kernel K8's
@@ -11,6 +15,15 @@ Tensors are NCHW: x (B, C, H, W) in float32 or bfloat16, weight (3, C, 5, 5)
 and bias (3,) float32, y (B, 3, H, W) in x's type.  The weight is rounded
 to x's type before use, as the JAX model casts its kernel to the compute
 dtype.
+
+``fused_affine_conv3x3`` is conv3x3(leaky_relu(x·a + b, 0.2)), a and b
+per-(batch, channel) float32 rows (a conditional norm folded into one
+multiply-add) or both None, with zero H padding and replicate or circular
+W padding.  It runs the plain ``fused_affine_conv3x3_torch`` on CPU
+tensors and, on CUDA tensors, the autograd Function ``_FusedConv``:
+kernel K9's forward (``csrc/fused_conv.cu``) and, as its backward, the
+JAX version's XLA VJP written in PyTorch (cuDNN's transpose conv and
+weight gradient, their operands in x's type).
 """
 
 from __future__ import annotations
@@ -24,11 +37,11 @@ KSIZE, PAD, COUT = 5, 2, 3
 _PAD_MODES = ("replicate", "circular")
 
 
-def _pad_w(x: torch.Tensor, pad_mode: str) -> torch.Tensor:
+def _pad_w(x: torch.Tensor, pad_mode: str, amount: int = PAD) -> torch.Tensor:
     if pad_mode not in _PAD_MODES:
         raise ValueError(f"pad_mode must be one of {_PAD_MODES}, got "
                          f"{pad_mode!r}")
-    return F.pad(x, (PAD, PAD, 0, 0), mode=pad_mode)
+    return F.pad(x, (amount, amount, 0, 0), mode=pad_mode)
 
 
 def head_conv_tanh_torch(x: torch.Tensor, weight: torch.Tensor,
@@ -153,23 +166,30 @@ def head_conv_dw_kernel(x: torch.Tensor, g: torch.Tensor,
 head_conv_dw_kernel.launches = 0
 
 
+def _fold_w_pad(dxp: torch.Tensor, pad: int, pad_mode: str) -> torch.Tensor:
+    """The gradient of a W-padded map (B, C, H, W + 2·pad) folded back onto
+    the columns the pad copied: the edge column (replicate) or the
+    opposite edge (circular)."""
+    W = dxp.shape[-1] - 2 * pad
+    dx = dxp[..., pad:pad + W].clone()
+    left, right = dxp[..., :pad], dxp[..., pad + W:]
+    if pad_mode == "replicate":
+        dx[..., :1] += left.sum(-1, keepdim=True)
+        dx[..., -1:] += right.sum(-1, keepdim=True)
+    else:
+        dx[..., W - pad:] += left
+        dx[..., :pad] += right
+    return dx
+
+
 def head_conv_dx(g: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
                  pad_mode: str) -> torch.Tensor:
     """dx of the padded conv: the transpose conv of g (in ``dtype``, as the
     JAX VJP) gives the gradient of the padded input; the zero H rows carry
     none, and the W pad columns fold back onto the columns they copied."""
-    W = g.shape[-1]
     dxp = F.conv_transpose2d(g.to(dtype), weight.to(dtype),
                              padding=(PAD, 0))  # (B, C, H, W + 4)
-    dx = dxp[..., PAD:PAD + W].clone()
-    left, right = dxp[..., :PAD], dxp[..., PAD + W:]
-    if pad_mode == "replicate":
-        dx[..., :1] += left.sum(-1, keepdim=True)
-        dx[..., -1:] += right.sum(-1, keepdim=True)
-    else:
-        dx[..., W - PAD:] += left
-        dx[..., :PAD] += right
-    return dx
+    return _fold_w_pad(dxp, PAD, pad_mode)
 
 
 class _HeadConv(torch.autograd.Function):
@@ -209,3 +229,176 @@ def head_conv_tanh(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return head_conv_tanh_torch(x, weight, bias, pad_mode)
     return _HeadConv.apply(x.contiguous(), weight, bias, pad_mode)
+
+
+# --- K9: folded affine + leaky ReLU + 3×3 conv ------------------------------
+
+LRELU_SLOPE = 0.2
+
+
+def _leaky(pre: torch.Tensor) -> torch.Tensor:
+    """leaky ReLU with JAX's tie rule: ``pre >= 0`` keeps pre, so autograd
+    passes the gradient whole at 0 (``F.leaky_relu`` passes the slope)."""
+    return torch.where(pre >= 0, pre, LRELU_SLOPE * pre)
+
+
+def _check_affine(a, b) -> None:
+    if (a is None) != (b is None):
+        raise ValueError("a and b must both be given or both be None")
+
+
+def fused_affine_conv3x3_torch(x: torch.Tensor, a: torch.Tensor | None,
+                               b: torch.Tensor | None, weight: torch.Tensor,
+                               pad_mode: str = "replicate") -> torch.Tensor:
+    """Plain forward: the affine in float32 and the leaky ReLU, rounded to
+    x's type, the W pad, then ``F.conv2d`` in float32 with zero H padding
+    and the weight rounded to x's type; y in x's type."""
+    _check_affine(a, b)
+    act = x
+    if a is not None:
+        act = _leaky(x.float() * a.float()[:, :, None, None]
+                     + b.float()[:, :, None, None]).to(x.dtype)
+    y = F.conv2d(_pad_w(act.float(), pad_mode, 1),
+                 weight.to(x.dtype).float(), padding=(1, 0))
+    return y.to(x.dtype)
+
+
+def fused_affine_conv3x3_kernel(x: torch.Tensor, a: torch.Tensor | None,
+                                b: torch.Tensor | None, weight: torch.Tensor,
+                                pad_mode: str = "replicate") -> torch.Tensor:
+    """Launch K9: x (B, Cin, H, W) float32 or bfloat16, a and b (B, Cin)
+    float32 or both None, weight (Cout, Cin, 3, 3) (rounded to x's type),
+    all contiguous on one CUDA device, Cin and Cout multiples of 16;
+    returns y (B, Cout, H, W) in x's type.  Raises ``ValueError`` for any
+    other operand.
+
+    Replaces the Pallas kernel ``_fused_fwd_kernel``
+    (``im23d_tpu/ops/conv_pallas.py:375``).  Bound by bytes at 64 input
+    channels and by operations at 128 (bf16, blk6's 512 × 256 stage); an
+    implicit GEMM whose loader applies the affine, the leaky ReLU and the
+    padding while it stages each block's padded patch, bf16 products on
+    the tensor cores (mma.sync), float32 ones on the FMA units (see
+    ``csrc/fused_conv.cu``).
+    """
+    _check_affine(a, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"K9 needs CUDA tensors, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous() or min(x.shape) < 1:
+        raise ValueError(f"x must be a contiguous non-empty NCHW tensor, got "
+                         f"{tuple(x.shape)}")
+    if pad_mode not in _PAD_MODES:
+        raise ValueError(f"pad_mode must be one of {_PAD_MODES}, got "
+                         f"{pad_mode!r}")
+    B, C, H, W = x.shape
+    dev = x.device
+    if (weight.dim() != 4 or weight.shape[1:] != (C, 3, 3)
+            or weight.device != dev or not weight.is_floating_point()):
+        raise ValueError(f"weight must be a (Cout, {C}, 3, 3) float tensor "
+                         f"on {dev}, got {tuple(weight.shape)} on "
+                         f"{weight.device}")
+    cout = weight.shape[0]
+    if C % 16 or cout % 16:
+        raise ValueError(f"K9 takes channel counts that are multiples of "
+                         f"16, got {C} -> {cout}")
+    if a is not None:
+        for name, t in (("a", a), ("b", b)):
+            if (t.device != dev or t.dtype != torch.float32
+                    or tuple(t.shape) != (B, C) or not t.is_contiguous()):
+                raise ValueError(f"{name} must be a contiguous float32 "
+                                 f"{(B, C)} tensor on {dev}")
+    w9 = weight.detach().to(x.dtype).permute(2, 3, 0, 1).contiguous()
+    y = torch.empty((B, cout, H, W), dtype=x.dtype, device=dev)
+    lib = _build.load_kernels()
+    rc = lib.im23d_fused_conv_fwd(
+        x.data_ptr(), 0 if a is None else a.data_ptr(),
+        0 if b is None else b.data_ptr(), w9.data_ptr(), y.data_ptr(), B, C,
+        cout, H, W, int(pad_mode == "circular"), int(a is not None),
+        int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "fused affine conv3x3 kernel (K9)")
+    fused_affine_conv3x3_kernel.launches += 1
+    return y
+
+
+fused_affine_conv3x3_kernel.launches = 0
+
+
+def _fused_conv_bwd(x, a, b, weight, dy, pad_mode, needs):
+    """The JAX VJP (``conv_pallas.py:_fused_bwd``) in PyTorch: pre and act
+    recomputed in float32, dW as the weight gradient of the padded act,
+    d act by the transpose conv folded back over the W pad, d pre by JAX's
+    tie rule, then dx = d pre·a, da = Σ d pre·x, db = Σ d pre over H and W.
+    ``needs`` flags (dx, da, db, dW); returns them, None where not needed.
+
+    The two convs take their operands in x's type, summing in float32: for
+    float32 x this is ``_fused_bwd`` exactly; for bfloat16 x they are the
+    bf16 conv gradients that the JAX model's own conv VJP takes (its
+    generator never calls the fused op).  float32 operands cost the CUB
+    GAN's bs-32 G step 7.5 ms more on an H100 80GB HBM3 at 700 W (TF32
+    convs and float32 layout transposes; ``tools/profile_eval.py --only
+    gan_train``, ``PERF.md`` §6).
+    """
+    xf = x.float()
+    act = xf
+    if a is not None:
+        pre = xf * a[:, :, None, None] + b[:, :, None, None]
+        act = _leaky(pre)
+    dyc = dy.to(x.dtype)
+    wc = weight.detach().to(x.dtype)
+    dx = da = db = dw = None
+    if needs[3]:
+        dw = torch.nn.grad.conv2d_weight(
+            _pad_w(act.to(x.dtype), pad_mode, 1), wc.shape, dyc,
+            padding=(1, 0)).to(weight.dtype)
+    if any(needs[:3]):
+        dact = _fold_w_pad(F.conv_transpose2d(dyc, wc, padding=(1, 0)), 1,
+                           pad_mode).float()
+        if a is None:
+            dx = dact.to(x.dtype)
+        else:
+            dpre = torch.where(pre >= 0, dact, LRELU_SLOPE * dact)
+            if needs[0]:
+                dx = (dpre * a[:, :, None, None]).to(x.dtype)
+            if needs[1]:
+                da = (dpre * xf).sum(dim=(2, 3))
+            if needs[2]:
+                db = dpre.sum(dim=(2, 3))
+    return dx, da, db, dw
+
+
+class _FusedConv(torch.autograd.Function):
+    """K9 forward (the plain forward for CPU tensors, so that the backward
+    formula runs on the CPU too); backward ``_fused_conv_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, weight, pad_mode):
+        fwd = (fused_affine_conv3x3_torch if x.device.type == "cpu"
+               else fused_affine_conv3x3_kernel)
+        y = fwd(x, None if a is None else a.detach(),
+                None if b is None else b.detach(), weight.detach(), pad_mode)
+        ctx.save_for_backward(x, a, b, weight)
+        ctx.pad_mode = pad_mode
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, a, b, weight = ctx.saved_tensors
+        dx, da, db, dw = _fused_conv_bwd(
+            x, a, b, weight, dy, ctx.pad_mode, ctx.needs_input_grad[:4])
+        return dx, da, db, dw, None
+
+
+def fused_affine_conv3x3(x: torch.Tensor, a: torch.Tensor | None,
+                         b: torch.Tensor | None, weight: torch.Tensor,
+                         pad_mode: str = "replicate") -> torch.Tensor:
+    """conv3x3(leaky_relu(x·a + b, 0.2)) with zero H and replicate or
+    circular W padding, NCHW: plain on CPU; on CUDA, K9 forward with the
+    JAX VJP's formula as its backward."""
+    if x.device.type == "cpu":
+        return fused_affine_conv3x3_torch(x, a, b, weight, pad_mode)
+    _check_affine(a, b)
+    if a is not None:
+        a, b = a.contiguous(), b.contiguous()
+    return _FusedConv.apply(x.contiguous(), a, b, weight, pad_mode)

@@ -1,4 +1,4 @@
-"""CUDA kernels K1–K8 of the PyTorch port against their plain versions.
+"""CUDA kernels K1–K9 of the PyTorch port against their plain versions.
 
 Needs a CUDA device: every test here is marked ``cuda`` and skips without
 one.  Imports no JAX, so it runs where JAX is not installed; the repository's
@@ -41,7 +41,21 @@ cuDNN: forward atol 1e-5 in float32 and 1e-2 in bfloat16 (one bfloat16
 ulp near 1); dW by relative L2 <= 1e-4 against the float64 plain version,
 bit-equal between launches (a two-pass reduction with no atomics); the
 autograd Function's dx, dW and db against autograd of the plain forward.
+
+K9 (the ResBlockUp's folded affine + leaky ReLU + 3×3 conv) sums 9·C
+products per output in another order than cuDNN, and its plain version
+rounds the activation to x's type as the kernel does: max |kernel -
+plain| <= 1e-5 × max(1, max |y|) in float32 and 1e-2 × in bfloat16 (y's
+own rounding); its autograd Function (the JAX VJP's formula in PyTorch)
+against autograd of the plain forward, relative L2 <= 1e-4 on dx, da, db
+and dW in float32; in bfloat16 (its two convs take bf16 operands and
+round their outputs to bf16) against float64 autograd of the plain
+forward, relative L2 <= 6e-3 (2.7e-3 to 3.5e-3 on the CPU; a dropped
+W-pad fold reads 1.4e-1, the slope at pre = 0 9.0e-2).
 """
+
+import math
+
 
 import numpy as np
 import pytest
@@ -53,6 +67,9 @@ from im23d_tpu_torch.metrics.chamfer import (
     nn_dist2_torch,
 )
 from im23d_tpu_torch.ops.conv import (
+    fused_affine_conv3x3,
+    fused_affine_conv3x3_kernel,
+    fused_affine_conv3x3_torch,
     head_conv_dw_kernel,
     head_conv_dw_torch,
     head_conv_kernel,
@@ -589,6 +606,102 @@ def test_k8_rejects_bad_operands(dev):
     with pytest.raises(ValueError):
         head_conv_kernel(x.cpu(), w, b)
 
+
+
+def _k9_operands(dev, shape, affine, dtype, seed):
+    B, C, H, W, cout = shape
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((B, C, H, W), device=dev, generator=gen).to(dtype)
+    w = torch.randn((cout, C, 3, 3), device=dev, generator=gen) / math.sqrt(
+        9 * C)
+    a = b = None
+    if affine:
+        a = 1.0 + 0.3 * torch.randn((B, C), device=dev, generator=gen)
+        b = 0.3 * torch.randn((B, C), device=dev, generator=gen)
+    return x, a, b, w
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("pad_mode", ["replicate", "circular"])
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("shape", [(2, 48, 16, 24, 48), (3, 64, 9, 70, 80),
+                                   (4, 32, 8, 4, 64)])
+def test_k9_matches_plain(dev, shape, affine, pad_mode, dtype, rtol):
+    """(B, Cin, H, W, Cout): a 16-channel last stage and a partial output
+    tile; W past one 64-column tile and H past its rows; blk1's 8 × 4."""
+    x, a, b, w = _k9_operands(dev, shape, affine, dtype, 9)
+    n0 = fused_affine_conv3x3_kernel.launches
+    y = fused_affine_conv3x3_kernel(x, a, b, w, pad_mode)
+    ref = fused_affine_conv3x3_torch(x, a, b, w, pad_mode)
+    torch.cuda.synchronize()
+    assert fused_affine_conv3x3_kernel.launches == n0 + 1
+    B, _, H, W, cout = shape
+    assert y.dtype == dtype and y.shape == (B, cout, H, W)
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert float((y.float() - ref.float()).abs().max()) <= rtol * scale
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("pad_mode", ["replicate", "circular"])
+def test_k9_autograd_matches_plain(dev, pad_mode, affine):
+    shape = (2, 32, 12, 40, 48)
+    x, a, b, w = _k9_operands(dev, shape, affine, torch.float32, 10)
+    co = torch.randn((2, 48, 12, 40), device=dev,
+                     generator=torch.Generator(dev).manual_seed(11))
+    inputs = [x, a, b, w] if affine else [x, w]
+
+    def grads(fn):
+        args = [t.clone().requires_grad_() for t in inputs]
+        ta, tb = (args[1], args[2]) if affine else (None, None)
+        y = fn(args[0], ta, tb, args[-1], pad_mode)
+        return torch.autograd.grad((y * co).sum(), args)
+
+    n0 = fused_affine_conv3x3_kernel.launches
+    got = grads(fused_affine_conv3x3)
+    assert fused_affine_conv3x3_kernel.launches == n0 + 1
+    ref = grads(fused_affine_conv3x3_torch)
+    for g, r in zip(got, ref):
+        assert _rel_l2(g, r) <= 1e-4
+
+
+@pytest.mark.parametrize("pad_mode", ["replicate", "circular"])
+@pytest.mark.parametrize("shape", [(2, 32, 12, 40, 48), (4, 512, 8, 4, 512)])
+def test_k9_bf16_autograd_matches_float64(dev, shape, pad_mode):
+    """The bf16 backward, with pre exactly 0 on a quarter of channel 0's
+    pixels (JAX's rule passes the gradient whole there)."""
+    x, a, b, w = _k9_operands(dev, shape, True, torch.bfloat16, 12)
+    b[:, 0] = 0.0
+    x[:, 0, ::2, ::2] = 0.0
+    B, _, H, W, cout = shape
+    co = torch.randn((B, cout, H, W), device=dev,
+                     generator=torch.Generator(dev).manual_seed(13))
+    args = [t.clone().requires_grad_() for t in (x, a, b, w)]
+    n0 = fused_affine_conv3x3_kernel.launches
+    got = torch.autograd.grad(
+        (fused_affine_conv3x3(*args, pad_mode).float() * co).sum(), args)
+    assert fused_affine_conv3x3_kernel.launches == n0 + 1
+    assert [g.dtype for g in got] == [torch.bfloat16] + [torch.float32] * 3
+    args = [t.double().requires_grad_() for t in (x, a, b, w)]
+    ref = torch.autograd.grad((fused_affine_conv3x3_torch(*args, pad_mode)
+                               * co.double()).sum(), args)
+    for g, r in zip(got, ref):
+        assert _rel_l2(g.double(), r) <= 6e-3
+
+
+def test_k9_rejects_bad_operands(dev):
+    x, a, b, w = _k9_operands(dev, (1, 16, 8, 8, 16), True, torch.float32, 0)
+    with pytest.raises(ValueError):  # dtype
+        fused_affine_conv3x3_kernel(x.half(), a, b, w)
+    with pytest.raises(ValueError):  # channels not a multiple of 16
+        fused_affine_conv3x3_kernel(*(t[:, :8].contiguous()
+                                      for t in (x, a, b, w)))
+    with pytest.raises(ValueError):  # a CPU affine row with a CUDA x
+        fused_affine_conv3x3(x, a.cpu(), b, w)
+    with pytest.raises(ValueError):  # contiguity
+        fused_affine_conv3x3_kernel(x.transpose(2, 3), a, b, w)
+    with pytest.raises(ValueError):
+        fused_affine_conv3x3_kernel(x, a, b, w, "reflect")
 
 
 def _splat_operands(dev, S, ks=21, sigma=1.5, b=3, n=2000, seed=0):

@@ -41,8 +41,10 @@ full configuration (bs 32, 512² textures, bf16, 3 critics, class
 conditioning): one 1G + 2D group with its loss fetch, then a G step and a
 D step alone, the generator's train-mode forward, the critics' forward +
 backward on the D step's concatenated batch of 2B, K8 forward and K8 dW
-alone at the head's shape, and the EMA update; the batch is random, on
-the card.
+alone at the head's shape, K9 alone at blk6's conv2 (32 x 64 x 512 x 256
+-> 64 with the folded norm), and the EMA update; the group's K8 and K9
+lines are printed even when they fall outside its ten largest; the batch
+is random, on the card.
 
 Usage (from the repository root, on a machine with a CUDA device):
     python3 tools/profile_eval.py [--iters 10]
@@ -73,6 +75,7 @@ from im23d_tpu_torch.losses.effective import (  # noqa: E402
 )
 from im23d_tpu_torch.models.gan import GANConfig  # noqa: E402
 from im23d_tpu_torch.ops.conv import (  # noqa: E402
+    fused_affine_conv3x3_kernel,
     head_conv_dw_kernel,
     head_conv_kernel,
 )
@@ -133,8 +136,10 @@ def _device_ops(fn, iters: int):
             and "#" not in e.key]
 
 
-def report(title: str, fn, iters: int) -> float:
-    """Print the window's numbers; returns its device busy ms per iter."""
+def report(title: str, fn, iters: int, show=()) -> float:
+    """Print the window's numbers, and the ops whose names contain one of
+    ``show`` beyond the ten largest; returns its device busy ms per
+    iter."""
     wall = _wall_ms(fn, iters)
     ops = _device_ops(fn, iters)
     busy = sum(us for _, us, _ in ops) / 1e3 / iters
@@ -142,8 +147,11 @@ def report(title: str, fn, iters: int) -> float:
     print(f"== {title}: wall {wall:.3f} ms/iter (no profiler), device busy "
           f"{busy:.3f} ms/iter, idle share {1.0 - busy / wall:.3f}, "
           f"{n_ops:.0f} device ops/iter")
-    for name, us, _ in sorted(ops, key=lambda o: -o[1])[:10]:
-        print(f"    {us / 1e3 / iters:7.3f} ms  {name[:100]}")
+    ranked = sorted(ops, key=lambda o: -o[1])
+    for i, (name, us, count) in enumerate(ranked):
+        if i < 10 or any(key in name for key in show):
+            print(f"    {us / 1e3 / iters:7.3f} ms  {count / iters:5.1f} "
+                  f"calls  #{i + 1}  {name[:100]}")
     return busy
 
 
@@ -401,10 +409,19 @@ def profile_gan_train(iters: int) -> None:
     g8 = (torch.randn(y8.shape, device="cuda", generator=gen)
           * (1 - y8.float() ** 2)).contiguous()
 
+    # K9's operands at blk6's conv2: conv1's output, its folded norm1
+    blk6 = G.blk6
+    x9 = torch.randn((B, 64, res, res // 2), device="cuda",
+                     generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        zc = torch.cat([z, G.emb_class(nb["c"][:, 0].long())], dim=1)
+        a9, b9 = blk6.norm1.fold(x9, zc.to(torch.bfloat16))
+        w9 = blk6.conv2.normalized_weight().detach()
+
     group()  # optimizer state exists for every window
     it = iters
     total = report(f"1G + 2D group + loss fetch (bs {B}, {res}², bf16, 3 "
-                   "critics)", group, it)
+                   "critics)", group, it, show=("head_conv", "fused_conv"))
     parts = {
         "G step": lambda: trainer.g_step(nb, z),
         "D step": lambda: trainer.d_step(nb, z),
@@ -412,6 +429,8 @@ def profile_gan_train(iters: int) -> None:
         f"critics forward + backward ({2 * B} textures)": d_fwd_bwd,
         "K8 forward alone": lambda: head_conv_kernel(x8, w8, b8),
         "K8 dW alone": lambda: head_conv_dw_kernel(x8, g8),
+        "K9 forward alone (blk6 conv2)":
+            lambda: fused_affine_conv3x3_kernel(x9, a9, b9, w9),
         "EMA update": lambda: trainer._update_ema(0.999),
     }
     for name, fn in parts.items():
