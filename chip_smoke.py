@@ -29,7 +29,12 @@ Phases:
   9. K5 (texture sampler forward) against the plain
      ``grid_sample_bilinear_torch``: 50 textures of 128 x 130 x 3 sampled
      at 50 x 256² points, at phase 8's rendered UVs and at random
-     coordinates in [-1.1, 1.1];
+     coordinates in [-1.1, 1.1]; at the rendered UVs its event time over
+     50 back-to-back calls (the kernels line's ``ms``, as for every
+     kernel), its device-only time (a CUDA graph of 50 calls:
+     ``device_ms``), its wrapper's host time, and ``F.grid_sample``'s
+     event time (``library_ms``) and device time with and without the
+     NCHW permute, each over 5 repeats (min / median / max);
  10. the Pipeline-B eval slice through the port's
      ``cli/run_reconstruction.main([..., "--evaluate"], datasets=...)`` at
      the full CUB configuration (bs 50, 256² RGBA, 128² texture, 32² mesh
@@ -41,7 +46,8 @@ Phases:
  12. K5 backward against autograd of the plain gather: at phase 9's shape
      on rendered UVs and on random coordinates, and at the visibility
      render's shape (50 x 1024² samples into 128 x 130 texels, the upstream
-     gradient the hard mask); ``F.grid_sample``'s backward timed beside it;
+     gradient the hard mask); ``F.grid_sample``'s backward timed beside it
+     at both shapes, with the bound at both;
  13. K4 backward against autograd of the plain rasterizer at 50 x 256² x
      960 faces, A = 3, sigma 1e-4, back faces culled (the plain version on
      the first 10 images; the gradients of separate images are
@@ -102,7 +108,10 @@ Phases:
      it (the ResBlockUp's conv2), at each of the 8 ResBlockUp conv2
      shapes of the CLI's 512 generator at bs 32 in bfloat16 with the
      affine and replicate padding (blk1's 512 x 8 x 4 -> 512 up to blk6),
-     and at 8 x 64 x 128 x 64 -> 64 in both types and pad modes; its
+     each timed against its bound and cuDNN's pad + conv, at 8 x 64 x
+     128 x 64 -> 64 in both types and pad modes, and at 2 x 32 x 12 x 40
+     -> 48 (a partial last column tile) in bfloat16, both pad modes, with
+     and without the affine; its
      autograd Function's dx, da, db and dW against autograd of the plain
      version there in float32, and in bfloat16 (with some pre exactly 0)
      against float64 autograd of the plain version; cuDNN's pad + conv,
@@ -131,7 +140,6 @@ import io
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -235,6 +243,12 @@ from im23d_tpu_torch.train.shapenet_learner import (
     ShapeNetConfig,
     ShapeNetLearner,
 )
+from tools.gpu_timing import K9_PASS
+from tools.gpu_timing import events_ms as _time_ms
+from tools.gpu_timing import gpu_line as _gpu_line
+from tools.gpu_timing import graph_ms as _graph_ms
+from tools.gpu_timing import host_ms as _host_ms
+from tools.gpu_timing import spread as _spread
 
 # chairs config: bs 24, 5 views, 4 pose candidates, 8000 points, 64^3 grid
 B, V, K, N, S = 24, 5, 4, 8000, 64
@@ -274,6 +288,7 @@ RECON_IMAGES = 110  # two full batches and a tail of 10
 K4_FEAT_Q999, K4_MASK_FRAC, K4_SOFT_ATOL = 1e-5, 1e-3, 1e-4
 # K5 vs plain: the same operations in the same order
 K5_ATOL = 1e-5
+K5_REPEATS = 5  # repeats of each K5 forward time, reported as their spread
 # K5 backward vs autograd of the plain gather, relative L2 per output: d img
 # sums by atomicAdd in another order, d grid adds its terms in another order
 K5B_REL_L2, K5B_REPEATS = 1e-5, 5
@@ -336,6 +351,8 @@ K9B_BF16_REL_L2 = 6e-3
 # fused-conv benchmark's conv1 (no affine) and of the ResBlockUp's conv2
 K9_MAIN = ((128, 64, False), (64, 64, True))
 K9_SMALL = (8, 64, 128, 64, 64)  # B, Cin, H, W, Cout
+# a width that the 32-column tile does not divide: a partial last tile
+K9_PARTIAL = (2, 32, 12, 40, 48)
 # the bf16 generator's relative L2 error to the float32 one: the K9 route
 # at most this times the unfused chain's
 K9_GEN_RATIO, K9_GEN_BS = 1.5, 8
@@ -352,29 +369,6 @@ MESH_S, MESH_SIGMA = 96, 1.5  # the meshing CLI's defaults
 # peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, float32
 # FLOP/s outside the tensor cores, dense bfloat16 FLOP/s on them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
-
-
-def _gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def _time_ms(fn, reps: int) -> float:
-    """Mean device milliseconds per call of ``fn`` (CUDA events, warm)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def _bound(nbytes: float, ops: float, peak: float = PEAK_F32) -> dict:
@@ -1050,24 +1044,53 @@ def phase_k5(gpu: str, uv, tex_adj) -> dict:
             raise AssertionError(f"K5 disagrees with plain ({name}): {e}")
         err = max(err, e)
     grid = grids["rendered UVs"].contiguous()
-    ms = _time_ms(lambda: grid_sample_bilinear(tex_adj, grid), 50)
-    plain_ms = _time_ms(lambda: grid_sample_bilinear_torch(tex_adj, grid), 10)
     img_nchw = tex_adj.permute(0, 3, 1, 2).contiguous()
-    permute_ms = _time_ms(
-        lambda: tex_adj.permute(0, 3, 1, 2).contiguous(), 50)
-    library_ms = _time_ms(lambda: F.grid_sample(
-        img_nchw, grid, mode="bilinear", padding_mode="zeros",
-        align_corners=True), 50)
-    print(f"[K5] {tuple(tex_adj.shape)} at {RB} x {RES}²: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, F.grid_sample {library_ms:.3f} ms (+ "
-          f"{permute_ms:.3f} ms for the NCHW permute) per call [{gpu}]")
+
+    def kernel():
+        return grid_sample_bilinear_kernel(tex_adj, grid)
+
+    def library():
+        return F.grid_sample(img_nchw, grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True)
+
+    def library_permute():
+        return F.grid_sample(tex_adj.permute(0, 3, 1, 2).contiguous(), grid,
+                             mode="bilinear", padding_mode="zeros",
+                             align_corners=True)
+
+    # event times of 50 back-to-back calls (as every other kernel is
+    # timed), device-only times (CUDA graphs of 50 calls) and the
+    # wrapper's host time, each repeated
+    runs = {k: [] for k in ("event", "device", "library_event", "library",
+                            "library_permute", "host")}
+    for _ in range(K5_REPEATS):
+        runs["event"].append(_time_ms(kernel, 50))
+        runs["device"].append(_graph_ms(kernel, 50))
+        runs["library_event"].append(_time_ms(library, 50))
+        runs["library"].append(_graph_ms(library, 50))
+        runs["library_permute"].append(_graph_ms(library_permute, 50))
+        runs["host"].append(_host_ms(kernel, 500))
+    spread = {k: _spread(v) for k, v in runs.items()}
+    plain_ms = _time_ms(lambda: grid_sample_bilinear_torch(tex_adj, grid), 10)
+    for k, v in spread.items():
+        print(f"[K5] {tuple(tex_adj.shape)} at {RB} x {RES}², {k} ms per call "
+              f"over {K5_REPEATS} repeats: min {v['min']:.4f} / median "
+              f"{v['median']:.4f} / max {v['max']:.4f} [{gpu}]")
+    print(f"[K5] plain {plain_ms:.3f} ms per call [{gpu}]")
+    if spread["device"]["median"] > spread["library"]["median"]:
+        print(f"[K5] note: device time above F.grid_sample's [{gpu}]")
     # reads the texture and the grid, writes C floats a sample; 4 corners x
     # C products and sums plus ~12 for the weights
     C = tex_adj.shape[-1]
     bound = _bound(_nbytes(tex_adj, grid) + grid[..., 0].numel() * C * 4,
                    grid[..., 0].numel() * (12 + 8 * C))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, permute_ms=permute_ms, **bound)
+    return dict(max_abs_err=err, ms=spread["event"]["median"],
+                plain_ms=plain_ms,
+                library_ms=spread["library_event"]["median"],
+                device_ms=spread["device"]["median"],
+                library_device_ms=spread["library"]["median"],
+                library_permute_device_ms=spread["library_permute"]["median"],
+                host_ms=spread["host"]["median"], spread=spread, **bound)
 
 
 def _plain_render_path():
@@ -1274,12 +1297,28 @@ def phase_k5_backward(gpu: str, uv, tex_adj, scene) -> dict:
         tex_adj, vgrid, dout, need_grid=False), 10)
     vis_plain_ms = _time_ms(lambda: grid_sample_bilinear_backward_torch(
         tex_adj, vgrid, dout), 2)
+    del got, ref
+    img_nchw = tex_adj.permute(0, 3, 1, 2).contiguous()
+    dout_nchw = dout.permute(0, 3, 1, 2).contiguous()
+    vis_library_ms = _time_ms(
+        lambda: torch.ops.aten.grid_sampler_2d_backward(
+            dout_nchw, img_nchw, vgrid, 0, 0, True, [True, False]), 10)
+    n, C = vgrid[..., 0].numel(), tex_adj.shape[-1]
+    # reads texture, grid and upstream, writes d texture; per sample 4
+    # corners x C products and sums plus ~12 for the weights
+    vis_bound = _bound(_nbytes(tex_adj, vgrid, dout, tex_adj),
+                       n * (12 + 8 * C))
     print(f"[K5 bwd] visibility shape: kernel {vis_ms:.3f} ms, plain "
-          f"{vis_plain_ms:.3f} ms per call [{gpu}]")
-    del vgrid, dout, got, ref
+          f"{vis_plain_ms:.3f} ms, grid_sampler_2d_backward (d input "
+          f"only, NCHW) {vis_library_ms:.3f} ms per call; bound {vis_bound} "
+          f"[{gpu}]")
+    del vgrid, dout, img_nchw, dout_nchw
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, **timed, visibility_ms=vis_ms,
-                visibility_plain_ms=vis_plain_ms)
+                visibility_plain_ms=vis_plain_ms,
+                visibility_library_ms=vis_library_ms,
+                visibility_bound_ms=vis_bound["bound_ms"],
+                visibility_bound_by=vis_bound["bound_by"])
 
 
 def phase_k4_backward(gpu: str, scene) -> dict:
@@ -1756,8 +1795,9 @@ def _k9_path_shapes() -> list[tuple[int, int, int, int]]:
             torch.no_grad():
         g(torch.zeros((1, 64), device=DEVICE),
           torch.zeros((1, 1), dtype=torch.long, device=DEVICE))
-    if len(seen) != 8:
-        raise AssertionError(f"{len(seen)} K9 calls in a generator pass")
+    if seen != [shape for _, shape in K9_PASS]:
+        raise AssertionError(f"K9 calls of a generator pass {seen}, not "
+                             f"tools/gpu_timing.py's K9_PASS")
     del g
     return seen
 
@@ -1786,8 +1826,8 @@ def _k9_bf16_backward(mode: str) -> list[float]:
 
 def phase_k9(gpu: str) -> dict:
     """K9 forward vs plain at blk6's bf16 shapes (replicate), at each
-    conv2 shape of the CLI generator at bs 32 in bf16 and at K9_SMALL in
-    both types and pad modes; its autograd Function vs autograd of the
+    conv2 shape of the CLI generator at bs 32 in bf16, at K9_SMALL in
+    both types and pad modes and at K9_PARTIAL in bf16; its autograd Function vs autograd of the
     plain version there in float32, and in bf16 vs float64; times at
     blk6."""
     out = {}
@@ -1822,11 +1862,26 @@ def phase_k9(gpu: str) -> dict:
                            conv_ms=conv_ms, **bound)
         del x, a, b, w, wd
         torch.cuda.empty_cache()
+    path = []
     for i, (cin, H, W, cout) in enumerate(_k9_path_shapes()):
         x, a, b, w = _k9_operands(GAN_B, cin, H, W, cout, True,
                                   torch.bfloat16, 40 + i)
-        _k9_check(x, a, b, w, "replicate")
-        del x, a, b, w
+        e = _k9_check(x, a, b, w, "replicate")
+        wd = w.to(x.dtype)
+        reps = 10 if H * W >= 128 * 64 else 50
+        ms = _time_ms(lambda: fused_affine_conv3x3_kernel(x, a, b, w), reps)
+        conv_ms = _time_ms(lambda: F.conv2d(replicate_pad_w(x, 1), wd,
+                                            padding=(1, 0)), reps)
+        bound = _bound(_nbytes(x, a, b, wd) + x.numel() // cin * cout
+                       * x.element_size(),
+                       2 * 9 * cin * cout * x.numel() // cin, PEAK_BF16)
+        print(f"[K9] conv2 {K9_PASS[i][0]} {(GAN_B, cin, H, W)} -> {cout}: "
+              f"kernel {ms:.4f} ms, cuDNN pad + conv {conv_ms:.4f} ms per "
+              f"call; bound {bound} [{gpu}]")
+        path.append(dict(name=K9_PASS[i][0], shape=[GAN_B, cin, H, W,
+                                                      cout],
+                         ms=ms, conv_ms=conv_ms, max_abs_err=e, **bound))
+        del x, a, b, w, wd
     torch.cuda.empty_cache()
     B, cin, H, W, cout = K9_SMALL
     rels = []
@@ -1835,6 +1890,10 @@ def phase_k9(gpu: str) -> dict:
             x, a, b, w = _k9_operands(B, cin, H, W, cout, affine, dtype, 31)
             for mode in ("replicate", "circular"):
                 _k9_check(x, a, b, w, mode)
+    for affine in (True, False):
+        x, a, b, w = _k9_operands(*K9_PARTIAL, affine, torch.bfloat16, 38)
+        for mode in ("replicate", "circular"):
+            _k9_check(x, a, b, w, mode)
     x, a, b, w = _k9_operands(B, cin, H, W, cout, True, torch.float32, 32)
     co = torch.randn((B, cout, H, W), device=DEVICE,
                      generator=torch.Generator(device=DEVICE).manual_seed(33))
@@ -1859,7 +1918,7 @@ def phase_k9(gpu: str) -> dict:
         if not max(rel16) <= K9B_BF16_REL_L2:
             raise AssertionError("K9's bf16 backward disagrees")
     res = dict(out[True])
-    res.update(max_rel_l2=max(rels), no_affine_ms=out[False]["ms"],
+    res.update(max_rel_l2=max(rels), path=path, no_affine_ms=out[False]["ms"],
                no_affine_bound_ms=out[False]["bound_ms"],
                no_affine_conv_ms=out[False]["conv_ms"])
     return res

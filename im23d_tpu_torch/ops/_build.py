@@ -58,9 +58,10 @@ _SIGNATURES = {
     "im23d_head_conv_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, g, partial, dw, B, C, H, W, circular, bf16, nrows, stream
     "im23d_head_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, a, b, w9, y, B, Cin, Cout, H, W, circular, affine, bf16, stream
-    "im23d_fused_conv_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _P],
+    # x, a, b, w, w9, y, B, Cin, Cout, H, W, circular, affine, bf16, ti,
+    # th, tw, vec, resident, bw, bh, stream
+    "im23d_fused_conv_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # gz, gy, gx, c, out, B, N, S, stream
     "im23d_splat_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # gz, gy, gx, c, g, raw, dgz, dgy, dgx, dc, B, N, S, stream
@@ -135,6 +136,8 @@ def _build() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.im23d_fused_conv_limits.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.im23d_fused_conv_limits.restype = ctypes.c_int
     lib.im23d_error_string.argtypes = [ctypes.c_int]
     lib.im23d_error_string.restype = ctypes.c_char_p
     build_info.update(seconds=time.perf_counter() - t0, path=str(lib_path),

@@ -28,6 +28,9 @@ weight gradient, their operands in x's type).
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -263,6 +266,90 @@ def fused_affine_conv3x3_torch(x: torch.Tensor, a: torch.Tensor | None,
     return y.to(x.dtype)
 
 
+class K9Limits(NamedTuple):
+    """What K9's bf16 plan reads from the kernel library
+    (``im23d_fused_conv_limits``): the card's multiprocessors and opt-in
+    shared memory a block (bytes), then the kernel's own tiling constants:
+    output pixels (``bm``) and channels (``bn``) a tile, input channels a
+    stage (``ck``), the widest tile (``max_tw``), the most padded pixels a
+    tile (``max_patch``), the bytes of one stage's weights (``wstage``)
+    and of the warps' affine tables (``tables``)."""
+    sms: int
+    smem_optin: int
+    bm: int
+    bn: int
+    ck: int
+    max_tw: int
+    max_patch: int
+    wstage: int
+    tables: int
+
+
+def fused_conv_plan(B: int, cin: int, cout: int, H: int, W: int,
+                    x_aligned: bool, lim: K9Limits) -> dict:
+    """K9's bf16 plan for a (B, cin, H, W) -> cout conv under ``lim``:
+    tiles of ``ti`` images × ``th`` rows × ``tw`` columns (at most
+    ``bm`` pixels: 16 × 32 where W allows; shorter, or whole small images
+    side by side, so that a small layer gives each multiprocessor about
+    one tile; the last column tile may be partial), ``vec`` when x is
+    staged by TMA boxes (W and the tile width multiples of 8, x 16-byte
+    aligned, one image a tile), ``resident`` when all 9·cin weights of a
+    ``bn``-channel slice fit in shared memory beside two patch buffers and
+    the box, the box's columns ``bw`` and rows ``bh`` (the tile's padded
+    rows and 16 columns more, widened where it fits so that a channel's
+    block is an odd number of 16-byte units: ldmatrix.trans then reads
+    no bank twice), and the dynamic shared memory ``smem`` it takes, as
+    ``im23d_fused_conv_fwd`` counts it."""
+    tw = min(W, lim.max_tw)
+    th = min(H, max(1, lim.bm // tw), max(1, lim.max_patch // (tw + 2) - 2))
+    nslices = -(-cout // lim.bn)
+    # small layers: shorter tiles while the card would still get fewer than
+    # one tile a multiprocessor
+    while th > 1 and 2 * B * -(-H // th) * -(-W // tw) * nslices <= lim.sms:
+        th = (th + 1) // 2
+    ti = 1
+    if th == H and tw == W:  # whole images, as many a tile as leaves about
+        # one tile a multiprocessor
+        ti = max(1, min(B, lim.bm // (H * W),
+                        lim.max_patch // ((H + 2) * (W + 2)),
+                        -(-B * nslices // lim.sms)))
+    patch = ti * (th + 2) * (tw + 2)
+    vec = x_aligned and W % 8 == 0 and tw % 8 == 0 and ti == 1
+    nks = -(-cin // lim.ck)
+
+    def smem_for(bw, bh, nw):
+        # weights, patches, the box and the tables, the mbarrier's 128
+        raw = -(-(lim.ck * bh * bw * 2) // 128) * 128 + lim.tables \
+            if vec else 0
+        return nw * lim.wstage + 2 * patch * 64 + raw + 128
+
+    # the box: an odd number of 16-byte units a channel where it fits
+    bw, bh = tw + 16, th + 2
+    if (bw // 8) % 2 == 0 and bh % 2 == 0 \
+            and smem_for(bw + 8, bh + 1, 2) <= lim.smem_optin:
+        bw, bh = bw + 8, bh + 1
+    resident = smem_for(bw, bh, nks) <= lim.smem_optin
+    smem = smem_for(bw, bh, nks if resident else 2)
+    return dict(ti=ti, th=th, tw=tw, vec=vec, resident=resident,
+                bw=bw, bh=bh, patch=patch, smem=smem,
+                tiles=-(-B // ti) * -(-H // th) * -(-W // tw) * nslices)
+
+
+_K9_LIMITS: dict = {}
+
+
+def k9_limits(dev: torch.device) -> K9Limits:
+    """``K9Limits`` of CUDA device ``dev``, read from the library once."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _K9_LIMITS:
+        lib = _build.load_kernels()
+        out = (ctypes.c_int * len(K9Limits._fields))()
+        _build.check(lib, lib.im23d_fused_conv_limits(key, out),
+                     "K9 limits")
+        _K9_LIMITS[key] = K9Limits(*out)
+    return _K9_LIMITS[key]
+
+
 def fused_affine_conv3x3_kernel(x: torch.Tensor, a: torch.Tensor | None,
                                 b: torch.Tensor | None, weight: torch.Tensor,
                                 pad_mode: str = "replicate") -> torch.Tensor:
@@ -274,10 +361,14 @@ def fused_affine_conv3x3_kernel(x: torch.Tensor, a: torch.Tensor | None,
 
     Replaces the Pallas kernel ``_fused_fwd_kernel``
     (``im23d_tpu/ops/conv_pallas.py:375``).  Bound by bytes at 64 input
-    channels and by operations at 128 (bf16, blk6's 512 × 256 stage); an
-    implicit GEMM whose loader applies the affine, the leaky ReLU and the
-    padding while it stages each block's padded patch, bf16 products on
-    the tensor cores (mma.sync), float32 ones on the FMA units (see
+    channels and by operations at 128 (bf16, blk6's 512 × 256 stage); a
+    persistent implicit GEMM on the tensor cores (mma.sync) that rounds
+    the float32 weight to bf16 itself (no copy of it outside the kernel),
+    keeps a block's weights in shared memory where they fit, and has the
+    next 32-channel stage's x brought by TMA while the current stage's
+    products run, then staged channel-last with the affine, the leaky
+    ReLU and the padding applied once per element; the tiling is
+    ``fused_conv_plan``'s.  float32 operands run on the FMA units (see
     ``csrc/fused_conv.cu``).
     """
     _check_affine(a, b)
@@ -308,14 +399,28 @@ def fused_affine_conv3x3_kernel(x: torch.Tensor, a: torch.Tensor | None,
                     or tuple(t.shape) != (B, C) or not t.is_contiguous()):
                 raise ValueError(f"{name} must be a contiguous float32 "
                                  f"{(B, C)} tensor on {dev}")
-    w9 = weight.detach().to(x.dtype).permute(2, 3, 0, 1).contiguous()
+    # the kernel reads a float32 weight and rounds it to x's type itself;
+    # another type is rounded to x's type first, as the plain version does
+    w = weight.detach()
+    if w.dtype != torch.float32:
+        w = w.to(x.dtype).float()
+    w = w.contiguous()
+    bf16 = x.dtype == torch.bfloat16
     y = torch.empty((B, cout, H, W), dtype=x.dtype, device=dev)
+    plan = dict(ti=0, th=0, tw=0, vec=False, resident=False, bw=0, bh=0)
+    w9 = None
+    if bf16:
+        plan = fused_conv_plan(B, C, cout, H, W, x.data_ptr() % 16 == 0,
+                               k9_limits(dev))
+        w9 = torch.empty((3, 3, cout, C), dtype=torch.bfloat16, device=dev)
     lib = _build.load_kernels()
     rc = lib.im23d_fused_conv_fwd(
         x.data_ptr(), 0 if a is None else a.data_ptr(),
-        0 if b is None else b.data_ptr(), w9.data_ptr(), y.data_ptr(), B, C,
-        cout, H, W, int(pad_mode == "circular"), int(a is not None),
-        int(x.dtype == torch.bfloat16),
+        0 if b is None else b.data_ptr(), w.data_ptr(),
+        0 if w9 is None else w9.data_ptr(), y.data_ptr(), B, C, cout, H, W,
+        int(pad_mode == "circular"), int(a is not None), int(bf16),
+        plan["ti"], plan["th"], plan["tw"], int(plan["vec"]),
+        int(plan["resident"]), plan["bw"], plan["bh"],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "fused affine conv3x3 kernel (K9)")
     fused_affine_conv3x3_kernel.launches += 1

@@ -59,9 +59,11 @@ def grid_sample_bilinear_kernel(img: torch.Tensor,
     float32, contiguous and on one CUDA device.
 
     Replaces the Pallas kernel ``_fwd_kernel``
-    (``im23d_tpu/ops/sampling_pallas.py:197``).  A gather bound by memory
-    latency: one thread per output sample reads its four corners (L2-resident
-    textures: 10 MB at (50, 128, 130, 3)) and writes C floats; any texture
+    (``im23d_tpu/ops/sampling_pallas.py:197``).  A gather bound by the
+    bytes of its grid and output and by the latency of its texel reads
+    (L2-resident textures: 10 MB at (50, 128, 130, 3)): a thread takes four
+    neighbouring samples, reads their grid and writes their outputs as
+    16-byte vectors, and finds each sample's corners once; any texture
     size, no VMEM window tiers (see ``csrc/grid_sample.cu``).
     """
     dev = img.device

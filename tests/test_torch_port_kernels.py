@@ -75,6 +75,7 @@ from im23d_tpu_torch.ops.conv import (
     head_conv_kernel,
     head_conv_tanh,
     head_conv_tanh_torch,
+    k9_limits,
 )
 from im23d_tpu_torch.ops.projection import (
     _prep_projection,
@@ -361,6 +362,37 @@ def test_k5_matches_plain(dev, shape, grid_hw):
                                atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("C", [1, 3, 4, 2, 5])
+def test_k5_edges_match_plain(dev, C):
+    """Bit-equal at C in {1, 3, 4} (four samples a thread) and 2, 5 (a
+    sample a thread), 35 samples an image (groups of four straddle two
+    images, and the last group is partial), coordinates exactly on texel
+    borders, at +-1 and beyond, and with a grid that is not 16-byte
+    aligned (a sample a thread)."""
+    gen = torch.Generator(dev).manual_seed(C)
+    img = torch.rand((2, 9, 13, C), device=dev, generator=gen)
+    xs = torch.tensor([-1.0 + 2.0 * k / 12 for k in range(-1, 14)]
+                      + [-1.0, 1.0, -1.05, 1.05, 1.0000001, -1.0000001],
+                      device=dev)
+    ys = torch.tensor([-1.0 + 2.0 * k / 8 for k in range(-1, 10)]
+                      + [1.0, -1.0, 1.3], device=dev)
+    pick = torch.randint(0, len(xs), (2, 5, 7), device=dev, generator=gen)
+    pick_y = torch.randint(0, len(ys), (2, 5, 7), device=dev, generator=gen)
+    grid = torch.stack([xs[pick], ys[pick_y]], dim=-1).contiguous()
+    ref = grid_sample_bilinear_torch(img, grid)
+    n0 = grid_sample_bilinear_kernel.launches
+    got = grid_sample_bilinear_kernel(img, grid)
+    torch.testing.assert_close(got, ref, atol=0, rtol=0)
+    flat = torch.empty(grid.numel() + 2, device=dev)
+    shifted = flat[2:].view(grid.shape)  # 8 bytes past an aligned start
+    shifted.copy_(grid)
+    assert shifted.data_ptr() % 16 == 8 and shifted.is_contiguous()
+    torch.testing.assert_close(grid_sample_bilinear_kernel(img, shifted),
+                               ref, atol=0, rtol=0)
+    torch.cuda.synchronize()
+    assert grid_sample_bilinear_kernel.launches == n0 + 2
+
+
 def test_k5_rejects_bad_operands(dev):
     img = torch.rand((2, 8, 8, 3), device=dev)
     grid = torch.rand((2, 4, 4, 2), device=dev)
@@ -640,6 +672,62 @@ def test_k9_matches_plain(dev, shape, affine, pad_mode, dtype, rtol):
     assert y.dtype == dtype and y.shape == (B, cout, H, W)
     scale = max(1.0, float(ref.float().abs().max()))
     assert float((y.float() - ref.float()).abs().max()) <= rtol * scale
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("pad_mode", ["replicate", "circular"])
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("shape", [
+    (2, 48, 20, 32, 80),    # H past its 8-row tiles, Cout 80, 16-ch stage
+    (3, 32, 9, 24, 48),     # W < 64 in one 24-column tile, 10-row tiles
+    (2, 32, 11, 7, 32),     # odd W: a thread per padded pixel
+    (8, 16, 64, 128, 16),   # 256 tiles, more than persistent blocks
+    (602, 16, 4, 8, 16),    # whole images side by side, the last tile part
+    (2, 176, 16, 32, 64),   # weights streamed: 6 stages, the last of 16
+    (2, 256, 8, 16, 144),   # streamed, a 16-channel last output slice
+    (2, 32, 12, 40, 48),    # boxes, a last column tile of 8 of 32
+    (2, 32, 20, 56, 16),    # boxes, a last column tile of 24, H partial
+    (2, 32, 8, 96, 32),     # boxes, three whole column tiles
+])
+def test_k9_tilings_match_plain(dev, shape, affine, pad_mode, dtype, rtol):
+    """(B, Cin, H, W, Cout) at the edges of the persistent kernel's plan
+    (``fused_conv_plan``): partial tiles, both x loaders, resident and
+    streamed weights, multi-image tiles."""
+    x, a, b, w = _k9_operands(dev, shape, affine, dtype, 14)
+    n0 = fused_affine_conv3x3_kernel.launches
+    y = fused_affine_conv3x3_kernel(x, a, b, w, pad_mode)
+    ref = fused_affine_conv3x3_torch(x, a, b, w, pad_mode)
+    torch.cuda.synchronize()
+    assert fused_affine_conv3x3_kernel.launches == n0 + 1
+    B, _, H, W, cout = shape
+    assert y.dtype == dtype and y.shape == (B, cout, H, W)
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert float((y.float() - ref.float()).abs().max()) <= rtol * scale
+
+
+def test_k9_limits_are_the_plans(dev):
+    """The kernel library's tiling constants are those that the CPU tests
+    of ``fused_conv_plan`` assume (``tests/test_torch_port_k9_plan.py``)."""
+    from test_torch_port_k9_plan import H100
+
+    lim = k9_limits(dev)
+    assert lim._replace(sms=0, smem_optin=0) == H100._replace(sms=0,
+                                                              smem_optin=0)
+    assert lim.sms >= 1 and lim.smem_optin >= 48 * 1024
+
+
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float64])
+def test_k9_takes_other_weight_types(dev, wdtype):
+    """A weight that is not float32 is rounded to x's type first, as the
+    plain version rounds it."""
+    x, a, b, w = _k9_operands(dev, (2, 32, 16, 32, 32), True,
+                              torch.bfloat16, 15)
+    w = w.to(wdtype)
+    y = fused_affine_conv3x3_kernel(x, a, b, w)
+    ref = fused_affine_conv3x3_torch(x, a, b, w)
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert float((y.float() - ref.float()).abs().max()) <= 1e-2 * scale
 
 
 @pytest.mark.parametrize("affine", [True, False])
