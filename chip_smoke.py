@@ -51,7 +51,10 @@ Phases:
  13. K4 backward against autograd of the plain rasterizer at 50 x 256² x
      960 faces, A = 3, sigma 1e-4, back faces culled (the plain version on
      the first 10 images; the gradients of separate images are
-     independent), and with back faces drawn on 10 images;
+     independent), bit-equal over 3 launches there, and with back faces
+     drawn on 10 images; then on 2 images of 40 random faces with one face
+     covering the whole image and faces partly off-screen, both cull
+     modes;
  14. one recon training step at bs 8 through the kernels and through the
      plain path (float32 network): the loss, and the gradients of the
      network outputs, the network parameters and ``DatasetParams``;
@@ -68,7 +71,9 @@ Phases:
  18. K8 forward (the GAN's texture-head conv) against its plain version at
      the head's shape, 32 x 64 x 512 x 256 -> 3, in bfloat16 and float32,
      replicate and circular padding; cuDNN's conv + bias + tanh timed
-     beside it;
+     beside it; the bfloat16 (tensor-core) kernel also at 8 and 128 input
+     channels, ragged H and W (40: one partial column tile; 45: the plain
+     loads) and an x that is not 16-byte aligned, both paddings;
  19. K8 dW against its float64 plain version at that shape with an
      upstream dy·(1 − y²), on each of 3 launches, bit-equal between them;
      cuDNN's weight gradient timed beside it;
@@ -297,11 +302,13 @@ K5B_REL_L2, K5B_REPEATS = 1e-5, 5
 # max |error| below K x max(max |plain|, 1), K = 1e-3 for the corners, 1e-4
 # for the attributes; and relative L2 per output at most 1e-4, so that an
 # error confined to a few faces cannot hide under the max of the largest.
-# Per-face sums by atomicAdd in another order, the segment-parameter chain
-# that vanishes at the nearest point dropped (the TPU kernel's algebra),
-# d log_miss from 1 - soft: relative L2 read 4.0e-6 and below on the H100.
+# Per-face sums in another order (each lane's pixels in registers, then a
+# warp reduction), the segment-parameter chain that vanishes at the
+# nearest point dropped (the TPU kernel's algebra), d log_miss from
+# 1 - soft: relative L2 read 4.0e-6 and below on the H100.
 K4B_FV_K, K4B_ATTR_K, K4B_REL_L2 = 1e-3, 1e-4, 1e-4
 K4B_PLAIN_IMAGES = 10  # images the plain backward is compared on
+K4B_REPEATS = 3  # launches at the main path's shape, bit-equal
 # one training step, kernels vs plain path, float32 network, both on the
 # card: the losses, and the gradients by relative L2.  The render's
 # gradients differ by the kernels' rounding and atomicAdd order (limits
@@ -320,6 +327,10 @@ GAN_B, GAN_RES, GAN_CIN = 32, 512, 64
 # than cuDNN's (~1e-7 of values <= 1 in float32); in bfloat16 both round
 # the tanh output, one bfloat16 ulp near 1 is 2^-7
 K8_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# (B, C, H, W) of the bfloat16 kernel's other shapes: 8 and 128 channels,
+# ragged H, a partial last column tile (W = 40), plain loads (W = 45)
+K8_EDGE_SHAPES = ((2, 8, 64, 256), (2, 128, 48, 128), (3, 64, 37, 40),
+                  (2, 64, 19, 45))
 # K8 dW vs the float64 plain version, relative L2 per launch: 4.2 M-term
 # sums in float32 partial rows (read 1.9e-6 on the H100; cuDNN's float32
 # weight gradient reads 2.2e-2 at this shape, hence the float64 reference)
@@ -1321,10 +1332,44 @@ def phase_k5_backward(gpu: str, uv, tex_adj, scene) -> dict:
                 visibility_bound_by=vis_bound["bound_by"])
 
 
+def _k4b_check(tag: str, got, ref) -> float:
+    """K4 backward's (d fv, d attrs) against the plain version's, at the
+    K4B limits; returns the larger max |error|."""
+    err = 0.0
+    for what, g, r, k in (("d fv", got[0], ref[0], K4B_FV_K),
+                          ("d attrs", got[1], ref[1], K4B_ATTR_K)):
+        e, rl = float((g - r).abs().max()), _rel_l2(g, r)
+        limit = k * max(float(r.abs().max()), 1.0)
+        print(f"[K4 bwd] {tag} {what}: max |kernel - plain| {e:.3e} (limit "
+              f"{limit:.3e}), rel L2 {rl:.3e} (limit {K4B_REL_L2}), max "
+              f"|plain| {float(r.abs().max()):.3e}")
+        if not (torch.isfinite(g).all() and e < limit and rl <= K4B_REL_L2):
+            raise AssertionError(f"K4 backward disagrees ({tag}, {what})")
+        err = max(err, e)
+    return err
+
+
+def _k4b_edge_scene(dev):
+    """2 images of 40 random faces of both windings (corners in
+    [-0.9, 0.9]), face 3 covering the whole image (its corners far
+    outside, z lowest), faces 5-12 reaching past the image's right or top
+    edge, random attributes."""
+    rng = np.random.RandomState(17)
+    B, F = 2, 40
+    fv = rng.uniform(-0.9, 0.9, (B, F, 3, 3)).astype(np.float32)
+    fv[:, 3, :, :2] = [[-4.0, -4.0], [4.0, -4.0], [0.0, 5.0]]
+    fv[:, 3, :, 2] = -0.95
+    fv[:, 5:9, :, 0] += 0.9
+    fv[:, 9:13, :, 1] += 0.9
+    attrs = rng.rand(B, F, 3, 3).astype(np.float32)
+    return (torch.from_numpy(fv).to(dev), torch.from_numpy(attrs).to(dev))
+
+
 def phase_k4_backward(gpu: str, scene) -> dict:
     """K4 backward vs autograd of the plain rasterizer: culled on all 50
-    images (the plain version on the first K4B_PLAIN_IMAGES), back faces
-    drawn on K4B_PLAIN_IMAGES images."""
+    images (the plain version on the first K4B_PLAIN_IMAGES), bit-equal
+    over K4B_REPEATS launches, back faces drawn on K4B_PLAIN_IMAGES images;
+    then the edge scene in both cull modes."""
     verts, faces, attrs = scene
     gen = torch.Generator(device=DEVICE).manual_seed(16)
     n = K4B_PLAIN_IMAGES
@@ -1340,20 +1385,19 @@ def phase_k4_backward(gpu: str, scene) -> dict:
         ref = rasterize_backward_torch(fv[:n], at[:n], dfeat[:n], dsoft[:n],
                                        RES, RES, SIGMA, cull)
         torch.cuda.synchronize()
-        for what, g, r, k in (("d fv", got[0][:n], ref[0], K4B_FV_K),
-                              ("d attrs", got[1][:n], ref[1], K4B_ATTR_K)):
-            e, rl = float((g - r).abs().max()), _rel_l2(g, r)
-            limit = k * max(float(r.abs().max()), 1.0)
-            print(f"[K4 bwd] cull={cull} {what} (images 0-{n - 1}): max "
-                  f"|kernel - plain| {e:.3e} (limit {limit:.3e}), rel L2 "
-                  f"{rl:.3e} (limit {K4B_REL_L2}), max |plain| "
-                  f"{float(r.abs().max()):.3e}")
-            if not (torch.isfinite(g).all() and e < limit
-                    and rl <= K4B_REL_L2):
-                raise AssertionError(f"K4 backward disagrees ({what}, "
-                                     f"cull={cull})")
-            err = max(err, e)
+        err = max(err, _k4b_check(f"cull={cull} (images 0-{n - 1})",
+                                  (got[0][:n], got[1][:n]), ref))
         if cull:
+            again = [rasterize_backward_kernel(
+                fv, at, dfeat, dsoft, *fwd[1:], RES, RES, SIGMA, cull)
+                for _ in range(K4B_REPEATS - 1)]
+            same = all(torch.equal(a[i], got[i]) for a in again
+                       for i in range(2))
+            print(f"[K4 bwd] {K4B_REPEATS} launches at {rb} x {RES}² "
+                  f"bit-equal: {same}")
+            if not same:
+                raise AssertionError("K4 backward differs between launches")
+            del again
             ms = _time_ms(lambda: rasterize_backward_kernel(
                 fv, at, dfeat, dsoft, *fwd[1:], RES, RES, SIGMA, cull), 20)
             torch.cuda.empty_cache()
@@ -1371,6 +1415,17 @@ def phase_k4_backward(gpu: str, scene) -> dict:
             timed = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **bound)
         del fwd, got, ref
         torch.cuda.empty_cache()
+    fv, at = _k4b_edge_scene(torch.device(DEVICE))
+    for cull in (True, False):
+        dfeat = torch.randn((2, RES, RES, 3), device=DEVICE, generator=gen)
+        dsoft = torch.randn((2, RES, RES, 1), device=DEVICE, generator=gen)
+        fwd = _launch_forward(fv, at, RES, RES, SIGMA, cull, True)
+        got = rasterize_backward_kernel(fv, at, dfeat, dsoft, *fwd[1:], RES,
+                                        RES, SIGMA, cull)
+        ref = rasterize_backward_torch(fv, at, dfeat, dsoft, RES, RES, SIGMA,
+                                       cull)
+        torch.cuda.synchronize()
+        err = max(err, _k4b_check(f"edge scene, cull={cull}", got, ref))
     return dict(max_abs_err=err, **timed)
 
 
@@ -1691,6 +1746,31 @@ def phase_k8(gpu: str) -> dict:
                          **bound)
         del x
         torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    for shape in K8_EDGE_SHAPES + ("unaligned",):
+        if shape == "unaligned":  # x 2 bytes past a 16-byte boundary
+            shape = (2, 16, 24, 64)
+            n = math.prod(shape)
+            x = torch.empty(n + 1, dtype=torch.bfloat16,
+                            device=DEVICE)[1:].view(shape)
+            x.copy_(torch.randn(shape, device=DEVICE, generator=gen))
+        else:
+            x = torch.randn(shape, device=DEVICE, generator=gen).to(
+                torch.bfloat16)
+        w = (torch.randn((3, shape[1], 5, 5), device=DEVICE, generator=gen)
+             / math.sqrt(25 * shape[1]))
+        b = torch.randn(3, device=DEVICE, generator=gen) * 0.1
+        for mode in ("replicate", "circular"):
+            got = head_conv_kernel(x, w, b, mode)
+            ref = head_conv_tanh_torch(x, w, b, mode)
+            torch.cuda.synchronize()
+            e = float((got.float() - ref.float()).abs().max())
+            print(f"[K8] bfloat16 {tuple(shape)} x at {x.data_ptr() % 16} "
+                  f"mod 16, {mode}: max |kernel - plain| {e:.3e} (atol "
+                  f"{K8_ATOL[torch.bfloat16]})")
+            if not (torch.isfinite(got).all()
+                    and e <= K8_ATOL[torch.bfloat16]):
+                raise AssertionError(f"K8 disagrees with plain at {shape}")
     return dict(max_abs_err=errs[torch.bfloat16, "replicate"], **timed)
 
 

@@ -78,6 +78,8 @@
 #include <climits>
 #include <cstring>
 
+#include "conv_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -98,14 +100,6 @@ constexpr int FT = 256;       // threads of the float32 kernel
 constexpr int FCK = 8;        // float32 input channels a stage
 constexpr int F_MAX_TW = 64;  // widest float32 pixel tile
 
-__device__ __forceinline__ int src_col(int col, int W, int circular) {
-  if (circular) {
-    col %= W;
-    return col < 0 ? col + W : col;
-  }
-  return min(max(col, 0), W - 1);
-}
-
 // lrelu(v * a + b) with JAX's tie rule; the product and the sum rounded
 // separately, as the plain version computes them
 __device__ __forceinline__ float affine_lrelu(float v, float a, float b) {
@@ -120,14 +114,6 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
 // 16 bytes global -> shared without registers; zero-filled when !valid
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
@@ -139,21 +125,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // how the bf16 kernel cuts the output: tiles of ti images x th rows x tw
@@ -210,54 +181,6 @@ struct Tile {
 
 // ---- TMA: a stage's raw x, one box a stage, into shared memory ----------
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :
-               : "r"(smem_u32(bar)), "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// one arrival that also announces the bytes the next copy brings
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :
-               : "r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// box (columns, rows, channels, 1 image) at (w, h, c, b) of x viewed as
-// (W, H, C, B); coordinates outside x are filled with zero
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int w, int h, int c,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-      :
-      : "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(w),
-        "r"(h), "r"(c), "r"(b), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // A stage's raw box holds, for each of CK channels and bh >= th + 2 patch
 // rows, bw >= tw + 16 columns from w0 - 8 (the interior starts 16 bytes
 // in).  Chosen by the plan so that a channel's bh x bw block is an odd
@@ -271,14 +194,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
 // words.  Interior units cover the tile's tw columns; a halo unit reads
 // the group that holds a W-pad column's source column and only its lanes
 // g = source % 8 write.  Units go to warps round-robin.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
 
 // the stage's affine rows for the warp's own shared-memory table (CK a
 // values, then CK b values): lane c fetches channel c (zero where there is
@@ -844,27 +759,6 @@ __global__ void __launch_bounds__(FT)
   }
 }
 
-// cuTensorMapEncodeTiled of libcuda, found once through the runtime
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
 }  // namespace
 
 // What ops/conv.py fused_conv_plan reads to plan for device `dev`, into
@@ -994,21 +888,8 @@ extern "C" int im23d_fused_conv_fwd(const void* x, const void* a,
   CUtensorMap xmap;
   memset(&xmap, 0, sizeof xmap);
   if (vec) {
-    const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return cudaErrorNotSupported;
-    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(W),
-                                static_cast<cuuint64_t>(H),
-                                static_cast<cuuint64_t>(Cin),
-                                static_cast<cuuint64_t>(B)};
-    const cuuint64_t strides[3] = {2ull * W, 2ull * H * W, 2ull * Cin * H * W};
-    const cuuint32_t box[4] = {static_cast<cuuint32_t>(bw),
-                               static_cast<cuuint32_t>(bh), CK, 1};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-               const_cast<void*>(x), dims, strides, box, unit,
-               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    if (encode_tiled() == nullptr) return cudaErrorNotSupported;
+    if (!encode_nchw_bf16(&xmap, x, B, Cin, H, W, bw, bh, CK))
       return cudaErrorInvalidValue;
   }
   void* args[] = {&xp, &af, &bf, &wp, &w9p, &yp, &gm, &p, &xmap};

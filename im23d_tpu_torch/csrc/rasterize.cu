@@ -34,15 +34,20 @@
 // test, the depth ties and the winners agree with it bit for bit.
 //
 // The backward (im23d_rasterize_bwd) replaces rasterizer_pallas.py
-// _bwd_kernel.  It keeps the forward's tiling, chunks and cull, and reads
-// the winner cache the forward wrote (the TPU kernel's bz/bc), so it walks
-// the faces once.  What bounds it: the same per pixel and nearby face
-// arithmetic as the forward, plus the per-face gradient sums.  The TPU
-// kernel accumulates d planes in one VMEM block that its serial grid
-// revisits; here blocks run in parallel, so each face's 6 + 3A sums are
-// reduced inside the block (warp shuffles, then shared memory) and added
-// to device memory with one atomicAdd per block, face and component.  The
-// order of those sums changes from run to run.
+// _bwd_kernel.  What bounds it: the same per pixel and nearby face
+// arithmetic as the forward, plus each face's 6 + 3A gradient sums.  The
+// TPU kernel accumulates d planes in one VMEM block that its serial grid
+// revisits; here the sums are a gather, face-major: one warp per (image,
+// face), the grid image-major so that one image's per-pixel inputs stay in
+// L2 while its faces run.  A warp walks the pixel centres of its face's
+// bounding box widened by `margin` (beyond it the face changes no value),
+// 32 pixels at a time; each lane sums its pixels' gradients in registers,
+// then one warp reduction (xor shuffles, the same on every lane) gives the
+// face's sums, stored with plain stores.  The winner test needs no walk over
+// the other faces: face f is a winner at a pixel whose cached winning chunk
+// (the forward's cache, the TPU kernel's bz/bc) is f / 32 and where its z
+// reaches the cached z.  No atomics: the result is the same on every
+// launch.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -262,19 +267,21 @@ __device__ __forceinline__ void seg_grad(float dd2, float px, float py,
   gb[1] += s * t * ry;
 }
 
-// per face: d (x, y) of its three corners, then d attrs (3 corners x A)
-constexpr int kG = 6 + 3 * kMaxA;
-
 // The VJP of rasterize_fwd_kernel as autograd of the plain rasterizer
 // gives it: z only selects winners (d z = 0); d feat reaches the corners'
 // x, y and the attributes through the barycentrics of the winning chunk's
 // count-averaged winners; d soft reaches x, y through
 // d log_miss = -d soft (1 - soft), d cov = -d log_miss / (1 - cov) where
 // cov <= 1 - 1e-7, d d2 = -d cov cov / sigma outside the face, routed to
-// the nearest edge (the first on a tie).  dfv and dattrs are zeroed by the
-// caller; dfeat or dsoft may be null (no gradient).
-template <bool kCull>
-__global__ void __launch_bounds__(kThreads)
+// the nearest edge (the first on a tie).  Every face's dfv and dattrs are
+// written (zero for a face that is not drawn); dfeat or dsoft may be null
+// (no gradient).
+constexpr int kBwdWarps = 4;  // faces a block
+
+// kA: the attribute count compiled in (3, the renderer's u, v, mask), or
+// kMaxA for any A <= kMaxA; the register budget keeps 8 blocks an SM
+template <bool kCull, int kA>
+__global__ void __launch_bounds__(kBwdWarps * 32, 8)
     rasterize_bwd_kernel(const float* __restrict__ fv,
                          const float* __restrict__ attrs,
                          const float* __restrict__ dfeat,
@@ -283,186 +290,132 @@ __global__ void __launch_bounds__(kThreads)
                          const int* __restrict__ win,
                          const float* __restrict__ wz,
                          float* __restrict__ dfv, float* __restrict__ dattrs,
-                         int F, int A, int H, int W, float sx, float sy,
-                         float sigma, float margin) {
-  __shared__ float s_v[kChunk * 9];
-  __shared__ float s_at[kChunk * 3 * kMaxA];
-  __shared__ float s_inv_area[kChunk];
-  __shared__ float s_g[kChunk * kG];
-  __shared__ unsigned s_mask;
+                         int B, int F, int A, int H, int W, float sx,
+                         float sy, float sigma, float margin) {
+  const int lane = threadIdx.x & 31;
+  const long long wid =
+      static_cast<long long>(blockIdx.x) * kBwdWarps + (threadIdx.x >> 5);
+  if (wid >= static_cast<long long>(B) * F) return;
+  const int b = static_cast<int>(wid / F), f = static_cast<int>(wid % F);
+  const size_t face = static_cast<size_t>(b) * F + f;
+  const int An = kA == kMaxA ? A : kA;  // a compile-time 3 where it can
+  const int A3 = 3 * An;
+  const float* v = fv + face * 9;
+  const float x0 = v[0], y0 = v[1], x1 = v[3], y1 = v[4], x2 = v[6],
+              y2 = v[7];
+  const float area = edge_fn(x0, y0, x1, y1, x2, y2);
+  const bool front = kCull ? area > 1e-9f : fabsf(area) > 1e-9f;
 
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int c0 = blockIdx.x * kTileW, r0 = blockIdx.y * kTileH;
-  const int col = c0 + tid % kTileW, row = r0 + tid / kTileW;
-  const float px = pixel_x(col, sx), py = pixel_y(row, sy);
-  const float tx0 = pixel_x(c0, sx), tx1 = pixel_x(c0 + kTileW - 1, sx);
-  const float ty1 = pixel_y(r0, sy), ty0 = pixel_y(r0 + kTileH - 1, sy);
-
-  const int A3 = 3 * A;
-  const float* fvb = fv + static_cast<size_t>(b) * F * 9;
-  const float* atb = attrs + static_cast<size_t>(b) * F * A3;
-
-  // this pixel's upstream gradients (0 outside the image)
-  float dlm = 0.f, my_z = 0.f;
-  int my_chunk = -1;
-  float g[kMaxA];
+  float gv[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  float ga[3 * kA];  // [corner][a], a static stride: registers
 #pragma unroll
-  for (int a = 0; a < kMaxA; ++a) g[a] = 0.f;
-  if (row < H && col < W) {
-    const size_t pix = (static_cast<size_t>(b) * H + row) * W + col;
-    if (dsoft != nullptr)
-      dlm = -dsoft[pix] * __fsub_rn(1.f, soft[pix]);
-    const int word = win[pix];
-    if (dfeat != nullptr && word >= 0) {
-      my_chunk = word >> 6;
-      my_z = wz[pix];
-      const float cnt = static_cast<float>(word & 63);
-#pragma unroll
-      for (int a = 0; a < kMaxA; ++a)
-        if (a < A) g[a] = __fdiv_rn(dfeat[pix * A + a], cnt);
-    }
-  }
-
-  for (int f0 = 0; f0 < F; f0 += kChunk) {
-    const int n = min(kChunk, F - f0);
-    __syncthreads();  // the previous chunk is flushed
-    for (int i = tid; i < n * 9; i += kThreads)
-      s_v[i] = fvb[static_cast<size_t>(f0) * 9 + i];
-    for (int i = tid; i < n * A3; i += kThreads)
-      s_at[(i / A3) * (3 * kMaxA) + i % A3] =
-          atb[static_cast<size_t>(f0) * A3 + i];
-    for (int i = tid; i < kChunk * kG; i += kThreads) s_g[i] = 0.f;
-    __syncthreads();
-    if (tid < kChunk) {  // the forward's cull, bit for bit
-      bool active = false;
-      if (tid < n) {
-        const float* v = s_v + tid * 9;
-        const float x0 = v[0], y0 = v[1], x1 = v[3], y1 = v[4], x2 = v[6],
-                    y2 = v[7];
-        const float area = edge_fn(x0, y0, x1, y1, x2, y2);
-        const bool nondegen = fabsf(area) > 1e-9f;
-        const bool front = kCull ? area > 1e-9f : nondegen;
-        s_inv_area[tid] = __fdiv_rn(1.f, nondegen ? area : 1.f);
-        const float minx = fminf(fminf(x0, x1), x2) - margin;
-        const float maxx = fmaxf(fmaxf(x0, x1), x2) + margin;
-        const float miny = fminf(fminf(y0, y1), y2) - margin;
-        const float maxy = fmaxf(fmaxf(y0, y1), y2) + margin;
-        active = front && minx <= tx1 && maxx >= tx0 && miny <= ty1 &&
-                 maxy >= ty0;
-      }
-      const unsigned mask = __ballot_sync(0xffffffffu, active);
-      if (tid == 0) s_mask = mask;
-    }
-    __syncthreads();
-    unsigned mask = s_mask;  // block-uniform
-    if (mask == 0u) continue;
-    const bool feat_chunk = my_chunk == f0 / kChunk;
-
-    while (mask) {
-      const int j = __ffs(mask) - 1;
-      mask &= mask - 1u;
-      const float* v = s_v + j * 9;
-      const float x0 = v[0], y0 = v[1], x1 = v[3], y1 = v[4], x2 = v[6],
-                  y2 = v[7];
+  for (int k = 0; k < 3 * kA; ++k) ga[k] = 0.f;
+  if (front) {
+    const float inv = __fdiv_rn(1.f, area);
+    const float* at = attrs + face * A3;
+    // the pixel centres in the widened box, one pixel more on each side
+    // (a pixel outside the box changes no sum: its coverage is 0 in
+    // float32 and it is not inside)
+    const float minx = fminf(fminf(x0, x1), x2) - margin;
+    const float maxx = fmaxf(fmaxf(x0, x1), x2) + margin;
+    const float miny = fminf(fminf(y0, y1), y2) - margin;
+    const float maxy = fmaxf(fmaxf(y0, y1), y2) + margin;
+    auto clampf = [](float t, int n) {
+      return static_cast<int>(fminf(fmaxf(t, -1.f), static_cast<float>(n)));
+    };
+    const int c_lo = max(clampf(floorf((minx + 1.f) / sx - 0.5f), W) - 1, 0);
+    const int c_hi = min(clampf(ceilf((maxx + 1.f) / sx - 0.5f), W) + 1,
+                         W - 1);
+    const int r_lo = max(clampf(floorf((1.f - maxy) / sy - 0.5f), H) - 1, 0);
+    const int r_hi = min(clampf(ceilf((1.f - miny) / sy - 0.5f), H) + 1,
+                         H - 1);
+    const int bw = c_hi - c_lo + 1;
+    const int npx = c_hi < c_lo || r_hi < r_lo ? 0 : bw * (r_hi - r_lo + 1);
+    const int chunk = f / kChunk;
+    for (int k = lane; k < npx; k += 32) {
+      const int r = r_lo + k / bw, col = c_lo + k % bw;
+      const float px = pixel_x(col, sx), py = pixel_y(r, sy);
       const float e01 = edge_fn(x0, y0, x1, y1, px, py);
       const float e12 = edge_fn(x1, y1, x2, y2, px, py);
       const float e20 = edge_fn(x2, y2, x0, y0, px, py);
       bool inside = e01 >= 0.f && e12 >= 0.f && e20 >= 0.f;
       if (!kCull) inside = inside || (e01 <= 0.f && e12 <= 0.f && e20 <= 0.f);
-      float gv[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      float ga[3 * kMaxA];  // [corner][a], a static stride: registers
-#pragma unroll
-      for (int k = 0; k < 3 * kMaxA; ++k) ga[k] = 0.f;
-      bool any_xy = false, any_attr = false;
+      const size_t pix = (static_cast<size_t>(b) * H + r) * W + col;
       if (inside) {
-        if (feat_chunk) {
-          const float inv = s_inv_area[j];
-          const float w0 = __fmul_rn(e12, inv), w1 = __fmul_rn(e20, inv),
-                      w2 = __fmul_rn(e01, inv);
-          const float z = __fadd_rn(
-              __fadd_rn(__fmul_rn(w0, v[2]), __fmul_rn(w1, v[5])),
-              __fmul_rn(w2, v[8]));
-          if (z >= my_z) {  // a winner of the winning chunk
-            any_xy = any_attr = true;
-            const float* at = s_at + j * (3 * kMaxA);
-            float dw0 = 0.f, dw1 = 0.f, dw2 = 0.f;
+        if (dfeat == nullptr) continue;
+        const int word = win[pix];
+        if (word < 0 || (word >> 6) != chunk) continue;
+        const float w0 = __fmul_rn(e12, inv), w1 = __fmul_rn(e20, inv),
+                    w2 = __fmul_rn(e01, inv);
+        const float z = __fadd_rn(
+            __fadd_rn(__fmul_rn(w0, v[2]), __fmul_rn(w1, v[5])),
+            __fmul_rn(w2, v[8]));
+        if (!(z >= wz[pix])) continue;  // a winner of the winning chunk
+        const float cnt = static_cast<float>(word & 63);
+        float dw0 = 0.f, dw1 = 0.f, dw2 = 0.f;
 #pragma unroll
-            for (int a = 0; a < kMaxA; ++a) {
-              if (a < A) {
-                dw0 += g[a] * at[a];
-                dw1 += g[a] * at[A + a];
-                dw2 += g[a] * at[2 * A + a];
-                ga[a] = w0 * g[a];
-                ga[kMaxA + a] = w1 * g[a];
-                ga[2 * kMaxA + a] = w2 * g[a];
-              }
-            }
-            // w0 = e12 inv, w1 = e20 inv, w2 = e01 inv, inv = 1 / area
-            const float dinv = dw0 * e12 + dw1 * e20 + dw2 * e01;
-            const float darea = -dinv * inv * inv;
-            edge_grad(dw2 * inv, x0, y0, x1, y1, px, py, gv, gv + 2);
-            edge_grad(dw0 * inv, x1, y1, x2, y2, px, py, gv + 2, gv + 4);
-            edge_grad(dw1 * inv, x2, y2, x0, y0, px, py, gv + 4, gv);
-            gv[0] += darea * (y1 - y2);
-            gv[1] += darea * (x2 - x1);
-            gv[2] += darea * (y2 - y0);
-            gv[3] += darea * (x0 - x2);
-            gv[4] += darea * (y0 - y1);
-            gv[5] += darea * (x1 - x0);
+        for (int a = 0; a < kA; ++a) {
+          if (a < An) {
+            const float d = dfeat[pix * An + a];
+            const float g = cnt == 1.f ? d : __fdiv_rn(d, cnt);
+            dw0 += g * at[a];
+            dw1 += g * at[An + a];
+            dw2 += g * at[2 * An + a];
+            ga[a] += w0 * g;
+            ga[kA + a] += w1 * g;
+            ga[2 * kA + a] += w2 * g;
           }
         }
-      } else if (dlm != 0.f) {
+        // w0 = e12 inv, w1 = e20 inv, w2 = e01 inv, inv = 1 / area
+        const float dinv = dw0 * e12 + dw1 * e20 + dw2 * e01;
+        const float darea = -dinv * inv * inv;
+        edge_grad(dw2 * inv, x0, y0, x1, y1, px, py, gv, gv + 2);
+        edge_grad(dw0 * inv, x1, y1, x2, y2, px, py, gv + 2, gv + 4);
+        edge_grad(dw1 * inv, x2, y2, x0, y0, px, py, gv + 4, gv);
+        gv[0] += darea * (y1 - y2);
+        gv[1] += darea * (x2 - x1);
+        gv[2] += darea * (y2 - y0);
+        gv[3] += darea * (x0 - x2);
+        gv[4] += darea * (y0 - y1);
+        gv[5] += darea * (x1 - x0);
+      } else if (dsoft != nullptr) {
+        const float dlm = -dsoft[pix] * __fsub_rn(1.f, soft[pix]);
+        if (dlm == 0.f) continue;
         const float d01 = seg_dist2(px, py, x0, y0, x1, y1);
         const float d12 = seg_dist2(px, py, x1, y1, x2, y2);
         const float d20 = seg_dist2(px, py, x2, y2, x0, y0);
         const float d2 = fminf(fminf(d01, d12), d20);
         const float cov = expf(__fdiv_rn(-d2, sigma));
-        if (cov > 0.f && cov <= kCovMax) {
-          any_xy = true;
-          const float dcov = -dlm / (1.f - cov);
-          const float dd2 = -(dcov * cov) / sigma;
-          if (d01 == d2)
-            seg_grad(dd2, px, py, x0, y0, x1, y1, gv, gv + 2);
-          else if (d12 == d2)
-            seg_grad(dd2, px, py, x1, y1, x2, y2, gv + 2, gv + 4);
-          else
-            seg_grad(dd2, px, py, x2, y2, x0, y0, gv + 4, gv);
-        }
+        if (!(cov > 0.f && cov <= kCovMax)) continue;
+        const float dcov = -dlm / (1.f - cov);
+        const float dd2 = -(dcov * cov) / sigma;
+        if (d01 == d2)
+          seg_grad(dd2, px, py, x0, y0, x1, y1, gv, gv + 2);
+        else if (d12 == d2)
+          seg_grad(dd2, px, py, x1, y1, x2, y2, gv + 2, gv + 4);
+        else
+          seg_grad(dd2, px, py, x2, y2, x0, y0, gv + 4, gv);
       }
-      // per-face sums: warp shuffles, then shared memory
-      float* sg = s_g + j * kG;
-      if (__any_sync(0xffffffffu, any_xy)) {
-#pragma unroll
-        for (int k = 0; k < 6; ++k) {
-          const float t = warp_sum(gv[k]);
-          if (lane == 0 && t != 0.f) atomicAdd(sg + k, t);
-        }
-      }
-      if (__any_sync(0xffffffffu, any_attr)) {
-#pragma unroll
-        for (int k = 0; k < 3 * kMaxA; ++k) {
-          const int corner = k / kMaxA, a = k % kMaxA;
-          if (a < A) {
-            const float t = warp_sum(ga[k]);
-            if (lane == 0 && t != 0.f) atomicAdd(sg + 6 + corner * A + a, t);
-          }
-        }
-      }
-    }
-    __syncthreads();
-    // one global atomicAdd per block, face and component
-    for (int i = tid; i < n * kG; i += kThreads) {
-      const int j = i / kG, k = i % kG;
-      const float t = s_g[i];
-      if (t == 0.f) continue;
-      const size_t face = static_cast<size_t>(b) * F + f0 + j;
-      if (k < 6)
-        atomicAdd(dfv + face * 9 + (k / 2) * 3 + k % 2, t);
-      else if (k - 6 < A3)
-        atomicAdd(dattrs + face * A3 + (k - 6), t);
     }
   }
+  // the face's sums: every lane ends with the same totals; lane k stores
+  // component k (dfv: x, y of each corner, d z = 0; then dattrs)
+  float out_v = 0.f, out_a = 0.f;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    const float t = warp_sum(gv[k]);
+    if (lane == (k / 2) * 3 + k % 2) out_v = t;
+  }
+#pragma unroll
+  for (int k = 0; k < 3 * kA; ++k) {
+    const int corner = k / kA, a = k % kA;
+    if (a < An) {
+      const float t = warp_sum(ga[k]);
+      if (lane == corner * An + a) out_a = t;
+    }
+  }
+  if (lane < 9) dfv[face * 9 + lane] = out_v;
+  if (lane < A3) dattrs[face * A3 + lane] = out_a;
 }
 
 }  // namespace
@@ -496,7 +449,7 @@ extern "C" int im23d_rasterize_fwd(const void* fv, const void* attrs,
 
 // fv, attrs as the forward's; dfeat (B, H, W, A) and dsoft (B, H, W), either
 // null; soft, win, wz from the forward; dfv (B, F, 3, 3) and dattrs
-// (B, F, 3, A) zeroed by the caller.
+// (B, F, 3, A) written whole.
 extern "C" int im23d_rasterize_bwd(const void* fv, const void* attrs,
                                    const void* dfeat, const void* dsoft,
                                    const void* soft, const void* win,
@@ -507,7 +460,11 @@ extern "C" int im23d_rasterize_bwd(const void* fv, const void* attrs,
   if (B < 1 || B > 65535 || F < 0 || A < 1 || A > kMaxA || H < 1 || W < 1 ||
       !(sigma > 0.f) || win == nullptr || wz == nullptr || soft == nullptr)
     return cudaErrorInvalidValue;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  const long long faces = static_cast<long long>(B) * F;
+  if (faces == 0) return cudaSuccess;
+  const long long blocks = (faces + kBwdWarps - 1) / kBwdWarps;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>(blocks);
   auto s = static_cast<cudaStream_t>(stream);
   auto v = static_cast<const float*>(fv);
   auto at = static_cast<const float*>(attrs);
@@ -518,11 +475,11 @@ extern "C" int im23d_rasterize_bwd(const void* fv, const void* attrs,
   auto z = static_cast<const float*>(wz);
   auto dv = static_cast<float*>(dfv);
   auto da = static_cast<float*>(dattrs);
-  if (cull)
-    rasterize_bwd_kernel<true><<<grid, kThreads, 0, s>>>(
-        v, at, df, ds, so, wi, z, dv, da, F, A, H, W, sx, sy, sigma, margin);
-  else
-    rasterize_bwd_kernel<false><<<grid, kThreads, 0, s>>>(
-        v, at, df, ds, so, wi, z, dv, da, F, A, H, W, sx, sy, sigma, margin);
+  auto kernel = cull ? (A == 3 ? rasterize_bwd_kernel<true, 3>
+                               : rasterize_bwd_kernel<true, kMaxA>)
+                    : (A == 3 ? rasterize_bwd_kernel<false, 3>
+                              : rasterize_bwd_kernel<false, kMaxA>);
+  kernel<<<grid, kBwdWarps * 32, 0, s>>>(v, at, df, ds, so, wi, z, dv, da, B,
+                                          F, A, H, W, sx, sy, sigma, margin);
   return cudaGetLastError();
 }

@@ -54,8 +54,9 @@ _SIGNATURES = {
     "im23d_grid_sample_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     # img, grid, dout, dimg, dgrid, B, H, W, C, P, stream
     "im23d_grid_sample_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # x, w, bias, y, B, C, H, W, circular, bf16, stream
-    "im23d_head_conv_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, bias, y, B, C, H, W, circular, stream (float32 x; bfloat16 x)
+    "im23d_head_conv_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "im23d_head_conv_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, g, partial, dw, B, C, H, W, circular, bf16, nrows, stream
     "im23d_head_conv_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, a, b, w, w9, y, B, Cin, Cout, H, W, circular, affine, bf16, ti,

@@ -8,13 +8,14 @@ circular W padding, plus bias and tanh.
 
 ``head_conv_tanh`` runs the plain ``head_conv_tanh_torch`` on CPU tensors
 and, on CUDA tensors, the autograd Function ``_HeadConv``: kernel K8's
-forward (``csrc/head_conv.cu``) and, as its backward, g = dy·(1 − y²),
+forward (``csrc/head_conv.cu``: bf16 tensor-core products for bfloat16 x,
+float32 FMA sums for float32 x) and, as its backward, g = dy·(1 − y²),
 db = Σ g, dW from K8's dW kernel and dx from cuDNN's transpose conv folded
 back over the W padding, as the JAX version's VJP computes dx with XLA.
 Tensors are NCHW: x (B, C, H, W) in float32 or bfloat16, weight (3, C, 5, 5)
 and bias (3,) float32, y (B, 3, H, W) in x's type.  The weight is rounded
 to x's type before use, as the JAX model casts its kernel to the compute
-dtype.
+dtype: by the forward kernel itself, and by ``head_conv_dx`` for dx.
 
 ``fused_affine_conv3x3`` is conv3x3(leaky_relu(x·a + b, 0.2)), a and b
 per-(batch, channel) float32 rows (a conditional norm folded into one
@@ -96,14 +97,17 @@ def head_conv_kernel(x: torch.Tensor, weight: torch.Tensor,
                      pad_mode: str = "replicate") -> torch.Tensor:
     """Launch K8's forward: x (B, C, H, W) float32 or bfloat16, weight
     (3, C, 5, 5) and bias (3,) float32, all contiguous on one CUDA device;
-    returns tanh(conv + bias) (B, 3, H, W) in x's type.
+    returns tanh(conv + bias) (B, 3, H, W) in x's type, the weight rounded
+    to x's type by the kernel.
 
     Replaces the Pallas kernel ``_fwd_kernel``
     (``im23d_tpu/ops/conv_pallas.py:91``).  Bound by bytes for bfloat16 x
-    (the main path), by operations (2·25·C·3 FLOP a pixel) for float32 x;
-    a block stages 8 channels of a 36 × 36 padded patch at a
-    time, padding by index arithmetic, and each thread keeps 12 float32
-    sums (see ``csrc/head_conv.cu``).
+    (the main path): a persistent implicit GEMM on bf16 ``mma.sync`` with
+    the tap column folded into N = 16 (3 outputs × 5 columns), its A
+    fragments read by ldmatrix.trans straight from TMA boxes of the NCHW
+    tensor, 3 boxes in flight a block.  Bound by operations (2·25·C·3
+    FLOP a pixel) for float32 x: 12 float32 FMA sums a thread over a
+    staged 36 × 36 patch (see ``csrc/head_conv.cu``).
     """
     _check(x, pad_mode)
     B, C, H, W = x.shape
@@ -116,10 +120,11 @@ def head_conv_kernel(x: torch.Tensor, weight: torch.Tensor,
                              f"tensor on {dev}")
     y = torch.empty((B, COUT, H, W), dtype=x.dtype, device=dev)
     lib = _build.load_kernels()
-    rc = lib.im23d_head_conv_fwd(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), B, C,
-        H, W, int(pad_mode == "circular"), int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
+    fwd = (lib.im23d_head_conv_fwd_bf16 if x.dtype == torch.bfloat16
+           else lib.im23d_head_conv_fwd)
+    rc = fwd(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+             B, C, H, W, int(pad_mode == "circular"),
+             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "head conv kernel (K8)")
     head_conv_kernel.launches += 1
     return y
@@ -201,10 +206,9 @@ class _HeadConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, pad_mode):
-        w = weight.detach().to(x.dtype).float().contiguous()
-        y = head_conv_kernel(x, w, bias.detach().float().contiguous(),
-                             pad_mode)
-        ctx.save_for_backward(x, w, y)
+        y = head_conv_kernel(x, weight.detach().float().contiguous(),
+                             bias.detach().float().contiguous(), pad_mode)
+        ctx.save_for_backward(x, weight, y)
         ctx.pad_mode = pad_mode
         ctx.param_dtypes = (weight.dtype, bias.dtype)
         return y

@@ -267,10 +267,12 @@ def rasterize_backward_kernel(fv: torch.Tensor, attrs: torch.Tensor,
     forward's soft and winner cache.
 
     Replaces the Pallas kernel ``_bwd_kernel``
-    (``im23d_tpu/render/rasterizer_pallas.py:346``).  The forward's tiling,
-    chunks and cull; per-face sums reduced in the block, then one
-    ``atomicAdd`` per block, face and component (the order of the sums
-    changes between runs; see ``csrc/rasterize.cu``).
+    (``im23d_tpu/render/rasterizer_pallas.py:346``).  A gather, face-major:
+    one warp per (image, face) walks the pixels of the face's box widened
+    by ``soft_margin(sigma)``, takes the winner test from the forward's
+    cache (no walk over the other faces), sums in registers and reduces
+    once; plain stores, no atomics, the same result on every launch (see
+    ``csrc/rasterize.cu``).
     """
     _check_operands(fv, attrs, height, width)
     dev = fv.device
@@ -294,10 +296,10 @@ def rasterize_backward_kernel(fv: torch.Tensor, attrs: torch.Tensor,
                 or t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name}: not the forward's {dt} (B, H, W) "
                              f"output")
-    dfv = torch.zeros_like(fv)
-    dattrs = torch.zeros_like(attrs)
     if dfeat is None and dsoft is None:
-        return dfv, dattrs
+        return torch.zeros_like(fv), torch.zeros_like(attrs)
+    dfv = torch.empty_like(fv)
+    dattrs = torch.empty_like(attrs)
     lib = _build.load_kernels()
     rc = lib.im23d_rasterize_bwd(
         fv.data_ptr(), attrs.data_ptr(),

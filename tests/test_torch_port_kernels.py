@@ -27,8 +27,10 @@ and the set of texels with d img > 0 exactly (pseudo-GT visibility tests
 test (``tests/test_rasterizer_pallas.py:76-80``): max |d verts| error
 < 1e-3 x max(max |d verts|, 1), max |d attrs| error < 1e-4 x
 max(max |d attrs|, 1), read on the per-corner gradients d fv: per-face
-sums by atomicAdd in another order, the segment-parameter chain that
+sums in another order, the segment-parameter chain that
 vanishes at the nearest point dropped, and d log_miss taken from 1 − soft.
+It sums each face's gradients in registers and one warp reduction, so its
+launches are bit-equal.
 
 K6 (the standalone splat) and K7 (splat, clamp, Y/X blur) add with
 atomicAdd (order changes between runs) and K7 blurs in another order than
@@ -37,8 +39,8 @@ the splat for the clamp's mask, so a voxel within rounding of 1 can flip
 it: relative L2 per output <= 1e-4, as K2.
 
 K8 (the GAN head conv) sums 25·C products per output in another order than
-cuDNN: forward atol 1e-5 in float32 and 1e-2 in bfloat16 (one bfloat16
-ulp near 1); dW by relative L2 <= 1e-4 against the float64 plain version,
+cuDNN (in bfloat16 on the tensor cores): forward atol 1e-5 in float32 and
+1e-2 in bfloat16 (one bfloat16 ulp near 1); dW by relative L2 <= 1e-4 against the float64 plain version,
 bit-equal between launches (a two-pass reduction with no atomics); the
 autograd Function's dx, dW and db against autograd of the plain forward.
 
@@ -544,6 +546,51 @@ def test_k4_backward_matches_plain(dev, cull, h, w, sigma, A, which):
     assert not got[0][..., 2].any()  # z only selects winners
 
 
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("kind", ["empty", "no_faces", "whole_image",
+                                  "off_screen"])
+def test_k4_backward_edge_scenes(dev, kind, cull):
+    """Faces all off-screen, no faces, one face covering the whole image
+    over random faces, faces reaching past two edges; both windings drawn
+    or culled; every output written (no zeroed buffer), bit-equal between
+    launches."""
+    rng = np.random.RandomState(14)
+    B, F, A, h, w = 2, 40, 3, 48, 40
+    fv = rng.uniform(-0.9, 0.9, (B, F, 3, 3)).astype(np.float32)
+    if kind == "empty":
+        fv[..., 0] += 5.0
+    elif kind == "no_faces":
+        fv = fv[:, :0]
+    elif kind == "whole_image":
+        fv[:, 7, :, :2] = [[-4.0, -4.0], [4.0, -4.0], [0.0, 5.0]]
+        fv[:, 7, :, 2] = -0.95
+    else:
+        fv[:, :20, :, 0] += 0.9
+        fv[:, 20:, :, 1] -= 0.9
+    fv = torch.from_numpy(fv).to(dev)
+    attrs = torch.from_numpy(rng.rand(B, fv.shape[1], 3, A).astype(
+        np.float32)).to(dev)
+    gen = torch.Generator(dev).manual_seed(5)
+    dfeat = torch.randn((B, h, w, A), device=dev, generator=gen)
+    dsoft = torch.randn((B, h, w, 1), device=dev, generator=gen)
+    from im23d_tpu_torch.render.rasterizer import _launch_forward
+
+    _, soft, win, wz = _launch_forward(fv, attrs, h, w, 1e-3, cull, True)
+    got = [rasterize_backward_kernel(fv, attrs, dfeat, dsoft, soft, win, wz,
+                                     h, w, 1e-3, cull) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+    if kind in ("empty", "no_faces"):
+        assert got[0][0].shape == fv.shape and got[0][1].shape == attrs.shape
+        assert not got[0][0].any() and not got[0][1].any()
+    if kind == "no_faces":  # autograd of the plain version needs a face
+        return
+    ref = rasterize_backward_torch(fv, attrs, dfeat, dsoft, h, w, 1e-3, cull)
+    _k4_grad_check(got[0], ref)
+    assert _rel_l2(got[0][0], ref[0]) <= 1e-4 or not ref[0].any()
+    assert _rel_l2(got[0][1], ref[1]) <= 1e-4 or not ref[1].any()
+
+
 def test_render_mesh_gradients_on_the_card_match_the_cpu(dev):
     """d verts and d texture of a rendered image and soft alpha: K4 and K5
     backward against the plain path on the CPU."""
@@ -577,10 +624,12 @@ def test_render_mesh_gradients_on_the_card_match_the_cpu(dev):
                                         (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("pad_mode", ["replicate", "circular"])
 @pytest.mark.parametrize("shape", [(2, 64, 64, 48), (3, 8, 17, 5),
-                                   (1, 64, 33, 70)])
+                                   (1, 64, 33, 70), (2, 16, 40, 96),
+                                   (1, 128, 19, 72), (2, 8, 35, 40)])
 def test_k8_matches_plain(dev, shape, pad_mode, dtype, atol):
-    """Forward and dW at tile-aligned and ragged sizes, 8 and 64 input
-    channels."""
+    """Forward and dW at tile-aligned and ragged sizes, 8 to 128 input
+    channels; in bfloat16 the tensor-core kernel by TMA boxes (W a
+    multiple of 8) and by plain loads (W = 5, 33)."""
     gen = torch.Generator(dev).manual_seed(8)
     x = torch.randn(shape, device=dev, generator=gen).to(dtype)
     w = (torch.randn((3, shape[1], 5, 5), device=dev, generator=gen)
@@ -599,6 +648,23 @@ def test_k8_matches_plain(dev, shape, pad_mode, dtype, atol):
     torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=0)
     assert torch.equal(d1, d2)
     assert _rel_l2(d1, dref) <= 1e-4
+
+
+@pytest.mark.parametrize("pad_mode", ["replicate", "circular"])
+def test_k8_bf16_unaligned_matches_plain(dev, pad_mode):
+    """An x 2 bytes past a 16-byte boundary takes the plain loads; the
+    kernel rounds a float32 weight to bf16 itself."""
+    gen = torch.Generator(dev).manual_seed(10)
+    shape = (2, 24, 30, 64)
+    x = torch.empty(math.prod(shape) + 1, dtype=torch.bfloat16,
+                    device=dev)[1:].view(shape)
+    x.copy_(torch.randn(shape, device=dev, generator=gen))
+    w = torch.randn((3, 24, 5, 5), device=dev, generator=gen) * 0.05
+    b = torch.randn(3, device=dev, generator=gen) * 0.1
+    assert x.data_ptr() % 16
+    y = head_conv_kernel(x, w, b, pad_mode)
+    ref = head_conv_tanh_torch(x, w, b, pad_mode)
+    torch.testing.assert_close(y.float(), ref.float(), atol=1e-2, rtol=0)
 
 
 @pytest.mark.parametrize("pad_mode", ["replicate", "circular"])

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times of K9 (folded affine + leaky ReLU + 3 × 3 conv) and K5 forward
-(texture sampler) on one GPU, for the port found under ``--root``.
+"""Times of K9 (folded affine + leaky ReLU + 3 × 3 conv), K5 forward
+(texture sampler), K8 forward (the GAN head conv) and K4 backward (the
+rasterizer's gradient) on one GPU, for the port found under ``--root``.
 
 ``--root`` (default: this checkout) is put first on ``sys.path``, so the
 same script times another checkout's kernels, e.g. a ``git archive`` of
@@ -15,7 +16,8 @@ the wrapper's time per call (CUDA events over ``--k9_reps`` calls, 10
 times as many below 128 × 64 pixels; the weight cast the parent's wrapper
 makes included), its bound (the bytes of
 x, a, b, the bf16 weights and y over 3.35 TB/s or its operations over
-989 TFLOP/s, the larger) and cuDNN's pad + conv on the same operands.
+989 TFLOP/s, the larger), cuDNN's pad + conv on the same operands, and a
+hash of the output (equal hashes: bit-equal outputs of two checkouts).
 
 K5 forward at the renderer's shape, 50 textures of 128 × 130 × 3 sampled
 at 50 × 256² points: the UVs of ``chip_smoke.py`` phase 8's render (its
@@ -29,19 +31,31 @@ random points in [-1.1, 1.1], each:
     and its device time with the NHWC → NCHW permute of the texture;
   - the wrapper's host time per call: host clock over 500 calls, with no
     synchronisation inside the loop;
-each as min / median / max of ``--repeats`` repeats.  The timing helpers
-are ``tools/gpu_timing.py``'s, from this checkout whatever the root.
+each as min / median / max of ``--repeats`` repeats.
 
-Prints one JSON line ``{"root": ..., "gpu": ..., "k9": [...], "k5":
-{...}}`` as its last line.
+K8 forward at the head's shape, 32 × 64 × 512 × 256 bf16 → 3, replicate
+padding (``chip_smoke.py``'s ``_head_operands``): the wrapper's event time
+over 20 calls and its device time in a CUDA graph of 20, and the event
+time of the model's entry ``head_conv_tanh`` without autograd (which the
+parent's ``_HeadConv`` precedes with a cast of the weight), each as min /
+median / max of ``--repeats`` repeats; the bytes bound.
+
+K4 backward at ``chip_smoke.py``'s ``_cub_scene`` (50 × 256², 960 faces,
+A = 3, sigma 1e-4, back faces culled), random d feat and d soft (seed 16):
+event and device time the same way, and whether 3 launches are bit-equal.
+
+The timing helpers are ``tools/gpu_timing.py``'s, from this checkout
+whatever the root.  Prints one JSON line ``{"root": ..., "gpu": ...,
+"k9": [...], "k5": {...}, "k8": {...}, "k4b": {...}}`` as its last line.
 
 Usage (from the repository root, on a machine with a CUDA device):
-    python3 tools/kernel_times.py [--root DIR] [--only k9|k5]
+    python3 tools/kernel_times.py [--root DIR] [--only k9|k5|k8|k4b]
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -55,6 +69,85 @@ B_GAN = 32
 # conv1
 K9_SHAPES = tuple((name, shape, True) for name, shape in K9_PASS) + (
     ("blk6 conv1 (no affine)", (128, 512, 256, 64), False),)
+
+
+def _digest(t) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    import torch
+
+    raw = t.detach().contiguous().view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()[:16]
+
+
+def _timed(fn, repeats: int, reps: int = 20) -> dict:
+    """Event and device (CUDA graph) ms per call, min / median / max."""
+    ev = [events_ms(fn, reps) for _ in range(repeats)]
+    dv = [graph_ms(fn, reps) for _ in range(repeats)]
+    return dict(event_ms=spread(ev), device_ms=spread(dv))
+
+
+def time_k8(repeats: int) -> dict:
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.ops.conv import head_conv_kernel, head_conv_tanh
+
+    x, w, b = cs._head_operands(torch.bfloat16, 20)
+    res = _timed(lambda: head_conv_kernel(x, w, b), repeats)
+
+    def entry():
+        with torch.no_grad():
+            return head_conv_tanh(x, w, b)
+
+    res["entry_event_ms"] = spread([events_ms(entry, 20)
+                                    for _ in range(repeats)])
+    # reads x, w, b, writes y: 3 of x's C channels in x's type
+    nbytes = (x.numel() * 2 + (w.numel() + b.numel()) * 4
+              + x.numel() // x.shape[1] * 3 * 2)
+    res.update(shape=list(x.shape), bound_ms=nbytes / PEAK_BYTES * 1e3)
+    for k in ("event_ms", "device_ms", "entry_event_ms"):
+        v = res[k]
+        print(f"[K8] {k}: min {v['min']:.4f} / median {v['median']:.4f} / "
+              f"max {v['max']:.4f}", flush=True)
+    print(f"[K8] bound {res['bound_ms']:.4f} ms (bytes)", flush=True)
+    return res
+
+
+def time_k4b(repeats: int) -> dict:
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
+    from im23d_tpu_torch.render.rasterizer import (
+        _launch_forward,
+        rasterize_backward_kernel,
+    )
+
+    dev = torch.device("cuda")
+    verts, faces, attrs, _ = cs._cub_scene(
+        MeshTemplate(segments=32, rings=16), dev)
+    fv, at = verts[:, faces].contiguous(), attrs.contiguous()
+    R = cs.RES
+    fwd = _launch_forward(fv, at, R, R, cs.SIGMA, True, True)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    dfeat = torch.randn(fwd[0].shape, device=dev, generator=gen)
+    dsoft = torch.randn(fwd[1].shape, device=dev, generator=gen)
+
+    def k4b():
+        return rasterize_backward_kernel(fv, at, dfeat, dsoft, *fwd[1:], R, R,
+                                         cs.SIGMA, True)
+
+    res = _timed(k4b, repeats)
+    outs = [k4b() for _ in range(3)]
+    res["bit_equal_launches"] = all(
+        torch.equal(o[i], outs[0][i]) for o in outs for i in range(2))
+    for k in ("event_ms", "device_ms"):
+        v = res[k]
+        print(f"[K4 bwd] {k}: min {v['min']:.4f} / median {v['median']:.4f}"
+              f" / max {v['max']:.4f}", flush=True)
+    print(f"[K4 bwd] 3 launches bit-equal: {res['bit_equal_launches']}",
+          flush=True)
+    return res
 
 
 def time_k9(k9_reps: int) -> list[dict]:
@@ -85,6 +178,7 @@ def time_k9(k9_reps: int) -> list[dict]:
         # the bf16 (3, 3, Cout, Cin) weight the parent's wrapper builds
         prep_ms = events_ms(lambda: w.to(torch.bfloat16).permute(
             2, 3, 0, 1).contiguous(), reps)
+        digest = _digest(fused_affine_conv3x3_kernel(x, a, b, w))
         px = B_GAN * H * W
         nbytes = (x.numel() * 2 + wd.numel() * 2 + px * cout * 2
                   + (2 * a.numel() * 4 if affine else 0))
@@ -93,11 +187,12 @@ def time_k9(k9_reps: int) -> list[dict]:
         row = dict(name=name, shape=[B_GAN, cin, H, W, cout], affine=affine,
                    ms=ms, bound_ms=max(t_b, t_o),
                    bound_by="bytes" if t_b >= t_o else "operations",
-                   cudnn_pad_conv_ms=conv_ms, weight_prep_ms=prep_ms)
+                   cudnn_pad_conv_ms=conv_ms, weight_prep_ms=prep_ms,
+                   sha256=digest)
         print(f"[K9] {name} {row['shape']}: {ms:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ({row['bound_by']}), cuDNN pad + conv "
-              f"{conv_ms:.4f}, bf16 weight cast + permute {prep_ms:.4f}",
-              flush=True)
+              f"{conv_ms:.4f}, bf16 weight cast + permute {prep_ms:.4f}; "
+              f"output sha256 {digest}", flush=True)
         out.append(row)
         del x, w, a, b, wd
         torch.cuda.empty_cache()
@@ -171,7 +266,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    ap.add_argument("--only", choices=("k9", "k5"))
+    ap.add_argument("--only", choices=("k9", "k5", "k8", "k4b"))
     ap.add_argument("--k9_reps", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
@@ -199,6 +294,10 @@ def main(argv=None) -> int:
         res["k9"] = time_k9(args.k9_reps)
     if args.only in (None, "k5"):
         res["k5"] = time_k5(args.repeats)
+    if args.only in (None, "k8"):
+        res["k8"] = time_k8(args.repeats)
+    if args.only in (None, "k4b"):
+        res["k4b"] = time_k4b(args.repeats)
     print(json.dumps(res))
     return 0
 

@@ -15,7 +15,8 @@ prints:
     without the profiler, synchronised at the end;
   - device busy ms per iteration: the sum of the device time of every
     kernel, copy and memset that ``torch.profiler`` records over
-    ``--iters`` more iterations;
+    ``--iters`` more iterations (after a discarded warm-up step of as many,
+    and between two spin kernels that are left out: see ``_device_ops``);
   - idle share = 1 - busy / wall, and the device ops per iteration;
   - the ten device ops that take the most time.
 
@@ -61,7 +62,7 @@ import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -118,35 +119,72 @@ def _wall_ms(fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+# device cycles of each spin kernel that pads a window's recorded calls
+# (about 10 ms at the H100's clocks)
+_PAD_CYCLES = 17_000_000
+
+
 def _device_ops(fn, iters: int):
-    """[(name, total device us, count)] over ``iters`` profiled calls."""
+    """[(name, total device us, count)] over ``iters`` profiled calls, and
+    the least lag in us from a kernel's launch on the host to its start on
+    the device.
+
+    Short windows lost kernel records on an H100, whatever launched the
+    kernels: a window of 2 K8 launches recorded none and one of 2 K8 dW
+    launches one; with the trace warmed up by a discarded step first,
+    windows of 10 K8 and 10 K8 dW launches late in a long run recorded 6
+    and 8, while a fresh process recorded every launch of 12 such
+    windows.  So the profiler
+    traces one step of the calls that it discards, then the step it
+    records, whose calls sit between two spin kernels of ``_PAD_CYCLES``
+    (left out of the sums): a kernel that the trace places a few ms off
+    its true time still falls inside the recorded window."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            torch.cuda._sleep(_PAD_CYCLES)
+            for _ in range(iters):
+                fn()
+            torch.cuda._sleep(_PAD_CYCLES)
+            torch.cuda.synchronize()
+            prof.step()
+    events = prof.profiler.kineto_results.events()
+    launched = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() == DeviceType.CPU
+                and "Launch" in e.name()}
+    lags = [e.start_ns() - launched[e.correlation_id()] for e in events
+            if e.device_type() == DeviceType.CUDA
+            and e.correlation_id() in launched]
     # GPU-side user annotations (e.g. "Optimizer.step#AdamW.step") span
     # kernels that are counted on their own: leave them out
-    return [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and "#" not in e.key]
+    ops = [(e.key, e.self_device_time_total, e.count)
+           for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and "#" not in e.key and "spin_kernel" not in e.key]
+    return ops, min(lags) / 1e3 if lags else float("nan")
 
 
-def report(title: str, fn, iters: int, show=()) -> float:
+def report(title: str, fn, iters: int, show=(), kernel=None) -> float:
     """Print the window's numbers, and the ops whose names contain one of
-    ``show`` beyond the ten largest; returns its device busy ms per
-    iter."""
+    ``show`` beyond the ten largest; for a one-kernel window, the launches
+    of ``kernel`` (a substring of its name) recorded against the calls
+    made, and the least launch-to-start lag.  Returns its device busy ms
+    per iter."""
     wall = _wall_ms(fn, iters)
-    ops = _device_ops(fn, iters)
+    ops, lag_us = _device_ops(fn, iters)
     busy = sum(us for _, us, _ in ops) / 1e3 / iters
     n_ops = sum(c for _, _, c in ops) / iters
     print(f"== {title}: wall {wall:.3f} ms/iter (no profiler), device busy "
           f"{busy:.3f} ms/iter, idle share {1.0 - busy / wall:.3f}, "
           f"{n_ops:.0f} device ops/iter")
+    if kernel is not None:
+        seen = sum(c for name, _, c in ops if kernel in name)
+        print(f"    recorded {seen} launches of {kernel} in {iters} calls; "
+              f"least launch-to-start lag {lag_us:.1f} us")
     ranked = sorted(ops, key=lambda o: -o[1])
     for i, (name, us, count) in enumerate(ranked):
         if i < 10 or any(key in name for key in show):
@@ -269,8 +307,9 @@ def profile_recon(iters: int) -> None:
         "K4 alone": lambda: rasterize(vtx, faces, attrs, res, res),
         "K5 alone": lambda: grid_sample_bilinear(tex_adj, grid),
     }
+    kernels = {"K4 alone": "rasterize_fwd", "K5 alone": "grid_sample_fwd"}
     for name, fn in parts.items():
-        busy = report(name, fn, it)
+        busy = report(name, fn, it, kernel=kernels.get(name))
         print(f"share of the recon eval step's device busy: "
               f"{busy / total:.3f}  {name}")
     print(f"peak MiB of one recon eval step "
@@ -346,8 +385,10 @@ def profile_recon_train(iters: int) -> None:
             tex_adj.contiguous(), grid, dcolor),
         "two Adam updates (network, DatasetParams)": adam,
     }
+    kernels = {"K4 backward alone": "rasterize_bwd",
+               "K5 backward alone": "grid_sample_bwd"}
     for name, fn in parts.items():
-        busy = report(name, fn, it)
+        busy = report(name, fn, it, kernel=kernels.get(name))
         print(f"share of the recon train step's device busy: "
               f"{busy / total:.3f}  {name}")
     print(f"peak MiB of one recon train step "
@@ -433,8 +474,11 @@ def profile_gan_train(iters: int) -> None:
             lambda: fused_affine_conv3x3_kernel(x9, a9, b9, w9),
         "EMA update": lambda: trainer._update_ema(0.999),
     }
+    kernels = {"K8 forward alone": "head_conv",
+               "K8 dW alone": "head_conv_dw_partial",
+               "K9 forward alone (blk6 conv2)": "fused_conv_bf16"}
     for name, fn in parts.items():
-        busy = report(name, fn, it)
+        busy = report(name, fn, it, kernel=kernels.get(name))
         print(f"share of the group's device busy: {busy / total:.3f}  "
               f"{name}")
     print(f"peak MiB of one group {_peak_mib(group):.3f}")
