@@ -3,12 +3,22 @@
 
 Phases:
   1. build the CUDA kernels from ``im23d_tpu_torch/csrc/`` (nvcc, sm_90a);
-  2. K1 (projection forward) against its plain PyTorch chain at the chairs
-     candidate-sweep shape: 480 clouds x 8000 points, 64^3 grid, at the
-     schedule's sigma/keep-prob ends and midpoint;
+     the projection kernels' cluster plans (``projection_plan``) at every
+     (S, K) below and ``cudaOccupancyMaxActiveClusters`` of each;
+  2. K1 (projection forward, one thread-block cluster a cloud) against its
+     plain PyTorch chain at the chairs candidate-sweep shape: 480 clouds x
+     8000 points, 64^3 grid, at the schedule's sigma/keep-prob ends and
+     midpoint; the peak memory of one call (below a quarter of the
+     (B, S, S, S) grid it no longer allocates); then at the card tests'
+     (S, K) (``PROJ_SHAPES``: the generic kernel instance), on clouds at
+     the edges of the cluster layout (points on the planes between two
+     CTAs' slabs and at z = S - 1, a blob past the splat's clamp, dropped
+     and culled clouds: ``_edge_operands``) and on clouds without points;
   3. K2 (projection backward) against its plain version
      (``projection_backward_torch``) at the winner shape: 120 clouds x 8000
-     points, 64^3 grid, at the same three (sigma, p);
+     points, 64^3 grid, at the same three (sigma, p); dscale bit-equal
+     over 3 launches and one call's peak memory at the first; then the
+     cases of phase 2;
   4. K3 (Chamfer nearest neighbour) against the plain ``nn_dist2_torch`` at
      (24, 8000) <-> (24, 2048) and (24, 8000) <-> (24, 512), both
      directions;
@@ -200,7 +210,11 @@ from im23d_tpu_torch.ops.projection import (
     _taps_and_scale,
     projection_backward_kernel,
     projection_backward_torch,
+    projection_grid_torch,
     projection_kernel,
+    projection_limits,
+    projection_occupancy,
+    projection_plan,
     projection_silhouette,
     projection_silhouette_torch,
 )
@@ -253,6 +267,7 @@ from tools.gpu_timing import events_ms as _time_ms
 from tools.gpu_timing import gpu_line as _gpu_line
 from tools.gpu_timing import graph_ms as _graph_ms
 from tools.gpu_timing import host_ms as _host_ms
+from tools.gpu_timing import peak_mib as _peak_mib
 from tools.gpu_timing import spread as _spread
 
 # chairs config: bs 24, 5 views, 4 pose candidates, 8000 points, 64^3 grid
@@ -261,19 +276,29 @@ GT_POINTS = 2048
 GT_POINTS_CLI = 512  # the eval CLI's synthetic ground truth
 DEVICE = "cuda"
 K1_CASES = ((3.0, 0.07), (1.6, 0.535), (0.2, 1.0))  # (sigma, keep prob p)
-# K1 vs plain: atomicAdd order changes between runs and the blur sums its
-# taps in another order than the plain band matmul; both round at ~1e-7 of
-# values <= 1, and the termination chain's sensitivity to an occupancy is
-# bounded by ~1.  Read on an H100 at this shape: 1.55e-6 here, 1.13e-6 in
-# the slice; the card's pytest holds K1 at 1e-5 too.  A wrong leading
-# termination plane (o0 for exp(eps + log o0)) shifts a pixel by ~1e-5 o0.
+# K1 vs plain: the kernel's splat sums in 64-bit fixed point (exact but for
+# corner weights below 2^-17), the blurs sum their taps in another order
+# than the plain band matmul and the termination runs as a product, not
+# exp of a log sum; all round at ~1e-7 of values <= 1, and the termination
+# chain's sensitivity to an occupancy is bounded by ~1.  Read on an H100 at
+# this shape: 1.85e-6 (the atomicAdd kernel before it 1.55e-6); the card's
+# pytest holds K1 at 1e-5 too.  A wrong leading termination plane (o0 for
+# exp(eps + log o0)) shifts a pixel by ~1e-5 o0.
 K1_ATOL = 1e-5
 # K2 vs plain, relative L2 error per output (||kernel - plain|| / ||plain||):
-# the recompute sums the splat by atomicAdd in another order than the plain
+# the recompute rounds the splat and the blurs otherwise than the plain
 # chain, so a voxel within rounding of a clamp bound (raw <= 1, u <= 1,
 # eps <= o <= 1 - eps) can flip its mask and move nearby gradients by O(1) of
-# their value; a max-abs bound would read those flips, not the kernel.
+# their value; a max-abs bound would read those flips, not the kernel.  (A
+# 2^-24 fixed-point splat, absolute where float32 is relative, flipped a
+# u ~ eps = 1e-5 clip at sigma 0.2, p 1.0 and read 2.6e-4 on dgz.)
 K2_REL_L2 = 1e-4
+# (S, K, sigma) of the card tests' K1 and K2 cases beside the main path's
+# (64, 21): the generic kernel instance (S = 60: its splat in two passes),
+# and the specialised one at sigma 0.2
+PROJ_SHAPES = ((16, 9, 0.8), (32, 21, 3.0), (64, 21, 0.2), (20, 7, 1.3),
+               (20, 8, 1.3), (1, 1, 1.0), (9, 64, 2.0), (60, 5, 1.0),
+               (64, 9, 1.0))
 # K3 vs plain: same formula; nvcc may contract dz*dz + dy*dy into an FMA,
 # a last-ulp difference on values of order 1.
 K3_RTOL, K3_ATOL = 1e-5, 1e-6
@@ -407,6 +432,108 @@ def phase_build():
     for line in _build.build_info["ptxas"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"[build] {line.strip()}")
+    # the projection kernels' cluster layouts, and how many clusters of
+    # each the card holds at once
+    lim = projection_limits(torch.device(DEVICE))
+    print(f"[build] projection limits {lim}")
+    for S_, K_ in [(S, 21)] + [(s_, k_) for s_, k_, _ in PROJ_SHAPES]:
+        plan = projection_plan(S_, K_, lim)
+        occ = [projection_occupancy(plan, S_, K_, bwd) for bwd in (False,
+                                                                   True)]
+        print(f"[build] projection S={S_} K={K_}: {plan}; "
+              f"cudaOccupancyMaxActiveClusters K1 {occ[0]}, K2 {occ[1]}")
+        if min(occ) < 1:
+            raise AssertionError(f"no cluster of {plan} fits the card")
+
+
+def _grid_operands(S_: int, K_: int, sigma: float, b: int, n: int,
+                   seed: int, dev) -> list:
+    """K1's and K2's operands on grid-coordinate planes: ``b`` random
+    clouds of ``n`` camera-space points (some culled, 30 % dropped), the
+    taps, scales and a random silhouette cotangent."""
+    rng = np.random.RandomState(seed)
+    pts = torch.as_tensor(((rng.rand(b, n, 3) - 0.5) * 1.1).astype(
+        np.float32), device=dev)
+    w = torch.as_tensor((rng.rand(b, n) > 0.3).astype(np.float32),
+                        device=dev)
+    scale = torch.as_tensor((0.2 + 1.3 * rng.rand(b)).astype(np.float32),
+                            device=dev)
+    gz, gy, gx, c = _prep_projection(pts, S_, w, 1e-6)
+    taps, sc = _taps_and_scale(torch.tensor(sigma, device=dev), scale, K_,
+                               b, dev)
+    gsil = torch.as_tensor(rng.randn(b, S_, S_).astype(np.float32),
+                           device=dev)
+    return [t.contiguous() for t in (gz, gy, gx, c, taps, sc, gsil)]
+
+
+def _edge_operands(S_: int, K_: int, sigma: float, planes: int, dev,
+                   n: int = 512) -> list:
+    """Clouds at the edges of the cluster layout, on grid coordinates:
+    (0) points on the planes between two CTAs' slabs (z = kP - 0.5, kP,
+    kP - 0.001 for every slab boundary kP); (1) points at the far side,
+    z = S - 1 and S - 1.5, y and x at 0 or S - 1 or anywhere; (2) a blob
+    that straddles a slab boundary, dense enough that the splat's clamp
+    binds; (3) every point dropped (c = 0, coordinates anywhere); (4)
+    every point culled (the cull of ``_prep_projection``); (5) a random
+    cloud.  Returns the operands as ``_grid_operands``."""
+    rng = np.random.RandomState(S_ + K_)
+    f = np.float32
+    cz, cy, cx = (np.zeros((6, n), f) for _ in range(3))
+    c = np.ones((6, n), f)
+    bounds = [k * planes + d for k in range(1, -(-S_ // planes))
+              for d in (-0.5, 0.0, -0.001)] or [0.0]
+    cz[0] = np.resize(np.asarray(bounds, f), n)
+    cy[0], cx[0] = rng.uniform(0, S_ - 1, (2, n))
+    cz[1] = np.where(rng.rand(n) < 0.5, S_ - 1, max(S_ - 1.5, 0.0))
+    cy[1] = rng.choice([0.0, S_ - 1.0, rng.uniform(0, S_ - 1)], n)
+    cx[1] = rng.choice([0.0, S_ - 1.0, rng.uniform(0, S_ - 1)], n)
+    mid = min(planes, S_ - 1) if S_ > 1 else 0.0
+    cz[2] = np.clip(mid + rng.uniform(-1.0, 1.0, n), 0, S_ - 1)
+    cy[2], cx[2] = np.clip(S_ / 2 + rng.uniform(-1.0, 1.0, (2, n)), 0, S_ - 1)
+    cz[3], cy[3], cx[3] = rng.uniform(0, S_ - 1, (3, n))
+    c[3] = 0.0
+    cz[5], cy[5], cx[5] = rng.uniform(0, S_ - 1, (3, n))
+    c[5] = rng.uniform(0.0, 1.5, n)
+    gz, gy, gx, cc = (torch.as_tensor(a, device=dev) for a in (cz, cy, cx, c))
+    culled = torch.full((1, n, 3), 0.6, device=dev)
+    g4 = _prep_projection(culled, S_, None, 1e-6)
+    for t, t4 in zip((gz, gy, gx, cc), g4):
+        t[4] = t4[0]
+    scale = torch.as_tensor(rng.uniform(0.2, 1.5, 6).astype(f), device=dev)
+    scale[2] = 1.0
+    taps, sc = _taps_and_scale(torch.tensor(sigma, device=dev), scale, K_, 6,
+                               dev)
+    gsil = torch.as_tensor(rng.randn(6, S_, S_).astype(f), device=dev)
+    return [t.contiguous() for t in (gz, gy, gx, cc, taps, sc, gsil)]
+
+
+def _proj_cases(dev) -> list:
+    """(tag, operands) of the checks beside the main shape: the card
+    tests' (S, K), the edge clouds at the main (S, K) and at a generic
+    one, and a batch of empty clouds (no points)."""
+    lim = projection_limits(dev)
+    cases = [(f"S={s_} K={k_} sigma={sg}",
+              _grid_operands(s_, k_, sg, 3, 1000, i, dev))
+             for i, (s_, k_, sg) in enumerate(PROJ_SHAPES)]
+    for s_, k_, sg in ((S, 21, 3.0), (S, 21, 0.2), (20, 7, 1.3)):
+        planes = projection_plan(s_, k_, lim)["planes"]
+        cases.append((f"edge clouds S={s_} K={k_} sigma={sg}",
+                      _edge_operands(s_, k_, sg, planes, dev)))
+    empty = _grid_operands(S, 21, 3.0, 2, 0, 9, dev)
+    cases.append(("empty clouds (N = 0)", empty))
+    return cases
+
+
+def _check_no_grid(tag: str, fn, clouds: int) -> float:
+    """The peak memory of one call, which must stay below a quarter of the
+    (clouds, S, S, S) float32 grid the kernel no longer allocates."""
+    peak = _peak_mib(fn)
+    grid = clouds * S ** 3 * 4 / 2**20
+    print(f"[{tag}] one call at {clouds} clouds adds {peak:.2f} MiB at its "
+          f"peak (the (B, S, S, S) grid would be {grid:.0f} MiB)")
+    if peak >= grid / 4:
+        raise AssertionError(f"{tag} allocates a grid: {peak:.1f} MiB")
+    return peak
 
 
 def phase_k1(gpu: str) -> dict:
@@ -441,13 +568,27 @@ def phase_k1(gpu: str) -> dict:
         planes, S, sig, scale, weights=w), 5)
     print(f"[K1] {C} clouds x {N} points, S={S}: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms per call [{gpu}]")
+    gz, gy, gx, c = _prep_projection(planes, S, w, 1e-6)
+    taps, sc = _taps_and_scale(sig, scale, 21, C, dev)
+    k1_ops = [t.contiguous() for t in (gz, gy, gx, c, taps, sc)]
+    peak = _check_no_grid("K1", lambda: projection_kernel(*k1_ops, S), C)
+    for tag, ops in _proj_cases(dev):
+        S_ = ops[6].shape[-1]
+        got = projection_kernel(*ops[:6], S_)
+        ref = projection_grid_torch(*ops[:6], S_)
+        torch.cuda.synchronize()
+        e = float((got - ref).abs().max())
+        print(f"[K1] {tag}: max |kernel - plain| {e:.3e} (atol {K1_ATOL})")
+        if not (torch.isfinite(got).all() and e <= K1_ATOL):
+            raise AssertionError(f"K1 disagrees with plain ({tag}): {e}")
+        err = max(err, e)
     # reads the planes, keep weights and scales, writes the silhouettes;
     # per point 8 corners x 4 operations, per voxel a 21-tap blur along
     # three axes (126) and the clamp and termination (5)
     bound = _bound(_nbytes(*planes, w, scale) + C * S * S * 4,
                    C * (32 * N + 131 * S ** 3))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                **bound)
+                peak_mib=peak, **bound)
 
 
 def _rel_l2(got, ref) -> float:
@@ -495,8 +636,34 @@ def phase_k2(gpu: str) -> dict:
         timed.append(dict(ms=ms, plain_ms=plain_ms, library_ms=None, **_bound(
             _nbytes(*ops) + 3 * C * N * 4 + C * 4,
             C * (64 * N + 514 * S ** 3))))
+        if len(timed) == 1:
+            # dscale is a fixed-order reduction: bit-equal launches
+            ds = [projection_backward_kernel(*ops)[3] for _ in range(3)]
+            same = all(torch.equal(d, ds[0]) for d in ds)
+            print(f"[K2] dscale bit-equal over 3 launches: {same}")
+            if not same:
+                raise AssertionError("K2's dscale differs between launches")
+            peak = _check_no_grid(
+                "K2", lambda: projection_backward_kernel(*ops), C)
+    for tag, ops in _proj_cases(dev):
+        got = projection_backward_kernel(*ops)
+        ref = projection_backward_torch(*ops)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dgz", "dgy", "dgx", "dscale"), got, ref):
+            if r.numel() == 0:  # no points: nothing to compare
+                if g.shape != r.shape:
+                    raise AssertionError(f"K2 {name} shape {g.shape}")
+                continue
+            e = float((g - r).abs().max())
+            rl = _rel_l2(g, r) if float(r.norm()) > 0 else e
+            print(f"[K2] {tag} {name}: rel L2 {rl:.3e} (limit {K2_REL_L2}), "
+                  f"max |kernel - plain| {e:.3e}")
+            if not (torch.isfinite(g).all() and rl <= K2_REL_L2):
+                raise AssertionError(f"K2 disagrees with plain ({tag}, "
+                                     f"{name}): {rl}")
+            rel = max(rel, rl)
     # the JSON line times the first case, as for K1
-    return dict(max_abs_err=err, max_rel_l2=rel, **timed[0])
+    return dict(max_abs_err=err, max_rel_l2=rel, peak_mib=peak, **timed[0])
 
 
 def phase_k3(gpu: str) -> dict:

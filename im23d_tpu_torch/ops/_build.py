@@ -31,15 +31,21 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 _SIGNATURES = {
-    # gz, gy, gx, c, taps, K, scale, grid, out, B, N, S, eps, stream
-    "im23d_projection_fwd": [_P, _P, _P, _P, _P, _I, _P, _P, _P,
-                             _I, _I, _I, _F, _P],
-    # gz, gy, gx, c, taps, K, scale, gsil, raw, work, dscale, dgz, dgy, dgx,
-    # B, N, S, eps, stream
+    # gz, gy, gx, c, taps, K, scale, out, B, N, S, eps, cluster, planes,
+    # stage, smem, stream
+    "im23d_projection_fwd": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F,
+                             _I, _I, _I, _L, _P],
+    # gz, gy, gx, c, taps, K, scale, gsil, dscale, dgz, dgy, dgx, B, N, S,
+    # eps, cluster, planes, stage, smem, stream
     "im23d_projection_bwd": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _I, _I, _I, _F, _P],
+                             _I, _I, _I, _F, _I, _I, _I, _L, _P],
+    # dev, out
+    "im23d_projection_limits": [_I, _P],
+    # S, K, cluster, planes, stage, bwd, smem, out
+    "im23d_projection_occupancy": [_I, _I, _I, _I, _I, _I, _L, _P],
     # x, y, out, B, N, M, stream
     "im23d_nn_dist2": [_P, _P, _P, _I, _I, _I, _P],
     # fv, attrs, feat, soft, win, wz, B, F, A, H, W, sx, sy, sigma, margin,

@@ -5,13 +5,17 @@ Counterpart of the public surface of ``im23d_tpu/ops/splat_pallas.py``
 (``projection_silhouette_pallas`` and the winner reuse
 ``projection_silhouette_reuse``).  On a CPU tensor both run the plain
 ``ops/voxel.py`` chain under autograd.  On a CUDA tensor the forward is the
-kernel K1 and the backward the kernel K2 (both in ``csrc/projection.cu``),
-joined by the ``torch.autograd.Function`` ``_Projection``; there is no other
-path.  The splat weights (keep masks) are constants: no gradient reaches
-them.
+kernel K1 and the backward the kernel K2 (both in ``csrc/projection.cu``:
+one thread-block cluster a cloud, the cloud's grid in the cluster's
+distributed shared memory, laid out by ``projection_plan``), joined by the
+``torch.autograd.Function`` ``_Projection``; there is no other path.  The
+splat weights (keep masks) are constants: no gradient reaches them.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -120,7 +124,112 @@ def _check_planes(what: str, gz, gy, gx, c, taps, scale, S: int):
     if not 1 <= S <= 64 or not 1 <= taps.numel() <= 64:
         raise ValueError(f"{what} takes 1 <= S, K <= 64 "
                          f"(S={S}, K={taps.numel()})")
+    most = projection_limits(dev).max_points
+    if N >= most:
+        raise ValueError(f"{what} takes fewer than {most} points a cloud, "
+                         f"got {N}")
     return dev, B, N
+
+
+class ProjectionLimits(NamedTuple):
+    """What ``projection_plan`` reads from the kernel library
+    (``im23d_projection_limits``): the card's opt-in shared memory a block
+    (bytes), then the kernels' constants: the largest cluster (the
+    portable 8), grid side and tap count, the planes a CTA the plan aims
+    for, the bytes a CTA keeps beside its planes and mask (taps,
+    partials), and the points a cloud the fixed-point splat takes (fewer
+    than ``max_points``)."""
+    smem_optin: int
+    max_cluster: int
+    max_s: int
+    max_k: int
+    planes: int
+    extra: int
+    max_points: int
+
+
+def _scratch_offset(S: int, planes: int, stage: int) -> int:
+    """Where the splat's 64-bit scratch of ``stage`` planes starts in a
+    CTA's shared memory: past the float planes of earlier passes, and far
+    enough that float plane q0 + j of the last pass (q0 its first plane),
+    written once scratch plane j is read, ends before scratch plane j + 1
+    begins; as ``csrc/projection.cu`` places it."""
+    fp, ip = S * (S | 1) * 4, S * S * 8
+    q0 = (planes - 1) // stage * stage
+    off = max(q0 * fp, (q0 + 1) * fp - ip)
+    return -(-off // 8) * 8
+
+
+def _arena_bytes(S: int, planes: int, stage: int) -> int:
+    """Bytes of a CTA's float planes and the scratch, which overlap."""
+    grid = -(-(planes * S * (S | 1) * 4) // 8) * 8
+    return max(grid, _scratch_offset(S, planes, stage) + stage * S * S * 8)
+
+
+def projection_plan(S: int, K: int, lim: ProjectionLimits) -> dict:
+    """K1's and K2's layout for an S³ grid and K taps under ``lim``: one
+    cluster of ``cluster`` CTAs a cloud; the CTA of rank r owns the z-planes
+    [r·planes, r·planes + planes) and takes the rays of the same rows of y
+    (the last CTA may own fewer); ``planes`` is ``lim.planes`` or fewer,
+    evened out over the cluster.  Rows are ``stride`` floats apart in
+    shared memory (odd).  The splat adds in 64-bit fixed point through a
+    scratch of ``stage`` planes a CTA that lies over the float planes of
+    later passes (``_scratch_offset``), in the fewest passes,
+    ceil(planes / stage), that fit beside the backward's mask.
+    ``smem_fwd`` and ``smem_bwd`` are the dynamic shared memory a CTA
+    takes, as ``csrc/projection.cu`` counts it (the backward adds one
+    64-bit mask word a (plane, x) column).  Raises ``ValueError`` for
+    what the kernels cannot take."""
+    S, K = int(S), int(K)
+    if not (1 <= S <= lim.max_s and 1 <= K <= lim.max_k):
+        raise ValueError(f"the projection kernels take 1 <= S <= "
+                         f"{lim.max_s} and 1 <= K <= {lim.max_k}, got S={S}, "
+                         f"K={K}")
+    cluster = -(-S // min(S, lim.planes))
+    planes = -(-S // cluster)
+    if cluster > lim.max_cluster:
+        raise ValueError(f"S={S} needs a cluster of {cluster} CTAs, more "
+                         f"than {lim.max_cluster}")
+    stride = S | 1
+    mask = planes * S * 8
+    for stage in range(planes, 0, -1):
+        smem_fwd = _arena_bytes(S, planes, stage) + lim.extra
+        if smem_fwd + mask <= lim.smem_optin:
+            break
+    else:
+        raise ValueError(f"S={S} needs more than the card's "
+                         f"{lim.smem_optin} bytes of shared memory a block")
+    smem_bwd = smem_fwd + mask
+    return dict(cluster=cluster, planes=planes, stride=stride, stage=stage,
+                smem_fwd=smem_fwd, smem_bwd=smem_bwd)
+
+
+_LIMITS: dict = {}
+
+
+def projection_limits(dev: torch.device) -> ProjectionLimits:
+    """``ProjectionLimits`` of CUDA device ``dev``, read from the library
+    once."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _LIMITS:
+        lib = _build.load_kernels()
+        out = (ctypes.c_int * len(ProjectionLimits._fields))()
+        _build.check(lib, lib.im23d_projection_limits(key, out),
+                     "projection limits")
+        _LIMITS[key] = ProjectionLimits(*out)
+    return _LIMITS[key]
+
+
+def projection_occupancy(plan: dict, S: int, K: int, backward: bool) -> int:
+    """The most clusters of ``plan`` the current card runs at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    lib = _build.load_kernels()
+    n = ctypes.c_int()
+    smem = plan["smem_bwd" if backward else "smem_fwd"]
+    _build.check(lib, lib.im23d_projection_occupancy(
+        S, K, plan["cluster"], plan["planes"], plan["stage"], int(backward),
+        smem, ctypes.byref(n)), "projection occupancy")
+    return n.value
 
 
 def projection_kernel(gz, gy, gx, c, taps, scale, size: int,
@@ -128,26 +237,29 @@ def projection_kernel(gz, gy, gx, c, taps, scale, size: int,
     """Launch K1 on (B, N) grid-coordinate planes; returns (B, S, S).
 
     ``taps`` are the (K,) Gaussian taps, ``scale`` the (B,) per-cloud scale;
-    all float32, contiguous, on one CUDA device.  Scratch: a zeroed
-    (B, S, S, S) f32 grid (1 MiB per cloud at S = 64).
+    all float32, contiguous, on one CUDA device.  No scratch: the output is
+    the only allocation.
 
     Replaces the Pallas kernel ``_proj_sorted_fwd_kernel``
-    (``im23d_tpu/ops/splat_pallas.py:1080``) and its dense twin.  The grid
-    does not fit in shared memory, so K1 is bound by device- and
-    shared-memory traffic; it splats with atomics and blurs one z-plane or
-    one ray column per block (see ``csrc/projection.cu``).
+    (``im23d_tpu/ops/splat_pallas.py:1080``) and its dense twin.  Bound by
+    operations (the three 21-tap blurs) once the grid stays on chip: one
+    cluster launch, each cloud's grid in the distributed shared memory of
+    one thread-block cluster (``projection_plan``; see
+    ``csrc/projection.cu``).
     """
     S = int(size)
     dev, B, N = _check_planes("projection_kernel", gz, gy, gx, c, taps, scale,
                               S)
+    K = taps.numel()
+    plan = projection_plan(S, K, projection_limits(dev))
     lib = _build.load_kernels()
-    grid = torch.zeros((B, S, S, S), dtype=torch.float32, device=dev)
     out = torch.empty((B, S, S), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.im23d_projection_fwd(
         gz.data_ptr(), gy.data_ptr(), gx.data_ptr(), c.data_ptr(),
-        taps.data_ptr(), taps.numel(), scale.data_ptr(), grid.data_ptr(),
-        out.data_ptr(), B, N, S, float(eps), stream,
+        taps.data_ptr(), K, scale.data_ptr(), out.data_ptr(), B, N, S,
+        float(eps), plan["cluster"], plan["planes"], plan["stage"],
+        plan["smem_fwd"], stream,
     )
     _build.check(lib, rc, "projection kernel (K1)")
     projection_kernel.launches += 1
@@ -162,33 +274,35 @@ def projection_backward_kernel(gz, gy, gx, c, taps, scale, gsil,
     """Launch K2 on (B, N) grid-coordinate planes and the (B, S, S)
     silhouette cotangent; returns (dgz, dgy, dgx) (B, N) and dscale (B,).
 
-    Operands as for ``projection_kernel``.  Scratch: two (B, S, S, S) f32
-    grids (the raw splat, kept for its clamp mask, and a working grid;
-    240 MiB at the 120 winners of the chairs step).
+    Operands as for ``projection_kernel``.  No scratch: the four outputs
+    are the only allocations, and every element of them is written.
 
     Replaces the Pallas kernel ``_proj_sorted_bwd_kernel``
     (``im23d_tpu/ops/splat_pallas.py:1124``) and its dense twin
-    ``_proj_bwd_kernel`` (``:621``).  It recomputes the forward with K1's
-    splat and Y/X blur, runs the termination VJP and the Z blur transpose
-    per ray, the Y/X blur transpose per z-plane, and the splat transpose as
-    a gather per point (see ``csrc/projection.cu``).
+    ``_proj_bwd_kernel`` (``:621``).  One cluster launch, as K1: it
+    recomputes the forward in the cluster's shared memory with the splat
+    clamp's mask, runs the termination VJP and the Z blur's transpose per
+    ray, the Y/X blurs' transposes per plane, and the splat's transpose as
+    a gather per point; dscale is a fixed-order reduction (bit-equal
+    launches; see ``csrc/projection.cu``).
     """
     S = gsil.shape[-1]
     dev, B, N = _check_planes("projection_backward_kernel", gz, gy, gx, c,
                               taps, scale, S)
     _check_operand("gsil", gsil, (B, S, S), dev)
+    K = taps.numel()
+    plan = projection_plan(S, K, projection_limits(dev))
     lib = _build.load_kernels()
-    raw = torch.zeros((B, S, S, S), dtype=torch.float32, device=dev)
-    work = torch.empty((B, S, S, S), dtype=torch.float32, device=dev)
-    dscale = torch.zeros((B,), dtype=torch.float32, device=dev)
+    dscale = torch.empty((B,), dtype=torch.float32, device=dev)
     dgz, dgy, dgx = (torch.empty((B, N), dtype=torch.float32, device=dev)
                      for _ in range(3))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.im23d_projection_bwd(
         gz.data_ptr(), gy.data_ptr(), gx.data_ptr(), c.data_ptr(),
-        taps.data_ptr(), taps.numel(), scale.data_ptr(), gsil.data_ptr(),
-        raw.data_ptr(), work.data_ptr(), dscale.data_ptr(), dgz.data_ptr(),
-        dgy.data_ptr(), dgx.data_ptr(), B, N, S, float(eps), stream,
+        taps.data_ptr(), K, scale.data_ptr(), gsil.data_ptr(),
+        dscale.data_ptr(), dgz.data_ptr(), dgy.data_ptr(), dgx.data_ptr(), B,
+        N, S, float(eps), plan["cluster"], plan["planes"], plan["stage"],
+        plan["smem_bwd"], stream,
     )
     _build.check(lib, rc, "projection backward kernel (K2)")
     projection_backward_kernel.launches += 1

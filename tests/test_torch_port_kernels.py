@@ -8,11 +8,15 @@ the repository root:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_port_kernels.py
 
-Tolerances: K1 sums with atomicAdd (order changes between runs) and blurs in
-another order than the plain band matmul, atol 1e-5 on silhouettes <= ~1;
-K2 is held by relative L2 error per output, ||kernel - plain|| / ||plain||
-<= 1e-4, because a clamp mask within rounding of its bound can flip and move
-a few gradients by O(1) of their value; K3 computes the plain formula, up to
+Tolerances: K1 splats in 8.24 fixed point (each corner's weight rounded
+to 2^-24) and blurs in another order than the plain band matmul, atol 1e-5
+on silhouettes <= ~1; K2 is held by relative L2 error per output,
+||kernel - plain|| / ||plain|| <= 1e-4, because a clamp mask within
+rounding of its bound can flip and move a few gradients by O(1) of their
+value.  Both add the splat with integer atomics, so their launches are
+bit-equal; the edge cases of their cluster layout (points on the planes
+between two CTAs' slabs, at z = S - 1, dropped, culled or absent clouds)
+come from ``chip_smoke.py``'s ``_edge_operands``; K3 computes the plain formula, up to
 FMA contraction, rtol 1e-5; K4 computes the plain rasterizer's
 arithmetic with FMA contraction ruled out: feat by the 0.999 quantile of
 |kernel - plain| <= 1e-5 (an edge function rounded to the other side would
@@ -81,6 +85,10 @@ from im23d_tpu_torch.ops.conv import (
 )
 from im23d_tpu_torch.ops.projection import (
     _prep_projection,
+    projection_grid_torch,
+    projection_limits,
+    projection_occupancy,
+    projection_plan,
     _taps_and_scale,
     projection_backward_kernel,
     projection_backward_torch,
@@ -260,6 +268,79 @@ def test_k2_rejects_bad_operands(dev):
         projection_backward_kernel(gz, gy, gx, c, taps, sc, gsil[:1])
     with pytest.raises(ValueError):
         projection_backward_kernel(gz.cpu(), gy, gx, c, taps, sc, gsil)
+
+
+def test_projection_limits_are_the_plans(dev):
+    """The kernel library's constants are those that the CPU tests of
+    ``projection_plan`` assume (``tests/test_torch_port_projection_plan.py``),
+    and a cluster of each plan the card tests use fits the card."""
+    from test_torch_port_projection_plan import H100 as PLAN_H100
+
+    lim = projection_limits(dev)
+    assert lim._replace(smem_optin=0) == PLAN_H100._replace(smem_optin=0)
+    for S, K in ((64, 21), (32, 21), (16, 9), (20, 7), (20, 8)):
+        plan = projection_plan(S, K, lim)
+        assert plan["smem_bwd"] <= lim.smem_optin
+        for backward in (False, True):
+            assert projection_occupancy(plan, S, K, backward) >= 1
+
+
+@pytest.mark.parametrize("S,ks,sigma", [(64, 21, 3.0), (64, 21, 0.2),
+                                        (20, 7, 1.3)])
+def test_k1_k2_edge_clouds(dev, S, ks, sigma):
+    """Points on the planes between two CTAs' slabs and at z = S - 1, a
+    blob whose splat passes the clamp, dropped and culled clouds."""
+    from chip_smoke import _edge_operands
+
+    planes = projection_plan(S, ks, projection_limits(dev))["planes"]
+    ops = _edge_operands(S, ks, sigma, planes, dev)
+    got = projection_kernel(*ops[:6], S)
+    ref = projection_grid_torch(*ops[:6], S)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    for g, r in zip(projection_backward_kernel(*ops),
+                    projection_backward_torch(*ops)):
+        assert torch.isfinite(g).all()
+        assert _rel_l2(g, r) <= 1e-4, (_rel_l2(g, r),
+                                       float((g - r).abs().max()))
+
+
+@pytest.mark.parametrize("S,ks,sigma", [(1, 1, 1.0), (9, 64, 2.0),
+                                        (60, 5, 1.0), (64, 9, 1.0)])
+def test_k1_k2_generic_shapes(dev, S, ks, sigma):
+    """The generic instance at the ends of its range: one plane, 64 taps,
+    a splat in two passes (S = 60), and S = 64 with other taps."""
+    ops = _grid_operands(dev, S, ks, sigma)
+    got = projection_kernel(*ops[:6], S)
+    torch.testing.assert_close(got, projection_grid_torch(*ops[:6], S),
+                               atol=1e-5, rtol=0)
+    for g, r in zip(projection_backward_kernel(*ops),
+                    projection_backward_torch(*ops)):
+        assert torch.isfinite(g).all()
+        err = float((g - r).abs().max())
+        assert err == 0.0 or _rel_l2(g, r) <= 1e-4, (_rel_l2(g, r), err)
+
+
+def test_k1_k2_empty_clouds(dev):
+    """Clouds without points: the silhouettes of an empty grid (every
+    occupancy at eps), empty coordinate gradients and dscale 0."""
+    ops = _grid_operands(dev, 64, 21, 3.0, b=2, n=0)
+    got = projection_kernel(*ops[:6], 64)
+    torch.testing.assert_close(got, projection_grid_torch(*ops[:6], 64),
+                               atol=1e-5, rtol=0)
+    dgz, dgy, dgx, dscale = projection_backward_kernel(*ops)
+    assert dgz.shape == dgy.shape == dgx.shape == (2, 0)
+    assert torch.equal(dscale, projection_backward_torch(*ops)[3])
+
+
+def test_k1_k2_launches_are_bit_equal(dev):
+    """The splat's integer atomics commute and dscale is a fixed-order
+    reduction: three launches give the same bits."""
+    ops = _grid_operands(dev, 64, 21, 3.0, b=8, n=4000, seed=7)
+    sils = [projection_kernel(*ops[:6], 64) for _ in range(3)]
+    assert all(torch.equal(s, sils[0]) for s in sils)
+    grads = [projection_backward_kernel(*ops) for _ in range(3)]
+    for g in grads[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(g, grads[0]))
 
 
 @pytest.mark.parametrize("n,m", [(1, 1), (255, 257), (1000, 256),

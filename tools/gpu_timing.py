@@ -94,6 +94,19 @@ def host_ms(fn, reps: int) -> float:
     return secs * 1e3 / reps
 
 
+def peak_mib(fn) -> float:
+    """The device memory one call of ``fn`` adds at its peak, MiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
 def spread(xs) -> dict:
     """min, median (the middle one, or the upper of two) and max."""
     xs = sorted(xs)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times of K9 (folded affine + leaky ReLU + 3 × 3 conv), K5 forward
-(texture sampler), K8 forward (the GAN head conv) and K4 backward (the
-rasterizer's gradient) on one GPU, for the port found under ``--root``.
+(texture sampler), K8 forward (the GAN head conv), K4 backward (the
+rasterizer's gradient) and K1 and K2 (the projection forward and
+backward) on one GPU, for the port found under ``--root``.
 
 ``--root`` (default: this checkout) is put first on ``sys.path``, so the
 same script times another checkout's kernels, e.g. a ``git archive`` of
@@ -44,12 +45,22 @@ K4 backward at ``chip_smoke.py``'s ``_cub_scene`` (50 × 256², 960 faces,
 A = 3, sigma 1e-4, back faces culled), random d feat and d soft (seed 16):
 event and device time the same way, and whether 3 launches are bit-equal.
 
+K1 (projection forward) at ``chip_smoke.py`` phase 2's timed shape, 480
+clouds × 8000 points at 64³, sigma 3.0, keep-prob 0.07, and K2 (its
+backward) at phase 3's first case, 120 clouds × 8000 points, a random
+silhouette cotangent: the wrapper on the grid-coordinate planes (the cull
+and coordinates of ``_prep_projection`` made once, outside the timing),
+event and device time over 20 calls, min / median / max of ``--repeats``
+repeats; the peak device memory one call adds; for K2 whether 3 launches
+give a bit-equal dscale.
+
 The timing helpers are ``tools/gpu_timing.py``'s, from this checkout
 whatever the root.  Prints one JSON line ``{"root": ..., "gpu": ...,
-"k9": [...], "k5": {...}, "k8": {...}, "k4b": {...}}`` as its last line.
+"k9": [...], "k5": {...}, "k8": {...}, "k4b": {...}, "k1": {...},
+"k2": {...}}`` as its last line.
 
 Usage (from the repository root, on a machine with a CUDA device):
-    python3 tools/kernel_times.py [--root DIR] [--only k9|k5|k8|k4b]
+    python3 tools/kernel_times.py [--root DIR] [--only k9 k5 k8 k4b k1 k2]
 """
 
 from __future__ import annotations
@@ -61,7 +72,7 @@ import os
 import sys
 
 from gpu_timing import (K9_PASS, events_ms, graph_ms, gpu_line, host_ms,
-                        spread)
+                        peak_mib, spread)
 
 PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12
 B_GAN = 32
@@ -147,6 +158,76 @@ def time_k4b(repeats: int) -> dict:
               f" / max {v['max']:.4f}", flush=True)
     print(f"[K4 bwd] 3 launches bit-equal: {res['bit_equal_launches']}",
           flush=True)
+    return res
+
+
+def _projection_operands(backward: bool) -> list:
+    """K1's (or, with ``backward``, K2's) operands at ``chip_smoke.py``'s
+    timed shapes, on the grid-coordinate planes."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.ops.camera import world_to_camera_zyx
+    from im23d_tpu_torch.ops.pointcloud import keep_mask
+    from im23d_tpu_torch.ops.projection import (
+        _prep_projection,
+        _taps_and_scale,
+    )
+    from im23d_tpu_torch.ops.quaternion import qnormalize
+
+    dev = torch.device("cuda")
+    C = cs.B * cs.V * (1 if backward else cs.K)
+    rng = np.random.RandomState(3 if backward else 0)
+    cloud = cs._clouds(rng, C, cs.N, dev)
+    quats = qnormalize(torch.as_tensor(rng.randn(C, 4).astype(np.float32),
+                                       device=dev))
+    planes = world_to_camera_zyx(cloud, quats)
+    scale = torch.as_tensor(rng.uniform(0.2, 1.5, C).astype(np.float32),
+                            device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1 if backward else 0)
+    sigma, p = cs.K1_CASES[0]
+    w = keep_mask(gen, C, cs.N, p)
+    gz, gy, gx, c = _prep_projection(planes, cs.S, w, 1e-6)
+    taps, sc = _taps_and_scale(torch.tensor(sigma, device=dev), scale, 21, C,
+                               dev)
+    ops = [gz, gy, gx, c, taps, sc]
+    if backward:
+        ops.append(torch.randn((C, cs.S, cs.S), device=dev, generator=gen))
+    return [t.contiguous() for t in ops]
+
+
+def time_projection(backward: bool, repeats: int) -> dict:
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.ops.projection import (
+        projection_backward_kernel,
+        projection_kernel,
+    )
+
+    ops = _projection_operands(backward)
+    if backward:
+        def call():
+            return projection_backward_kernel(*ops)
+    else:
+        def call():
+            return projection_kernel(*ops, cs.S)
+    res = _timed(call, repeats)
+    res["peak_mib"] = peak_mib(call)
+    res["clouds"] = ops[0].shape[0]
+    tag = "K2" if backward else "K1"
+    if backward:
+        ds = [call()[3] for _ in range(3)]
+        res["dscale_bit_equal"] = all(torch.equal(d, ds[0]) for d in ds)
+    for k in ("event_ms", "device_ms"):
+        v = res[k]
+        print(f"[{tag}] {k}: min {v['min']:.4f} / median {v['median']:.4f} / "
+              f"max {v['max']:.4f}", flush=True)
+    print(f"[{tag}] {res['clouds']} clouds: one call adds "
+          f"{res['peak_mib']:.1f} MiB at its peak"
+          + (f"; dscale bit-equal over 3 launches: "
+             f"{res['dscale_bit_equal']}" if backward else ""), flush=True)
     return res
 
 
@@ -266,7 +347,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    ap.add_argument("--only", choices=("k9", "k5", "k8", "k4b"))
+    ap.add_argument("--only", nargs="+",
+                    choices=("k9", "k5", "k8", "k4b", "k1", "k2"))
     ap.add_argument("--k9_reps", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
@@ -290,14 +372,18 @@ def main(argv=None) -> int:
     gpu = gpu_line()
     print(f"[gpu] {gpu}; root {root}", flush=True)
     res = dict(root=root, gpu=gpu)
-    if args.only in (None, "k9"):
+    if args.only is None or "k9" in args.only:
         res["k9"] = time_k9(args.k9_reps)
-    if args.only in (None, "k5"):
+    if args.only is None or "k5" in args.only:
         res["k5"] = time_k5(args.repeats)
-    if args.only in (None, "k8"):
+    if args.only is None or "k8" in args.only:
         res["k8"] = time_k8(args.repeats)
-    if args.only in (None, "k4b"):
+    if args.only is None or "k4b" in args.only:
         res["k4b"] = time_k4b(args.repeats)
+    if args.only is None or "k1" in args.only:
+        res["k1"] = time_projection(False, args.repeats)
+    if args.only is None or "k2" in args.only:
+        res["k2"] = time_projection(True, args.repeats)
     print(json.dumps(res))
     return 0
 

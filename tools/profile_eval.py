@@ -193,6 +193,13 @@ def report(title: str, fn, iters: int, show=(), kernel=None) -> float:
     return busy
 
 
+# the projection's kernels, K1 and K2 now and the chain they replaced
+# (splat, Y/X blur, Z blur + termination): printed in the chairs windows
+# even outside their ten largest
+PROJECTION_OPS = ("proj_fwd", "proj_bwd", "splat_kernel", "splat_grad",
+                  "blur_yx", "zblur_term", "term_bwd")
+
+
 def _peak_mib(fn) -> float:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -240,7 +247,8 @@ def profile_train(cfg, iters: int) -> None:
     it = iters
     total = report(f"train step + loss fetch (bs {B}: K1 on {B * V * K} "
                    f"clouds, K2 on {B * V})",
-                   lambda: float(learner.train_step(nb)["total_loss"]), it)
+                   lambda: float(learner.train_step(nb)["total_loss"]), it,
+                   show=PROJECTION_OPS)
     parts = {
         "model forward + backward (bf16 trunks)":
             report("model forward + backward (bf16 trunks)", model_fwd_bwd,
@@ -541,7 +549,8 @@ def main(argv=None) -> int:
     it = args.iters
     report(f"eval_step + loss fetch (bs {B}: {B} + {B * V} images, K1 on "
            f"{B * V} clouds)",
-           lambda: float(learner.eval_step(batch)["projection_loss"]), it)
+           lambda: float(learner.eval_step(batch)["projection_loss"]), it,
+           show=PROJECTION_OPS)
     report("normalize (H2D copy of one uint8 batch + /255)",
            lambda: learner._normalize(batch), it)
     report("model forward (bf16 trunks)", model_forward, it)
@@ -550,7 +559,7 @@ def main(argv=None) -> int:
     report(f"eval loss (K1 on {B * V} clouds)",
            lambda: eval_loss(False, keep_w), it)
     report(f"candidate sweep loss (K1 on {B * V * cfg.num_candidates} "
-           "clouds)", lambda: eval_loss(True, None), it)
+           "clouds)", lambda: eval_loss(True, None), it, show=PROJECTION_OPS)
 
     print(f"peak MiB of the sweep {_peak_mib(lambda: eval_loss(True, None)):.3f}")
     return 0
