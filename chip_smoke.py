@@ -13,7 +13,8 @@ Phases:
      (S, K) (``PROJ_SHAPES``: the generic kernel instance), on clouds at
      the edges of the cluster layout (points on the planes between two
      CTAs' slabs and at z = S - 1, a blob past the splat's clamp, dropped
-     and culled clouds: ``_edge_operands``) and on clouds without points;
+     and culled clouds: ``_edge_operands``), on clouds without points and
+     on clouds with weights of either sign (``_mixed_sign_operands``);
   3. K2 (projection backward) against its plain version
      (``projection_backward_torch``) at the winner shape: 120 clouds x 8000
      points, 64^3 grid, at the same three (sigma, p); dscale bit-equal
@@ -35,7 +36,8 @@ Phases:
   8. K4 (rasterizer forward) against the plain ``rasterize_torch`` at the
      CUB eval shape: 50 renders of 960 faces (``MeshTemplate(32, 16)``,
      structured displacement maps, seeded poses) at 256², A = 3 (u, v,
-     mask), sigma 1e-4, back faces culled and drawn;
+     mask), sigma 1e-4, back faces culled and drawn, and its winner cache
+     bit-equal to the plain winner rule (``rasterize_winners_torch``);
   9. K5 (texture sampler forward) against the plain
      ``grid_sample_bilinear_torch``: 50 textures of 128 x 130 x 3 sampled
      at 50 x 256² points, at phase 8's rendered UVs and at random
@@ -84,9 +86,11 @@ Phases:
      beside it; the bfloat16 (tensor-core) kernel also at 8 and 128 input
      channels, ragged H and W (40: one partial column tile; 45: the plain
      loads) and an x that is not 16-byte aligned, both paddings;
- 19. K8 dW against its float64 plain version at that shape with an
-     upstream dy·(1 − y²), on each of 3 launches, bit-equal between them;
-     cuDNN's weight gradient timed beside it;
+ 19. K8 dW against its float64 plain version (the upstream dy·(1 − y²)
+     rounded to x's type first, as the JAX VJP rounds it) at that shape,
+     on each of 3 launches, bit-equal between them, then at phase 18's
+     other shapes (8 and 128 input channels, ragged sizes, plain loads, an
+     unaligned x); cuDNN's weight gradient timed beside it;
  20. one 1G + 2D group at bs 8 in float32 through K8 and K9 and through
      the plain head and plain folded conv, from the same state: the
      losses, the head's output, the gradients of the generator's and
@@ -250,6 +254,7 @@ from im23d_tpu_torch.render.rasterizer import (
     rasterize_backward_torch,
     rasterize_kernel,
     rasterize_torch,
+    rasterize_winners_torch,
     soft_margin,
 )
 from im23d_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
@@ -276,8 +281,9 @@ GT_POINTS = 2048
 GT_POINTS_CLI = 512  # the eval CLI's synthetic ground truth
 DEVICE = "cuda"
 K1_CASES = ((3.0, 0.07), (1.6, 0.535), (0.2, 1.0))  # (sigma, keep prob p)
-# K1 vs plain: the kernel's splat sums in 64-bit fixed point (exact but for
-# corner weights below 2^-17), the blurs sum their taps in another order
+# K1 vs plain: the kernel's splat sums in signed 64-bit fixed point (exact
+# but for corner weights below 2^-17 in magnitude; weights of either sign,
+# as the plain chain sums them), the blurs sum their taps in another order
 # than the plain band matmul and the termination runs as a product, not
 # exp of a log sum; all round at ~1e-7 of values <= 1, and the termination
 # chain's sensitivity to an occupancy is bounded by ~1.  Read on an H100 at
@@ -311,10 +317,12 @@ LEARN_STEPS, WARM = 40, 10  # the learning check; steps before the timing
 RB, RES, TEX, SIGMA = 50, 256, 128, 1e-4
 RECON_IMAGES = 110  # two full batches and a tail of 10
 # K4 vs plain: the same arithmetic with FMA contraction ruled out, so the
-# winners agree; a pixel whose edge function rounds to the other side would
-# take the other face's attributes, hence a quantile for feat (as the JAX
-# package's rasterizer tests) and a count of differing hard-mask pixels;
-# soft sums its log1p terms in another order (~1e-7 each).
+# winners agree (the winner cache is held bit-equal to the plain rule); a
+# pixel whose edge function rounds to the other side would take the other
+# face's attributes, hence a quantile for feat (as the JAX package's
+# rasterizer tests) and a count of differing hard-mask pixels; soft sums
+# its log1p terms in another order and takes the segment parameters and
+# d2 / sigma by products with reciprocals (~1e-7 each).
 K4_FEAT_Q999, K4_MASK_FRAC, K4_SOFT_ATOL = 1e-5, 1e-3, 1e-4
 # K5 vs plain: the same operations in the same order
 K5_ATOL = 1e-5
@@ -356,9 +364,10 @@ K8_ATOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # ragged H, a partial last column tile (W = 40), plain loads (W = 45)
 K8_EDGE_SHAPES = ((2, 8, 64, 256), (2, 128, 48, 128), (3, 64, 37, 40),
                   (2, 64, 19, 45))
-# K8 dW vs the float64 plain version, relative L2 per launch: 4.2 M-term
-# sums in float32 partial rows (read 1.9e-6 on the H100; cuDNN's float32
-# weight gradient reads 2.2e-2 at this shape, hence the float64 reference)
+# K8 dW vs the float64 plain version of the upstream rounded to x's type,
+# relative L2 per launch: 4.2 M-term sums in float32 partial rows (read
+# 1.9e-6 on the H100; cuDNN's float32 weight gradient reads 2.2e-2 at this
+# shape, hence the float64 reference)
 K8_DW_REL_L2, K8_DW_REPEATS = 1e-4, 3
 # one 1G + 2D group, K8 vs the plain head, float32, cuDNN deterministic so
 # the other convs agree bit for bit: the losses, parameter gradients by
@@ -507,10 +516,33 @@ def _edge_operands(S_: int, K_: int, sigma: float, planes: int, dev,
     return [t.contiguous() for t in (gz, gy, gx, cc, taps, sc, gsil)]
 
 
+def _mixed_sign_operands(S_: int, K_: int, sigma: float, dev,
+                         n: int = 2000) -> list:
+    """Clouds with weights of either sign, on grid coordinates: points of
+    weight <= 0 are pinned to coordinate 0 (``_prep_projection``), where a
+    tenth of the points, of positive weight, also sit, so the signed sum
+    before the clamp to [0, 1] decides the corner voxels."""
+    rng = np.random.RandomState(S_ * K_)
+    pts = ((rng.rand(4, n, 3) - 0.5) * 1.05).astype(np.float32)
+    w = rng.uniform(-1.0, 1.0, (4, n)).astype(np.float32)
+    pts[:, :n // 10] = -0.5 + rng.uniform(0.0, 0.03, (4, n // 10, 3))
+    w[:, :n // 10] = np.abs(w[:, :n // 10]) + 0.5
+    scale = torch.as_tensor(rng.uniform(0.2, 1.5, 4).astype(np.float32),
+                            device=dev)
+    gz, gy, gx, c = _prep_projection(torch.as_tensor(pts, device=dev), S_,
+                                     torch.as_tensor(w, device=dev), 1e-6)
+    taps, sc = _taps_and_scale(torch.tensor(sigma, device=dev), scale, K_, 4,
+                               dev)
+    gsil = torch.as_tensor(rng.randn(4, S_, S_).astype(np.float32),
+                           device=dev)
+    return [t.contiguous() for t in (gz, gy, gx, c, taps, sc, gsil)]
+
+
 def _proj_cases(dev) -> list:
     """(tag, operands) of the checks beside the main shape: the card
     tests' (S, K), the edge clouds at the main (S, K) and at a generic
-    one, and a batch of empty clouds (no points)."""
+    one, a batch of empty clouds (no points) and clouds with weights of
+    either sign."""
     lim = projection_limits(dev)
     cases = [(f"S={s_} K={k_} sigma={sg}",
               _grid_operands(s_, k_, sg, 3, 1000, i, dev))
@@ -521,6 +553,9 @@ def _proj_cases(dev) -> list:
                       _edge_operands(s_, k_, sg, planes, dev)))
     empty = _grid_operands(S, 21, 3.0, 2, 0, 9, dev)
     cases.append(("empty clouds (N = 0)", empty))
+    for s_, k_, sg in ((S, 21, 3.0), (16, 9, 0.8)):
+        cases.append((f"mixed-sign weights S={s_} K={k_} sigma={sg}",
+                      _mixed_sign_operands(s_, k_, sg, dev)))
     return cases
 
 
@@ -1184,6 +1219,16 @@ def phase_k4(gpu: str, template) -> tuple[dict, torch.Tensor, torch.Tensor]:
                 and soft_e <= K4_SOFT_ATOL):
             raise AssertionError(f"K4 disagrees with plain (cull={cull})")
         err = max(err, e)
+        # the winner cache K4 writes for its backward: the plain rule's bits
+        cache = _launch_forward(verts[:, faces], attrs, RES, RES, SIGMA,
+                                cull, True)[2:]
+        rule = rasterize_winners_torch(verts, faces, RES, RES, cull)
+        same = [torch.equal(a, b) for a, b in zip(cache, rule)]
+        print(f"[K4] cull={cull}: winner cache (win, wz) bit-equal to the "
+              f"plain winner rule: {same}")
+        if not all(same):
+            raise AssertionError(f"K4's winner cache differs (cull={cull})")
+        del cache, rule
         if cull:
             uv = got[0][..., :2]
     ms = _time_ms(lambda: rasterize(verts, faces, attrs, RES, RES, SIGMA), 20)
@@ -1991,6 +2036,29 @@ def phase_k8_dw(gpu: str) -> dict:
             del g, ref, got
         del x
         torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICE).manual_seed(24)
+    for shape in K8_EDGE_SHAPES + ("unaligned",):
+        if shape == "unaligned":  # x 2 bytes past a 16-byte boundary
+            shape = (2, 16, 24, 64)
+            x = torch.empty(math.prod(shape) + 1, dtype=torch.bfloat16,
+                            device=DEVICE)[1:].view(shape)
+            x.copy_(torch.randn(shape, device=DEVICE, generator=gen))
+        else:
+            x = torch.randn(shape, device=DEVICE, generator=gen).to(
+                torch.bfloat16)
+        g = torch.randn((shape[0], 3, *shape[2:]), device=DEVICE,
+                        generator=gen)
+        for mode in ("replicate", "circular"):
+            got = [head_conv_dw_kernel(x, g, mode) for _ in range(2)]
+            ref = head_conv_dw_torch(x, g, mode)
+            torch.cuda.synchronize()
+            r = _rel_l2(got[0], ref)
+            print(f"[K8 dW] bfloat16 {tuple(shape)} x at "
+                  f"{x.data_ptr() % 16} mod 16, {mode}: relative L2 {r:.3e} "
+                  f"(limit {K8_DW_REL_L2}), bit-equal launches "
+                  f"{torch.equal(got[0], got[1])}")
+            if not (r <= K8_DW_REL_L2 and torch.equal(got[0], got[1])):
+                raise AssertionError(f"K8 dW disagrees with plain at {shape}")
     e, rel = out[torch.bfloat16, "replicate"]
     return dict(max_abs_err=e, max_rel_l2=rel, **timed)
 

@@ -64,6 +64,25 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// the same with K = 8: a 16 x 8 A (two registers) and an 8 x 8 B (one)
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4],
+                                            const uint32_t (&a)[2],
+                                            uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
+// two 8 x 8 b16 matrices; lanes 0 .. 15 give the addresses of their rows
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
 // ---- TMA boxes and the mbarriers they complete on -------------------------
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
@@ -131,27 +150,35 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the tensor map of a contiguous NCHW bf16 tensor x viewed as (W, H, C, B),
-// boxes of bw columns x bh rows x bc channels of one image, zero fill;
-// false where the driver refuses it (W must be a multiple of 8 and x
-// 16-byte aligned)
-inline bool encode_nchw_bf16(CUtensorMap* map, const void* x, int B, int C,
-                             int H, int W, int bw, int bh, int bc) {
+// the tensor map of a contiguous NCHW tensor x (bf16 or float32) viewed as
+// (W, H, C, B), boxes of bw columns x bh rows x bc channels of one image,
+// zero fill; false where cuTensorMapEncodeTiled refuses it (a row of x
+// must be a multiple of 16 bytes and x 16-byte aligned)
+inline bool encode_nchw(CUtensorMap* map, CUtensorMapDataType type,
+                        int elem, const void* x, int B, int C, int H, int W,
+                        int bw, int bh, int bc) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
+  const cuuint64_t e = static_cast<cuuint64_t>(elem);
   const cuuint64_t dims[4] = {
       static_cast<cuuint64_t>(W), static_cast<cuuint64_t>(H),
       static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {2ull * W, 2ull * H * W, 2ull * C * H * W};
+  const cuuint64_t strides[3] = {e * W, e * H * W, e * C * H * W};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(bw),
                              static_cast<cuuint32_t>(bh),
                              static_cast<cuuint32_t>(bc), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(x), dims, strides, box, unit,
+  return encode(map, type, 4, const_cast<void*>(x), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the same for bf16 x (W a multiple of 8)
+inline bool encode_nchw_bf16(CUtensorMap* map, const void* x, int B, int C,
+                             int H, int W, int bw, int bh, int bc) {
+  return encode_nchw(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, B, C, H, W,
+                     bw, bh, bc);
 }
 
 }  // namespace

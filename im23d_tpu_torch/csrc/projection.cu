@@ -4,7 +4,7 @@
 // K1 replaces the Pallas TPU kernel im23d_tpu/ops/splat_pallas.py
 // _proj_sorted_fwd_kernel (and its dense twin _proj_fwd_kernel).  Per cloud:
 //   splat (8 trilinear corners, weight c; corners clamped to the grid)
-//   -> clamp <= 1 -> Y, X, Z blur by the K taps (zero-padded 'same',
+//   -> clamp to [0, 1] -> Y, X, Z blur by the K taps (zero-padded 'same',
 //   half = K / 2, the band not assumed symmetric) -> x scale, clamp <= 1
 //   -> clip [eps, 1 - eps] -> termination recurrence (leading plane
 //   exp(eps + log o0)) -> depth sum, written flipped along Y.
@@ -23,12 +23,13 @@
 //     [r P, r P + P) (P = 8 at S = 64: 8 x 64 x 65 floats, rows padded to
 //     an odd stride so that a warp walking a row's neighbours in Y reads
 //     32 banks) and takes the rays y in [r P, r P + P);
-//   - splat: in 64-bit fixed point (2^-40: a corner weight above 2^-17 is
-//     exact, a smaller one within 2^-41, finer than float32 near the
-//     termination's eps; a weight above 2 counts as 2, which changes
-//     nothing past the clamp and keeps a sum of under 2^20 points' corners
-//     below 2^64).  An integer sum does not depend on the order of its
-//     adds, so both kernels give the same bits on every launch.  Eight
+//   - splat: in signed 64-bit fixed point (2^-40: a corner weight of
+//     magnitude above 2^-17 is exact, a smaller one within 2^-41, finer
+//     than float32 near the termination's eps), two's complement added
+//     through the unsigned 64-bit atomicAdd.  A point's weight is clamped
+//     to [-2, 2] (a keep mask never reaches the bound).  An integer sum
+//     does not depend on the order of its adds, so both kernels give the
+//     same bits on every launch.  Eight
 //     bytes a voxel do not fit beside the float planes, so the splat runs
 //     in passes of Q planes (Q = 4 at S = 64) through a 64-bit scratch
 //     that lies over the float planes of later passes: in each pass every
@@ -48,7 +49,7 @@
 //     owner, (rank + warp) mod C, so that the cluster's reads spread over
 //     all its CTAs at once instead of queueing at one.
 // K2 recomputes the same in its cluster, keeps the splat clamp's mask
-// (raw <= 1) as one bit a voxel, runs the termination VJP per ray (tail
+// (0 <= raw <= 1) as one bit a voxel, runs the termination VJP per ray (tail
 // summed back to front), writes scale x zblur^T(du) back into the ray's
 // own column, then the X and Y blur transposes per plane with the mask, and
 // the splat's transpose as a gather of each point's 8 corners through
@@ -59,12 +60,17 @@
 // Results agree with the plain chain to float rounding: the fixed-point
 // splat's sum is exact but for corner weights below 2^-17, rounded once to
 // float; the blurs sum their taps in another order than the plain band
-// matmul.  The splat weights c are taken to be >= 0 (keep masks), as the
-// plain chain's clamp to [0, 1] assumes.
+// matmul.  Splat weights of either sign are summed as the plain chain
+// sums them (ops/voxel.py splat_grid), then clamped to [0, 1]; K2's clamp
+// mask keeps the voxels with 0 <= sum <= 1, where torch.clamp passes the
+// gradient.
 //
-// The instance for S = 64, K = 21 (the chairs sweep) has S, K and P
-// compiled in; every other 1 <= S, K <= 64 runs the generic instance, whose
-// per-thread lines live in local memory.  The host-side plan
+// The instances for K = 21 and S = 64 (the chairs sweep) or S = 32 (the
+// planes and cars configurations: a cluster of 4, a ray a thread) have S,
+// K and P compiled in; every other 1 <= S, K <= 64 runs the generic
+// instance, whose per-thread lines live in local memory (at S = 32 it read
+// 0.52 ms for K1 at 320 x 4000 against the earlier chain's 0.30: NVIDIA
+// H100 80GB HBM3, 700 W, tools/kernel_times.py --only k1s32).  The host-side plan
 // (ops/projection.py projection_plan) chooses C and P and the shared
 // memory; the entry points refuse a plan they cannot run.
 #include <cooperative_groups.h>
@@ -80,8 +86,9 @@ constexpr int kMaxS = 64;
 constexpr int kMaxK = 64;
 constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr int kPlanes = 8;      // planes a CTA the plan aims for
-// the specialised instance
-constexpr int kExactS = 64, kExactK = 21;
+// the specialised instances: the chairs' 64^3 and the planes' and cars'
+// 32^3, both with 21 taps
+constexpr int kExactS = 64, kExactK = 21, kSmallS = 32;
 constexpr int kFwdThreads = 512, kBwdThreads = 256, kGenericThreads = 256;
 // scratch cells a thread turns into floats a plane
 constexpr int kCells = kMaxS * kMaxS / kGenericThreads;
@@ -106,9 +113,14 @@ struct ProjArgs {
   float eps;
 };
 
-// the splat's raw sums: unsigned 64-bit fixed point, 2^40 to 1; a corner
-// weight counts at most kMaxWeight, so that the corners of fewer than
-// kMaxPoints points never wrap a sum
+// the splat's raw sums: signed 64-bit fixed point, 2^40 to 1, held in the
+// unsigned words the 64-bit atomicAdd takes (two's complement: integer
+// sums wrap the same either way).  Headroom: a point's weight counts at
+// most kMaxWeight in magnitude and its trilinear corner factors sum to 1,
+// so it adds at most 2 (2^41 units, up to rounding) to one cell even
+// where the clamp of the corner indices sends several corners there; the
+// fewer than kMaxPoints = 2^20 points of a cloud then keep every sum below
+// 2^61 units in magnitude, inside the 63 bits of a signed word.
 constexpr float kFixedOne = 1099511627776.f;
 constexpr float kMaxWeight = 2.f;
 constexpr int kMaxPoints = 1 << 20;
@@ -176,12 +188,12 @@ __device__ __forceinline__ Point load_point(const ProjArgs& a, size_t off,
   return {a.c[off + i], a.gz[off + i], a.gy[off + i], a.gx[off + i]};
 }
 
-// add v >= 0 to a fixed-point cell (local or another CTA's); integer adds
-// commute, and the result is not read, so a remote add does not wait
+// add v, |v| <= kMaxWeight, to a fixed-point cell (local or another
+// CTA's); integer adds commute, and the result is not read, so a remote
+// add does not wait
 __device__ __forceinline__ void splat_add(unsigned long long* cell, float v) {
-  const unsigned long long q = __float2ull_rn(fminf(v, kMaxWeight) *
-                                              kFixedOne);
-  if (q != 0ull) atomicAdd(cell, q);
+  const long long q = __float2ll_rn(v * kFixedOne);
+  if (q != 0ll) atomicAdd(cell, static_cast<unsigned long long>(q));
 }
 
 // sum_t k[t] v[i + t - h] (forward) or sum_t k[t] v[i - t + h] (its
@@ -200,9 +212,9 @@ __device__ __forceinline__ float tap_sum(const float (&v)[AS],
 }
 
 // Blur a line of shared memory in place: the S values at line[i * stride]
-// are read into v first.  kLoadClamp takes min(., 1) of the splat's sums
-// and returns the mask (sum <= 1) as bits; kMask zeroes the outputs whose
-// bit is clear.
+// are read into v first.  kLoadClamp clamps the splat's sums to [0, 1]
+// and returns the mask (0 <= sum <= 1) as bits; kMask zeroes the outputs
+// whose bit is clear.
 template <bool kT, bool kLoadClamp, bool kMask, int AS, int AK>
 __device__ __forceinline__ uint64_t blur_line(float* line, int stride,
                                               const float (&k)[AK], int S,
@@ -212,10 +224,10 @@ __device__ __forceinline__ uint64_t blur_line(float* line, int stride,
 #pragma unroll
   for (int i = 0; i < S; ++i) {
     if (kLoadClamp) {
-      // splat sums are >= 0: only the top of the clamp binds
+      // a sum of weights of either sign: clamp to [0, 1]
       const float r = line[i * stride];
-      keep |= static_cast<uint64_t>(r <= 1.f) << i;
-      v[i] = fminf(r, 1.f);
+      keep |= static_cast<uint64_t>(r >= 0.f && r <= 1.f) << i;
+      v[i] = fminf(fmaxf(r, 0.f), 1.f);
     } else {
       v[i] = line[i * stride];
     }
@@ -256,7 +268,7 @@ __device__ __forceinline__ void splat_and_blur_yx(
     cluster_wait();  // every CTA's scratch zeroed
     for (; i < a.N; i += stride) {
       const Point next = load_point(a, off, i + stride);
-      const float w = pt.w;
+      const float w = fminf(fmaxf(pt.w, -kMaxWeight), kMaxWeight);
       const float fz = floorf(pt.z);
       const int iz = static_cast<int>(fz);
       const int z0 = clamp_index(iz, S), z1 = clamp_index(iz + 1, S);
@@ -297,7 +309,9 @@ __device__ __forceinline__ void splat_and_blur_yx(
 #pragma unroll
       for (int u = 0; u < kCells; ++u) {
         const int i = tid + u * kThreads;
-        if (i < SS) v[u] = __ull2float_rn(acc[j * SS + i]) * (1.f / kFixedOne);
+        if (i < SS)
+          v[u] = __ll2float_rn(static_cast<long long>(acc[j * SS + i])) *
+                 (1.f / kFixedOne);
       }
       __syncthreads();
       float* plane = pl + static_cast<size_t>(q0 + j) * S * SP;
@@ -415,14 +429,21 @@ __device__ __forceinline__ void column_io(cg::cluster_group cluster,
   }
 }
 
-// column_io with the owners visited from r0 (8 CTAs compiled in) or in
-// rank order (the generic instance)
+// column_io with the owners visited from r0 (8 or 4 CTAs compiled in) or
+// in rank order (the generic instance)
 template <bool kStore, int kC, int kP, int AS>
 __device__ __forceinline__ void column_io_from(cg::cluster_group cluster,
                                                float* pl, float (&w)[AS],
                                                int y, int x, int S, int P,
                                                int C, int r0) {
-  if constexpr (kC == 8) {
+  if constexpr (kC == 4) {
+    switch (r0) {
+      case 0: column_io<kStore, 0, 4, kP>(cluster, pl, w, y, x, S, P, C); break;
+      case 1: column_io<kStore, 1, 4, kP>(cluster, pl, w, y, x, S, P, C); break;
+      case 2: column_io<kStore, 2, 4, kP>(cluster, pl, w, y, x, S, P, C); break;
+      default: column_io<kStore, 3, 4, kP>(cluster, pl, w, y, x, S, P, C);
+    }
+  } else if constexpr (kC == 8) {
     switch (r0) {
       case 0: column_io<kStore, 0, 8, kP>(cluster, pl, w, y, x, S, P, C); break;
       case 1: column_io<kStore, 1, 8, kP>(cluster, pl, w, y, x, S, P, C); break;
@@ -434,7 +455,7 @@ __device__ __forceinline__ void column_io_from(cg::cluster_group cluster,
       default: column_io<kStore, 7, 8, kP>(cluster, pl, w, y, x, S, P, C);
     }
   } else {
-    static_assert(kC == 0, "the owners' order is compiled for 8 CTAs");
+    static_assert(kC == 0, "the owners' order is compiled for 8 or 4 CTAs");
     column_io<kStore, 0, 0, 0>(cluster, pl, w, y, x, S, P, C);
   }
 }
@@ -611,11 +632,15 @@ bool pick(bool bwd, int S, int K, int C, int P, int Q, Kernel* fn,
   if (S < 1 || S > kMaxS || K < 1 || K > kMaxK || P < 1 || P > S ||
       C != (S + P - 1) / P || C > kMaxCluster || Q < 1 || Q > P)
     return false;
-  const bool exact = S == kExactS && K == kExactK && P == kPlanes;
-  if (exact) {
+  const bool exact = K == kExactK && P == kPlanes;
+  if (exact && S == kExactS) {
     *fn = bwd ? proj_bwd_kernel<kExactS, kExactK, kPlanes, kBwdThreads>
               : proj_fwd_kernel<kExactS, kExactK, kPlanes, kFwdThreads>;
     *threads = bwd ? kBwdThreads : kFwdThreads;
+  } else if (exact && S == kSmallS) {  // a ray a thread: 8 x 32 a CTA
+    *fn = bwd ? proj_bwd_kernel<kSmallS, kExactK, kPlanes, kGenericThreads>
+              : proj_fwd_kernel<kSmallS, kExactK, kPlanes, kGenericThreads>;
+    *threads = kGenericThreads;
   } else {
     *fn = bwd ? proj_bwd_kernel<0, 0, 0, kGenericThreads>
               : proj_fwd_kernel<0, 0, 0, kGenericThreads>;

@@ -13,25 +13,46 @@
 //
 // What bounds it on the H100: CUDA-core arithmetic, about 100 instructions
 // (three edge functions, three segment distances with a division, an exp
-// and a log1p) per pixel and face near the pixel.  Design:
-//   * one block per 32 x 8 pixel tile of one image, one thread per pixel,
-//     a warp per tile row, so the output stores are coalesced;
-//   * faces staged through shared memory 32 at a time, in face order, so
-//     the chunk boundaries (and the tie rule they carry) are the plain
-//     version's;
-//   * warp 0 tests each staged face against the tile once: front-facing and
-//     its bounding box, widened by `margin` = sqrt(104 sigma), reaching the
-//     tile.  Beyond that margin exp(-d2/sigma) is 0 in float32 and no pixel
-//     can be inside, so a face outside it changes no result; the ballot of
-//     the test is a block-uniform mask, and a chunk whose mask is empty is
-//     skipped whole.  (The TPU kernel's 4 sqrt(sigma) margin drops coverage
-//     above 1e-7; it is not carried over, nor are its Morton sort, its 8x128
-//     tile layout and its MXU winner contraction, which served the TPU.)
-//   * the winner is kept per chunk in registers (running max, count and
-//     attribute sums) and per image in registers across chunks.
-// The edge functions, barycentrics, depth and segment distances use the
-// plain version's grouping with FMA contraction ruled out, so the inside
-// test, the depth ties and the winners agree with it bit for bit.
+// and a log1p) per pixel and face near the pixel; the bound counts the
+// pixel-face pairs inside each front face's box widened by `margin` =
+// sqrt(104 sigma).  Beyond that margin exp(-d2/sigma) is 0 in float32 and
+// no pixel can be inside, so a pair outside it changes no output bit (its
+// log1p term is -0).  (The TPU kernel's 4 sqrt(sigma) margin drops coverage
+// above 1e-7; it is not carried over, nor are its Morton sort, its 8x128
+// tile layout and its MXU winner contraction, which served the TPU.)
+// Design, two launches:
+//   * set-up (raster_setup_kernel): a block per (chunk of 32 faces, image).
+//     Its first warp computes each face's record once: corners, depths,
+//     edge vectors and reciprocal segment denominators, 1/area (the same
+//     __fdiv_rn) and the widened box; then each thread takes a 16 x 16
+//     pixel tile of
+//     the image and writes the tile's bin word of the chunk: bit j set
+//     where front face 32 chunk + j has its widened box reaching the
+//     tile's pixel centres.  A word is exactly the per-chunk ballot of the
+//     tiled kernel this replaced, written by one thread: no atomics, no
+//     cleared buffer, the same bins on every launch.
+//   * the rasterizer (raster_binned_kernel): a block per 16 x 16 tile, a
+//     warp per 8 x 4 pixels (square-ish, so that a face's box test is
+//     mostly uniform across the warp), a thread per pixel.  Each warp walks
+//     the tile's bin words in chunk order and their set bits in face order,
+//     so the chunk boundaries (and the tie rule they carry) are the plain
+//     version's.  For a chunk word, lane j tests face 32 chunk + j's box
+//     against the warp's pixels and copies the record of a face that
+//     passes into the warp's part of shared memory: one round trip a
+//     chunk, no block barrier.  The warp then walks those faces in order,
+//     and a lane skips a face whose box misses its pixel.
+//     The winner is kept per chunk in registers (running max, count and
+//     attribute sums) and per pixel across chunks.
+// The edge functions, barycentrics and depth use the plain version's
+// grouping with FMA contraction ruled out (the records hold differences
+// rounded as the per-pixel code rounded them), so the inside test, the
+// depth ties, the winners and feat agree with it bit for bit.  The soft
+// mask alone takes two products for divisions: the segment parameter by
+// the edge's reciprocal denominator from the set-up pass, and d2 / sigma as
+// d2 x (-1 / sigma).  Each moves a distance by an ulp and soft by ~1e-7;
+// dividing cost a fifth of the kernel's time (0.368 -> 0.299 ms in a
+// variant copy, NVIDIA H100 80GB HBM3, 700 W: tools/time_split.py --only
+// k4f).  A skipped pair adds -0 to log_miss.
 //
 // The backward (im23d_rasterize_bwd) replaces rasterizer_pallas.py
 // _bwd_kernel.  What bounds it: the same per pixel and nearby face
@@ -53,8 +74,11 @@
 
 namespace {
 
-constexpr int kTileW = 32, kTileH = 8, kThreads = kTileW * kTileH;
 constexpr int kChunk = 32;
+// the forward's bins: 16 x 16 pixel tiles, a block each, a warp per 8 x 4
+constexpr int kBinW = 16, kBinH = 16, kBinThreads = 256;
+constexpr int kWarpW = 8, kWarpH = 4;
+constexpr int kRec4 = 7;  // float4s of a face record
 constexpr int kMaxA = 8;  // rasterizer.py MAX_ATTRS
 constexpr float kNegBig = -1e9f;
 constexpr float kCovMax = 1.0f - 1e-7f;  // float32(1 - 1e-7)
@@ -87,141 +111,247 @@ __device__ __forceinline__ float pixel_y(int row, float sy) {
   return __fsub_rn(1.f, __fmul_rn(static_cast<float>(row) + 0.5f, sy));
 }
 
-// fv (B, F, 3 corners, 3 xyz), attrs (B, F, 3 corners, A),
-// feat (B, H, W, A), soft (B, H, W); win and wz (B, H, W), or null: the
-// winner cache of the backward, win = chunk << 6 | winner count of the
-// winning chunk (-1 where no face covers the pixel), wz its z.
+// (b - a) x (p - a) with b - a given: edge_fn with the difference rounded
+// once beforehand, the same value
+__device__ __forceinline__ float edge_v(float ax, float ay, float abx,
+                                        float aby, float px, float py) {
+  return __fsub_rn(__fmul_rn(abx, __fsub_rn(py, ay)),
+                   __fmul_rn(aby, __fsub_rn(px, ax)));
+}
+
+// seg_dist2 with ab and 1 / max(|ab|^2, 1e-12) given: the segment parameter
+// by a product with the edge's reciprocal, not a division (within an ulp;
+// the distance feeds the soft mask only)
+__device__ __forceinline__ float seg_dist2_v(float px, float py, float ax,
+                                             float ay, float abx, float aby,
+                                             float rden) {
+  const float apx = __fsub_rn(px, ax), apy = __fsub_rn(py, ay);
+  float t = __fmul_rn(__fadd_rn(__fmul_rn(apx, abx), __fmul_rn(apy, aby)),
+                      rden);
+  t = fminf(fmaxf(t, 0.f), 1.f);
+  const float dx = __fsub_rn(apx, __fmul_rn(t, abx));
+  const float dy = __fsub_rn(apy, __fmul_rn(t, aby));
+  return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+}
+
+// 1 / max(|ab|^2, 1e-12)
+__device__ __forceinline__ float seg_rden(float abx, float aby) {
+  return __fdiv_rn(
+      1.f,
+      fmaxf(__fadd_rn(__fmul_rn(abx, abx), __fmul_rn(aby, aby)), 1e-12f));
+}
+
+// A face's record, kRec4 float4s:
+//   0: x0 y0 x1 y1    1: x2 y2 1/area -    2: minx maxx miny maxy (widened)
+//   3: z0 z1 z2 -     4: x1-x0 y1-y0 x2-x1 y2-y1
+//   5: x0-x2 y0-y2 1/den01 1/den12           6: 1/den20 - - -
+// (den the segment's max(|ab|^2, 1e-12))
+// fv (B, F, 3, 3) -> recs (B, F, kRec4); bins (B, tiles, nwords) of the
+// chunk blockIdx.x of image blockIdx.y.
 template <bool kCull>
-__global__ void __launch_bounds__(kThreads)
-    rasterize_fwd_kernel(const float* __restrict__ fv,
+__global__ void __launch_bounds__(kBinThreads)
+    raster_setup_kernel(const float* __restrict__ fv,
+                        float4* __restrict__ recs,
+                        unsigned* __restrict__ bins, int F, int tiles_x,
+                        int tiles, int nwords, float sx, float sy,
+                        float margin) {
+  __shared__ float4 s_box[kChunk];
+  __shared__ unsigned s_front;
+  const int chunk = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  if (tid < kChunk) {
+    const int f = chunk * kChunk + tid;
+    bool front = false;
+    float4 box = make_float4(1.f, -1.f, 1.f, -1.f);
+    if (f < F) {
+      const size_t face = static_cast<size_t>(b) * F + f;
+      const float* v = fv + face * 9;
+      const float x0 = v[0], y0 = v[1], z0 = v[2], x1 = v[3], y1 = v[4],
+                  z1 = v[5], x2 = v[6], y2 = v[7], z2 = v[8];
+      const float area = edge_fn(x0, y0, x1, y1, x2, y2);
+      const bool nondegen = fabsf(area) > 1e-9f;
+      front = kCull ? area > 1e-9f : nondegen;
+      const float inv = __fdiv_rn(1.f, nondegen ? area : 1.f);
+      box = make_float4(fminf(fminf(x0, x1), x2) - margin,
+                        fmaxf(fmaxf(x0, x1), x2) + margin,
+                        fminf(fminf(y0, y1), y2) - margin,
+                        fmaxf(fmaxf(y0, y1), y2) + margin);
+      const float e01x = __fsub_rn(x1, x0), e01y = __fsub_rn(y1, y0);
+      const float e12x = __fsub_rn(x2, x1), e12y = __fsub_rn(y2, y1);
+      const float e20x = __fsub_rn(x0, x2), e20y = __fsub_rn(y0, y2);
+      float4* r = recs + face * kRec4;
+      r[0] = make_float4(x0, y0, x1, y1);
+      r[1] = make_float4(x2, y2, inv, 0.f);
+      r[2] = box;
+      r[3] = make_float4(z0, z1, z2, 0.f);
+      r[4] = make_float4(e01x, e01y, e12x, e12y);
+      r[5] = make_float4(e20x, e20y, seg_rden(e01x, e01y),
+                         seg_rden(e12x, e12y));
+      r[6] = make_float4(seg_rden(e20x, e20y), 0.f, 0.f, 0.f);
+    }
+    s_box[tid] = box;
+    const unsigned m = __ballot_sync(0xffffffffu, front);
+    if (tid == 0) s_front = m;
+  }
+  __syncthreads();
+  const unsigned front = s_front;
+  for (int t = tid; t < tiles; t += kBinThreads) {
+    // the tile's pixel centres span [tx0, tx1] x [ty0, ty1]
+    const int c0 = (t % tiles_x) * kBinW, r0 = (t / tiles_x) * kBinH;
+    const float tx0 = pixel_x(c0, sx), tx1 = pixel_x(c0 + kBinW - 1, sx);
+    const float ty1 = pixel_y(r0, sy), ty0 = pixel_y(r0 + kBinH - 1, sy);
+    unsigned word = 0u, m = front;
+    while (m) {
+      const int j = __ffs(m) - 1;
+      m &= m - 1u;
+      const float4 bx = s_box[j];
+      if (bx.x <= tx1 && bx.y >= tx0 && bx.z <= ty1 && bx.w >= ty0)
+        word |= 1u << j;
+    }
+    bins[(static_cast<size_t>(b) * tiles + t) * nwords + chunk] = word;
+  }
+}
+
+// attrs (B, F, 3 corners, A), feat (B, H, W, A), soft (B, H, W); win and wz
+// (B, H, W), or null: the winner cache of the backward, win = chunk << 6 |
+// winner count of the winning chunk (-1 where no face covers the pixel),
+// wz its z.  kA: the attribute count compiled in (3, the renderer's u, v,
+// mask), or kMaxA for any A <= kMaxA.
+template <bool kCull, int kA>
+__global__ void __launch_bounds__(kBinThreads)
+    raster_binned_kernel(const float4* __restrict__ recs,
+                         const unsigned* __restrict__ bins,
                          const float* __restrict__ attrs,
                          float* __restrict__ feat, float* __restrict__ soft,
-                         int* __restrict__ win, float* __restrict__ wz,
-                         int F, int A, int H, int W, float sx, float sy,
-                         float sigma, float margin) {
-  __shared__ float s_v[kChunk * 9];
-  __shared__ float s_at[kChunk * 3 * kMaxA];
-  __shared__ float s_inv_area[kChunk];
-  __shared__ unsigned s_mask;
-
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int c0 = blockIdx.x * kTileW, r0 = blockIdx.y * kTileH;
-  const int col = c0 + tid % kTileW, row = r0 + tid / kTileW;
+                         int* __restrict__ win, float* __restrict__ wz, int F,
+                         int A, int H, int W, int tiles_x, int tiles,
+                         int nwords, float sx, float sy, float sigma) {
+  const int t = blockIdx.x, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = (t % tiles_x) * kBinW + (warp % (kBinW / kWarpW)) * kWarpW;
+  const int r0 = (t / tiles_x) * kBinH + (warp / (kBinW / kWarpW)) * kWarpH;
+  const int col = c0 + lane % kWarpW, row = r0 + lane / kWarpW;
   const float px = pixel_x(col, sx), py = pixel_y(row, sy);
-  // the tile's pixel centres span [tx0, tx1] x [ty0, ty1]
-  const float tx0 = pixel_x(c0, sx), tx1 = pixel_x(c0 + kTileW - 1, sx);
-  const float ty1 = pixel_y(r0, sy), ty0 = pixel_y(r0 + kTileH - 1, sy);
-
-  const int A3 = 3 * A;
-  const float* fvb = fv + static_cast<size_t>(b) * F * 9;
-  const float* atb = attrs + static_cast<size_t>(b) * F * A3;
+  // the warp's pixel centres span [wx0, wx1] x [wy0, wy1]
+  const float wx0 = pixel_x(c0, sx), wx1 = pixel_x(c0 + kWarpW - 1, sx);
+  const float wy1 = pixel_y(r0, sy), wy0 = pixel_y(r0 + kWarpH - 1, sy);
+  const bool valid = row < H && col < W;
+  const int An = kA == kMaxA ? A : kA;
+  const float nis = __fdiv_rn(-1.f, sigma);  // cov = exp(d2 * (-1 / sigma))
+  const unsigned* bin = bins + (static_cast<size_t>(b) * tiles + t) * nwords;
+  const float4* rb = recs + static_cast<size_t>(b) * F * kRec4;
+  const float* atb = attrs + static_cast<size_t>(b) * F * 3 * An;
+  // the warp's copy of the records of a chunk's faces near its pixels
+  __shared__ float4 s_rec[kBinThreads / 32][kChunk][kRec4];
+  float4(*wrec)[kRec4] = s_rec[warp];
 
   float best_z = kNegBig;
   int best_word = -1;
-  float best[kMaxA];
+  float best[kA];
 #pragma unroll
-  for (int a = 0; a < kMaxA; ++a) best[a] = 0.f;
+  for (int a = 0; a < kA; ++a) best[a] = 0.f;
   float log_miss = 0.f;
 
-  for (int f0 = 0; f0 < F; f0 += kChunk) {
-    const int n = min(kChunk, F - f0);
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < n * 9; i += kThreads)
-      s_v[i] = fvb[static_cast<size_t>(f0) * 9 + i];
-    for (int i = tid; i < n * A3; i += kThreads)
-      s_at[(i / A3) * (3 * kMaxA) + i % A3] =
-          atb[static_cast<size_t>(f0) * A3 + i];
-    __syncthreads();
-    if (tid < kChunk) {
-      bool active = false;
-      if (tid < n) {
-        const float* v = s_v + tid * 9;
-        const float x0 = v[0], y0 = v[1], x1 = v[3], y1 = v[4], x2 = v[6],
-                    y2 = v[7];
-        const float area = edge_fn(x0, y0, x1, y1, x2, y2);
-        const bool nondegen = fabsf(area) > 1e-9f;
-        const bool front = kCull ? area > 1e-9f : nondegen;
-        s_inv_area[tid] = __fdiv_rn(1.f, nondegen ? area : 1.f);
-        const float minx = fminf(fminf(x0, x1), x2) - margin;
-        const float maxx = fmaxf(fmaxf(x0, x1), x2) + margin;
-        const float miny = fminf(fminf(y0, y1), y2) - margin;
-        const float maxy = fmaxf(fmaxf(y0, y1), y2) + margin;
-        active = front && minx <= tx1 && maxx >= tx0 && miny <= ty1 &&
-                 maxy >= ty0;
+  for (int w0 = 0; w0 < nwords; w0 += 32) {
+    const unsigned mine = w0 + lane < nwords ? __ldg(bin + w0 + lane) : 0u;
+    unsigned words = __ballot_sync(0xffffffffu, mine != 0u);
+    while (words) {  // the chunks with faces near the tile, in order
+      const int wl = __ffs(words) - 1;
+      words &= words - 1u;
+      const unsigned bits = __shfl_sync(0xffffffffu, mine, wl);
+      const int chunk = w0 + wl;
+      // lane j takes face 32 chunk + j of the bin: the faces whose box
+      // reaches the warp's pixels, and their records into shared memory,
+      // all in one round trip
+      const bool in_bin = (bits >> lane) & 1u;
+      const float4* rl = rb + static_cast<size_t>(chunk * kChunk + lane) *
+                                  kRec4;
+      float4 lb = make_float4(1.f, -1.f, 1.f, -1.f);
+      if (in_bin) lb = __ldg(rl + 2);
+      const bool near = in_bin && lb.x <= wx1 && lb.y >= wx0 &&
+                        lb.z <= wy1 && lb.w >= wy0;
+      unsigned faces = __ballot_sync(0xffffffffu, near);
+      if (faces == 0u) continue;
+      __syncwarp();  // the previous chunk's records are read
+      if (near) {
+#pragma unroll
+        for (int k = 0; k < kRec4; ++k)
+          wrec[lane][k] = k == 2 ? lb : __ldg(rl + k);
       }
-      const unsigned mask = __ballot_sync(0xffffffffu, active);
-      if (tid == 0) s_mask = mask;
-    }
-    __syncthreads();
-    unsigned mask = s_mask;  // block-uniform
-    if (mask == 0u) continue;
-
-    float cz = kNegBig, cnt = 0.f;
-    float acc[kMaxA];
+      __syncwarp();
+      float cz = kNegBig, cnt = 0.f;
+      float acc[kA];
 #pragma unroll
-    for (int a = 0; a < kMaxA; ++a) acc[a] = 0.f;
-    while (mask) {
-      const int j = __ffs(mask) - 1;
-      mask &= mask - 1u;
-      const float* v = s_v + j * 9;
-      const float x0 = v[0], y0 = v[1], x1 = v[3], y1 = v[4], x2 = v[6],
-                  y2 = v[7];
-      const float e01 = edge_fn(x0, y0, x1, y1, px, py);
-      const float e12 = edge_fn(x1, y1, x2, y2, px, py);
-      const float e20 = edge_fn(x2, y2, x0, y0, px, py);
-      bool inside = e01 >= 0.f && e12 >= 0.f && e20 >= 0.f;
-      if (!kCull) inside = inside || (e01 <= 0.f && e12 <= 0.f && e20 <= 0.f);
-      float d2 = 0.f;
-      if (inside) {
-        const float inv = s_inv_area[j];
-        const float w0 = __fmul_rn(e12, inv), w1 = __fmul_rn(e20, inv),
-                    w2 = __fmul_rn(e01, inv);
-        const float z = __fadd_rn(
-            __fadd_rn(__fmul_rn(w0, v[2]), __fmul_rn(w1, v[5])),
-            __fmul_rn(w2, v[8]));
-        if (z >= cz) {
-          if (z > cz) {
-            cz = z;
-            cnt = 0.f;
+      for (int a = 0; a < kA; ++a) acc[a] = 0.f;
+      while (faces) {  // the chunk's faces near the warp, in order
+        const int j = __ffs(faces) - 1;
+        faces &= faces - 1u;
+        const int f = chunk * kChunk + j;
+        const float4* r = wrec[j];
+        const float4 bx = r[2];
+        if (!(valid && bx.x <= px && px <= bx.y && bx.z <= py && py <= bx.w))
+          continue;  // the box misses this pixel: no inside, cov 0
+        const float4 v01 = r[0], v2 = r[1], ev = r[4], ev2 = r[5];
+        const float x0 = v01.x, y0 = v01.y, x1 = v01.z, y1 = v01.w,
+                    x2 = v2.x, y2 = v2.y;
+        const float e01 = edge_v(x0, y0, ev.x, ev.y, px, py);
+        const float e12 = edge_v(x1, y1, ev.z, ev.w, px, py);
+        const float e20 = edge_v(x2, y2, ev2.x, ev2.y, px, py);
+        bool inside = e01 >= 0.f && e12 >= 0.f && e20 >= 0.f;
+        if (!kCull) inside = inside || (e01 <= 0.f && e12 <= 0.f && e20 <= 0.f);
+        float d2 = 0.f;
+        if (inside) {
+          const float inv = v2.z;
+          const float4 z = r[3];
+          const float w0 = __fmul_rn(e12, inv), w1 = __fmul_rn(e20, inv),
+                      w2 = __fmul_rn(e01, inv);
+          const float zz = __fadd_rn(
+              __fadd_rn(__fmul_rn(w0, z.x), __fmul_rn(w1, z.y)),
+              __fmul_rn(w2, z.z));
+          if (zz >= cz) {
+            if (zz > cz) {
+              cz = zz;
+              cnt = 0.f;
 #pragma unroll
-            for (int a = 0; a < kMaxA; ++a) acc[a] = 0.f;
-          }
-          cnt += 1.f;
-          const float* at = s_at + j * (3 * kMaxA);
+              for (int a = 0; a < kA; ++a) acc[a] = 0.f;
+            }
+            cnt += 1.f;
+            const float* at = atb + static_cast<size_t>(f) * 3 * An;
 #pragma unroll
-          for (int a = 0; a < kMaxA; ++a) {
-            if (a < A) {
-              const float val = __fadd_rn(
-                  __fadd_rn(__fmul_rn(w0, at[a]), __fmul_rn(w1, at[A + a])),
-                  __fmul_rn(w2, at[2 * A + a]));
-              acc[a] = __fadd_rn(acc[a], val);
+            for (int a = 0; a < kA; ++a) {
+              if (a < An) {
+                const float val = __fadd_rn(
+                    __fadd_rn(__fmul_rn(w0, __ldg(at + a)),
+                              __fmul_rn(w1, __ldg(at + An + a))),
+                    __fmul_rn(w2, __ldg(at + 2 * An + a)));
+                acc[a] = __fadd_rn(acc[a], val);
+              }
             }
           }
+        } else {
+          const float rden20 = r[6].x;
+          d2 = fminf(fminf(seg_dist2_v(px, py, x0, y0, ev.x, ev.y, ev2.z),
+                           seg_dist2_v(px, py, x1, y1, ev.z, ev.w, ev2.w)),
+                     seg_dist2_v(px, py, x2, y2, ev2.x, ev2.y, rden20));
         }
-      } else {
-        d2 = fminf(fminf(seg_dist2(px, py, x0, y0, x1, y1),
-                         seg_dist2(px, py, x1, y1, x2, y2)),
-                   seg_dist2(px, py, x2, y2, x0, y0));
+        const float cov = expf(__fmul_rn(d2, nis));
+        log_miss = __fadd_rn(log_miss, log1pf(-fminf(cov, kCovMax)));
       }
-      const float cov = expf(__fdiv_rn(-d2, sigma));
-      log_miss = __fadd_rn(log_miss, log1pf(-fminf(cov, kCovMax)));
-    }
-    if (cz > best_z) {  // strict: an earlier chunk keeps a tie
-      best_z = cz;
-      best_word = (f0 / kChunk) << 6 | static_cast<int>(cnt);
-      const float c = fmaxf(cnt, 1.f);
+      if (cz > best_z) {  // strict: an earlier chunk keeps a tie
+        best_z = cz;
+        best_word = chunk << 6 | static_cast<int>(cnt);
+        const float c = fmaxf(cnt, 1.f);
 #pragma unroll
-      for (int a = 0; a < kMaxA; ++a) best[a] = __fdiv_rn(acc[a], c);
+        for (int a = 0; a < kA; ++a) best[a] = __fdiv_rn(acc[a], c);
+      }
     }
   }
 
-  if (row >= H || col >= W) return;
+  if (!valid) return;
   const size_t pix = (static_cast<size_t>(b) * H + row) * W + col;
   const bool covered = best_z > 0.5f * kNegBig;
 #pragma unroll
-  for (int a = 0; a < kMaxA; ++a)
-    if (a < A) feat[pix * A + a] = covered ? best[a] : 0.f;
+  for (int a = 0; a < kA; ++a)
+    if (a < An) feat[pix * An + a] = covered ? best[a] : 0.f;
   soft[pix] = __fsub_rn(1.f, expf(log_miss));
   if (win != nullptr) {
     win[pix] = covered ? best_word : -1;
@@ -420,30 +550,54 @@ __global__ void __launch_bounds__(kBwdWarps * 32, 8)
 
 }  // namespace
 
-// win and wz may be null (no winner cache).
+// win and wz may be null (no winner cache).  recs (B, F, kRec4 float4s)
+// and bins (B, tiles, ceil(F / 32) words, tiles = ceil(H / tile_h) x
+// ceil(W / tile_w)) are scratch the set-up pass writes whole; tile_w and
+// tile_h must be the kernel's (16 x 16).
 extern "C" int im23d_rasterize_fwd(const void* fv, const void* attrs,
                                    void* feat, void* soft, void* win,
-                                   void* wz, int B, int F, int A, int H,
-                                   int W, float sx, float sy, float sigma,
-                                   float margin, int cull, void* stream) {
+                                   void* wz, void* recs, void* bins, int B,
+                                   int F, int A, int H, int W, int tile_w,
+                                   int tile_h, float sx, float sy,
+                                   float sigma, float margin, int cull,
+                                   void* stream) {
   if (B < 1 || B > 65535 || F < 0 || A < 1 || A > kMaxA || H < 1 || W < 1 ||
-      !(sigma > 0.f))
+      !(sigma > 0.f) || tile_w != kBinW || tile_h != kBinH)
     return cudaErrorInvalidValue;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, B);
+  if ((win == nullptr) != (wz == nullptr)) return cudaErrorInvalidValue;
+  const int tiles_x = (W + kBinW - 1) / kBinW;
+  const long long tiles_ll =
+      static_cast<long long>(tiles_x) * ((H + kBinH - 1) / kBinH);
+  if (tiles_ll > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int tiles = static_cast<int>(tiles_ll);
+  const int nwords = (F + kChunk - 1) / kChunk;
   auto s = static_cast<cudaStream_t>(stream);
   auto v = static_cast<const float*>(fv);
+  auto rc = static_cast<float4*>(recs);
+  auto bn = static_cast<unsigned*>(bins);
+  if (nwords > 0) {
+    const dim3 grid(nwords, B);
+    if (cull)
+      raster_setup_kernel<true><<<grid, kBinThreads, 0, s>>>(
+          v, rc, bn, F, tiles_x, tiles, nwords, sx, sy, margin);
+    else
+      raster_setup_kernel<false><<<grid, kBinThreads, 0, s>>>(
+          v, rc, bn, F, tiles_x, tiles, nwords, sx, sy, margin);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   auto at = static_cast<const float*>(attrs);
   auto fe = static_cast<float*>(feat);
   auto so = static_cast<float*>(soft);
   auto wi = static_cast<int*>(win);
   auto z = static_cast<float*>(wz);
-  if ((wi == nullptr) != (z == nullptr)) return cudaErrorInvalidValue;
-  if (cull)
-    rasterize_fwd_kernel<true><<<grid, kThreads, 0, s>>>(
-        v, at, fe, so, wi, z, F, A, H, W, sx, sy, sigma, margin);
-  else
-    rasterize_fwd_kernel<false><<<grid, kThreads, 0, s>>>(
-        v, at, fe, so, wi, z, F, A, H, W, sx, sy, sigma, margin);
+  auto kernel = cull ? (A == 3 ? raster_binned_kernel<true, 3>
+                               : raster_binned_kernel<true, kMaxA>)
+                    : (A == 3 ? raster_binned_kernel<false, 3>
+                              : raster_binned_kernel<false, kMaxA>);
+  kernel<<<dim3(tiles, B), kBinThreads, 0, s>>>(rc, bn, at, fe, so, wi, z, F,
+                                                A, H, W, tiles_x, tiles,
+                                                nwords, sx, sy, sigma);
   return cudaGetLastError();
 }
 

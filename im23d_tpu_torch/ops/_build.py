@@ -48,10 +48,10 @@ _SIGNATURES = {
     "im23d_projection_occupancy": [_I, _I, _I, _I, _I, _I, _L, _P],
     # x, y, out, B, N, M, stream
     "im23d_nn_dist2": [_P, _P, _P, _I, _I, _I, _P],
-    # fv, attrs, feat, soft, win, wz, B, F, A, H, W, sx, sy, sigma, margin,
-    # cull, stream
-    "im23d_rasterize_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                            _F, _F, _F, _I, _P],
+    # fv, attrs, feat, soft, win, wz, recs, bins, B, F, A, H, W, tile_w,
+    # tile_h, sx, sy, sigma, margin, cull, stream
+    "im23d_rasterize_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _F, _F, _F, _I, _P],
     # fv, attrs, dfeat, dsoft, soft, win, wz, dfv, dattrs, B, F, A, H, W,
     # sx, sy, sigma, margin, cull, stream
     "im23d_rasterize_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -63,16 +63,18 @@ def head_conv_tanh_torch(x: torch.Tensor, weight: torch.Tensor,
 def head_conv_dw_torch(x: torch.Tensor, g: torch.Tensor,
                        pad_mode: str = "replicate") -> torch.Tensor:
     """Plain dW: the weight gradient of the padded conv for the float32
-    upstream ``g`` (B, 3, H, W) = dy·(1 − y²), (3, C, 5, 5) float32.
+    upstream ``g`` (B, 3, H, W) = dy·(1 − y²), rounded to x's type first
+    as the JAX VJP rounds it (``conv_pallas.py:316-322``: bf16 products
+    for bfloat16 x), (3, C, 5, 5) float32.
 
-    Taken in float64: cuDNN's float32 weight gradient of this conv read a
+    Summed in float64: cuDNN's float32 weight gradient of this conv read a
     relative L2 error of 2.2e-2 against a float64 reference at the main
     path's shape (32 × 64 × 512 × 256, H100 80GB HBM3 at 700 W), K8's dW
     1.9e-6; a float32 reference could not tell a right kernel from a
     wrong one."""
     xp = _pad_w(x.double(), pad_mode)
     return torch.nn.grad.conv2d_weight(
-        xp, (COUT, x.shape[1], KSIZE, KSIZE), g.double(),
+        xp, (COUT, x.shape[1], KSIZE, KSIZE), g.to(x.dtype).double(),
         padding=(PAD, 0)).float()
 
 
@@ -137,16 +139,21 @@ def head_conv_dw_kernel(x: torch.Tensor, g: torch.Tensor,
                         pad_mode: str = "replicate") -> torch.Tensor:
     """Launch K8's dW: x (B, C, H, W) float32 or bfloat16 and the float32
     upstream g (B, 3, H, W), contiguous on one CUDA device; returns the
-    (3, C, 5, 5) float32 weight gradient.
+    (3, C, 5, 5) float32 weight gradient of g rounded to x's type, as the
+    JAX VJP computes it (``head_conv_dw_torch``).
 
     Replaces the Pallas kernel ``_dw_kernel``
-    (``im23d_tpu/ops/conv_pallas.py:188``).  Bound by bytes for bfloat16 x
-    (the TPU kernel's products take bf16 operands; the float32 upstream
-    is this port's choice), by operations for float32 x; a thread
-    owns one (channel, tap row) and its 15 sums, each block sums a fixed
-    set of 4 × 32 tiles into its row of a partial buffer (3 rows a
-    multiprocessor), and a second kernel adds the rows in order: the same
-    result on every launch (see ``csrc/head_conv.cu``).
+    (``im23d_tpu/ops/conv_pallas.py:188``).  Bound by bytes for bfloat16
+    x: with C <= 64 (the head) bf16 ``mma.sync`` with the tap column
+    folded into M = (tap column, output), x streamed a row at a time by
+    TMA boxes down each 128-column tile and read once, g staged in float32
+    and rounded to bf16 as its pairs are read, one persistent block an SM
+    writing a partial row.
+    Float32 x (bound by operations) and wider bfloat16 x run on the FMA
+    units: a thread owns one (channel, tap row) and its 15 sums, each
+    block sums a fixed set of 4 × 32 tiles into its row of a partial
+    buffer (3 rows a multiprocessor).  A second kernel adds the rows in
+    order: the same result on every launch (see ``csrc/head_conv.cu``).
     """
     _check(x, pad_mode)
     B, C, H, W = x.shape
@@ -155,6 +162,8 @@ def head_conv_dw_kernel(x: torch.Tensor, g: torch.Tensor,
             or tuple(g.shape) != (B, COUT, H, W)):
         raise ValueError(f"g must be a contiguous float32 {(B, COUT, H, W)} "
                          f"tensor on {dev}")
+    # a row a block: the FMA kernel's blocks, or at most the tensor-core
+    # kernel's one block an SM
     tiles = B * -(-H // 4) * -(-W // 32)
     nrows = min(tiles, 3 * torch.cuda.get_device_properties(
         dev).multi_processor_count)

@@ -41,8 +41,9 @@ def _prep_projection(points: Points, size: int, weights, border_eps: float):
     """Voxel-grid coords ``(S-1)(p+0.5)`` + splat weights ``c``.
 
     Strict border cull on all three coordinates; ``weights`` multiply ``c``;
-    culled and zero-weight points get zeroed coordinates.  Returns (B, N)
-    planes (gz, gy, gx, c).
+    culled points and points with ``c <= 0`` get zeroed coordinates, as the
+    JAX version pins them (a negative weight is still splatted, at voxel
+    0).  Returns (B, N) planes (gz, gy, gx, c).
     """
     pz, py, px = _planes(points)
     S = int(size)
@@ -60,7 +61,7 @@ def _prep_projection(points: Points, size: int, weights, border_eps: float):
 def projection_grid_torch(gz, gy, gx, c, taps, scale, size: int,
                           eps: float = 1e-5) -> torch.Tensor:
     """Plain PyTorch version of K1 on (B, N) grid-coordinate planes: splat
-    -> clamp <= 1 -> Y/X/Z blur by ``taps`` -> x ``scale``, clamp ->
+    -> clamp to [0, 1] -> Y/X/Z blur by ``taps`` -> x ``scale``, clamp ->
     termination -> flipped depth sum.  Differentiable in every operand."""
     vox = splat_grid(torch.stack((gz, gy, gx), dim=-1), c, size)
     smooth = blur_3d(vox, taps, scale=scale)

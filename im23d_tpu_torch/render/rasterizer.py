@@ -37,6 +37,12 @@ FACE_CHUNK = 32
 # most attributes per face corner K4 takes (the renderer uses 3: u, v, mask)
 MAX_ATTRS = 8
 _NEG_BIG = -1e9
+# K4 forward's bins: one per 16 x 16 pixel tile, a word per FACE_CHUNK faces
+# (the kernel refuses another tile)
+BIN_TILE = 16
+# floats of a face record K4 forward's set-up pass writes (csrc/rasterize.cu
+# kRec4 float4s)
+_RECORD = 28
 
 
 def _pixel_grid(height: int, width: int, dtype, device):
@@ -66,9 +72,11 @@ def _point_segment_dist2(px, py, ax, ay, bx, by):
 
 
 def _chunk_step(best_z, best_feat, log_miss, cfv, cattr, px, py, sigma,
-                cull_backfaces):
+                cull_backfaces, keep=None):
     """One chunk of faces: the chunk's winners update the z-buffer and the
-    interpolated attributes, its faces' coverage adds to log_miss."""
+    interpolated attributes, its faces' coverage adds to log_miss.  With
+    ``keep`` (B, C, H, W) bool, a pixel-face pair outside it is skipped: not
+    inside, coverage 0 (``rasterize_binned_torch``)."""
     B, height, width, A = best_feat.shape
     dt = best_z.dtype
     x = cfv[..., 0][..., None, None]       # (B, C, 3, 1, 1)
@@ -93,6 +101,8 @@ def _chunk_step(best_z, best_feat, log_miss, cfv, cattr, px, py, sigma,
     if not cull_backfaces:
         inside = inside | ((e01 <= 0) & (e12 <= 0) & (e20 <= 0))
     inside = inside & front
+    if keep is not None:
+        inside = inside & keep
     z = (w0 * zc[:, :, 0, None, None] + w1 * zc[:, :, 1, None, None]
          + w2 * zc[:, :, 2, None, None])
     z_masked = torch.where(inside, z, torch.full_like(z, _NEG_BIG))
@@ -120,6 +130,8 @@ def _chunk_step(best_z, best_feat, log_miss, cfv, cattr, px, py, sigma,
         _point_segment_dist2(px, py, x2, y2, x0, y0))
     d2 = torch.where(inside, torch.zeros_like(d2), d2)
     cov = torch.where(front, torch.exp(-d2 / sigma), torch.zeros_like(d2))
+    if keep is not None:
+        cov = torch.where(keep, cov, torch.zeros_like(cov))
     log_miss = log_miss + torch.log1p(
         -torch.clamp(cov, max=1.0 - 1e-7)).sum(dim=1)
     return best_z, best_feat, log_miss
@@ -169,6 +181,152 @@ def rasterize_torch(verts: torch.Tensor, faces: torch.Tensor,
     return feat, soft
 
 
+def _pixel_x(col: torch.Tensor, width: int) -> torch.Tensor:
+    """Pixel-centre x of integer columns, rounded as ``_pixel_grid`` and
+    K4's ``pixel_x`` round it: (col + 0.5) * float32(2 / W) - 1."""
+    return (col.to(torch.float32) + 0.5) * (2.0 / width) - 1.0
+
+
+def _pixel_y(row: torch.Tensor, height: int) -> torch.Tensor:
+    return 1.0 - (row.to(torch.float32) + 0.5) * (2.0 / height)
+
+
+def _face_boxes(fv: torch.Tensor, sigma: float):
+    """The faces' bounding boxes widened by ``soft_margin(sigma)``, in
+    float32 as K4's set-up pass computes them: (minx, maxx, miny, maxy),
+    each (B, F)."""
+    m = torch.tensor(soft_margin(sigma), dtype=torch.float32)
+    x, y = fv[..., 0], fv[..., 1]
+    return (x.amin(-1) - m, x.amax(-1) + m, y.amin(-1) - m, y.amax(-1) + m)
+
+
+def _front(fv: torch.Tensor, cull_backfaces: bool) -> torch.Tensor:
+    x, y = fv[..., 0], fv[..., 1]
+    area = _edge(x[..., 0], y[..., 0], x[..., 1], y[..., 1], x[..., 2],
+                 y[..., 2])
+    return area > 1e-9 if cull_backfaces else torch.abs(area) > 1e-9
+
+
+def bin_faces_torch(fv: torch.Tensor, height: int, width: int,
+                    sigma: float = 1e-4,
+                    cull_backfaces: bool = True) -> torch.Tensor:
+    """Plain version of K4 forward's binning: (B, tiles, F) bool, face f in
+    the bin of tile t (tiles of ``BIN_TILE``² pixels, row-major) where it is
+    drawn (front-facing, or any non-degenerate face without culling) and
+    its widened box (``_face_boxes``) reaches the tile's pixel centres; the
+    bin word of chunk k holds faces 32 k .. 32 k + 31, bit j face 32 k + j.
+    The same float32 comparisons as the kernel's set-up pass."""
+    fv = fv.float()
+    minx, maxx, miny, maxy = (t[..., None] for t in _face_boxes(fv, sigma))
+    c0 = torch.arange(0, width, BIN_TILE, device=fv.device)
+    r0 = torch.arange(0, height, BIN_TILE, device=fv.device)
+    tx0, tx1 = _pixel_x(c0, width), _pixel_x(c0 + BIN_TILE - 1, width)
+    ty1, ty0 = _pixel_y(r0, height), _pixel_y(r0 + BIN_TILE - 1, height)
+    hit_x = (minx <= tx1) & (maxx >= tx0)  # (B, F, tiles_x)
+    hit_y = (miny <= ty1) & (maxy >= ty0)  # (B, F, tiles_y)
+    hit = hit_y[..., :, None] & hit_x[..., None, :]
+    hit = hit & _front(fv, cull_backfaces)[..., None, None]
+    B, F = fv.shape[:2]
+    return hit.reshape(B, F, len(r0) * len(c0)).transpose(1, 2)
+
+
+def rasterize_binned_torch(verts: torch.Tensor, faces: torch.Tensor,
+                           attrs: torch.Tensor, height: int, width: int,
+                           sigma: float = 1e-4, cull_backfaces: bool = True):
+    """``rasterize_torch`` walking only what K4 forward walks: a pixel-face
+    pair is visited where the face is in the bin of the pixel's tile
+    (``bin_faces_torch``) and its widened box holds the pixel centre; every
+    other pair is skipped (not inside, coverage 0).  Equal to
+    ``rasterize_torch`` bit for bit where the binning drops nothing."""
+    B = verts.shape[0]
+    F = faces.shape[0]
+    A = attrs.shape[-1]
+    dt, dev = verts.dtype, verts.device
+    px, py = _pixel_grid(height, width, dt, dev)
+    faces = faces.to(device=dev, dtype=torch.int64)
+    pad = -F % FACE_CHUNK
+    if pad:  # degenerate, as rasterize_torch pads: in no bin
+        faces = torch.cat([faces, faces.new_zeros((pad, 3))])
+        attrs = torch.cat([attrs, attrs.new_zeros((B, pad, 3, A))], dim=1)
+    fv = verts[:, faces]
+    bins = bin_faces_torch(fv, height, width, sigma, cull_backfaces)
+    rows = torch.arange(height, device=dev) // BIN_TILE
+    cols = torch.arange(width, device=dev) // BIN_TILE
+    tile = rows[:, None] * -(-width // BIN_TILE) + cols[None, :]  # (H, W)
+    minx, maxx, miny, maxy = _face_boxes(fv, sigma)
+    carry = (torch.full((B, height, width), _NEG_BIG, dtype=dt, device=dev),
+             torch.zeros((B, height, width, A), dtype=dt, device=dev),
+             torch.zeros((B, height, width), dtype=dt, device=dev))
+    for c0 in range(0, F + pad, FACE_CHUNK):
+        sl = slice(c0, c0 + FACE_CHUNK)
+        # (B, C, H, W), contiguous: torch sums the chunk's log1p terms in
+        # an order that follows the layout of its operands
+        in_bin = bins[:, :, sl][:, tile].permute(0, 3, 1, 2).contiguous()
+
+        def box(t):
+            return t[:, sl, None, None]
+
+        keep = (in_bin & (box(minx) <= px) & (px <= box(maxx))
+                & (box(miny) <= py) & (py <= box(maxy)))
+        carry = _chunk_step(*carry, fv[:, sl], attrs[:, sl], px, py, sigma,
+                            cull_backfaces, keep)
+    best_z, best_feat, log_miss = carry
+    covered = best_z > _NEG_BIG * 0.5
+    feat = torch.where(covered[..., None], best_feat,
+                       torch.zeros_like(best_feat))
+    soft = (1.0 - torch.exp(log_miss))[..., None]
+    return feat, soft
+
+
+def rasterize_winners_torch(verts: torch.Tensor, faces: torch.Tensor,
+                            height: int, width: int,
+                            cull_backfaces: bool = True):
+    """Plain version of K4 forward's winner cache: win (B, H, W) int32,
+    chunk << 6 | the winning chunk's count of faces at its largest z (-1
+    where no face covers the pixel), and wz (B, H, W) float32, that z
+    (``_NEG_BIG`` where uncovered).  The inside test and z of
+    ``_chunk_step``, rounded as K4 rounds them: K4's must equal these bit
+    for bit."""
+    B = verts.shape[0]
+    dev = verts.device
+    px, py = _pixel_grid(height, width, torch.float32, dev)
+    fv = verts.float()[:, faces.to(device=dev, dtype=torch.int64)]
+    best_z = torch.full((B, height, width), _NEG_BIG, dtype=torch.float32,
+                        device=dev)
+    best_word = torch.full((B, height, width), -1, dtype=torch.int32,
+                           device=dev)
+    for c0 in range(0, fv.shape[1], FACE_CHUNK):
+        cfv = fv[:, c0:c0 + FACE_CHUNK]
+        x = cfv[..., 0][..., None, None]
+        y = cfv[..., 1][..., None, None]
+        zc = cfv[..., 2]
+        x0, x1, x2 = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+        y0, y1, y2 = y[:, :, 0], y[:, :, 1], y[:, :, 2]
+        area = _edge(x0, y0, x1, y1, x2, y2)
+        front = area > 1e-9 if cull_backfaces else torch.abs(area) > 1e-9
+        e01 = _edge(x0, y0, x1, y1, px, py)
+        e12 = _edge(x1, y1, x2, y2, px, py)
+        e20 = _edge(x2, y2, x0, y0, px, py)
+        inv_area = 1.0 / torch.where(torch.abs(area) > 1e-9, area,
+                                     torch.ones_like(area))
+        inside = (e01 >= 0) & (e12 >= 0) & (e20 >= 0)
+        if not cull_backfaces:
+            inside = inside | ((e01 <= 0) & (e12 <= 0) & (e20 <= 0))
+        inside = inside & front
+        z = (e12 * inv_area * zc[:, :, 0, None, None]
+             + e20 * inv_area * zc[:, :, 1, None, None]
+             + e01 * inv_area * zc[:, :, 2, None, None])
+        z = torch.where(inside, z, torch.full_like(z, _NEG_BIG))
+        cz = z.amax(dim=1)
+        cnt = (inside & (z >= cz[:, None])).sum(dim=1).to(torch.int32)
+        better = cz > best_z
+        best_word = torch.where(better, (c0 // FACE_CHUNK) << 6 | cnt,
+                                best_word)
+        best_z = torch.where(better, cz, best_z)
+    covered = best_z > _NEG_BIG * 0.5
+    return torch.where(covered, best_word, -1), best_z
+
+
 def soft_margin(sigma: float) -> float:
     """NDC distance beyond which a face's coverage exp(-d²/sigma) is 0 in
     float32 (expf underflows to 0 below -103.97): K4 may skip the face
@@ -212,14 +370,20 @@ def _launch_forward(fv: torch.Tensor, attrs: torch.Tensor, height: int,
     if winners:
         win = torch.empty((B, height, width), dtype=torch.int32, device=dev)
         wz = torch.empty((B, height, width), dtype=torch.float32, device=dev)
+    # the set-up pass's face records and bins, written whole by it
+    tiles = -(-height // BIN_TILE) * -(-width // BIN_TILE)
+    recs = torch.empty((B, F, _RECORD), dtype=torch.float32, device=dev)
+    bins = torch.empty((B, tiles, -(-F // FACE_CHUNK)), dtype=torch.int32,
+                       device=dev)
     lib = _build.load_kernels()
     rc = lib.im23d_rasterize_fwd(
         fv.data_ptr(), attrs.data_ptr(), feat.data_ptr(), soft.data_ptr(),
         win.data_ptr() if winners else None,
-        wz.data_ptr() if winners else None,
-        B, F, A, height, width, float(np.float32(2.0 / width)),
-        float(np.float32(2.0 / height)), float(sigma), soft_margin(sigma),
-        int(cull_backfaces), torch.cuda.current_stream(dev).cuda_stream)
+        wz.data_ptr() if winners else None, recs.data_ptr(),
+        bins.data_ptr(), B, F, A, height, width, BIN_TILE, BIN_TILE,
+        float(np.float32(2.0 / width)), float(np.float32(2.0 / height)),
+        float(sigma), soft_margin(sigma), int(cull_backfaces),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "rasterize kernel (K4)")
     rasterize_kernel.launches += 1
     return feat, soft, win, wz
@@ -245,9 +409,12 @@ def rasterize_kernel(verts: torch.Tensor, faces: torch.Tensor,
     Replaces the Pallas kernel ``_fwd_kernel``
     (``im23d_tpu/render/rasterizer_pallas.py:216``).  Bound by arithmetic
     on the CUDA cores (edge functions, segment distances and one exp and
-    one log1p per pixel and nearby face); one thread per pixel, faces staged
-    through shared memory 32 at a time in face order, chunks and faces that
-    cannot touch a tile skipped block-uniformly (see ``csrc/rasterize.cu``).
+    one log1p per pixel and nearby face).  A set-up pass writes each
+    face's record once and each 16 × 16 tile's bin, a word per 32 faces
+    (``bin_faces_torch`` is its plain version); then a thread per pixel,
+    a warp per 8 × 4 pixels, walks its tile's bins in face order and skips
+    the faces whose widened box misses its pixel (see
+    ``csrc/rasterize.cu``).
     """
     return _launch_forward(_gather_corners(verts, faces), attrs, height,
                            width, sigma, cull_backfaces, winners=False)[:2]

@@ -6,7 +6,10 @@ torch layout.
 
 Same numpy inputs through both, float32.  Tolerances:
   * head conv: values atol 2e-6, dx / dW / db atol 1e-4, the limits of
-    ``tests/test_conv_pallas.py``;
+    ``tests/test_conv_pallas.py``; K8's plain dW for bfloat16 x against
+    the JAX VJP's dW (bf16 products of x and the upstream rounded to
+    bf16, float32 sums) by relative L2 1e-5: the same bf16 operands, the
+    plain sum in float64;
   * generator and critics: outputs within 1e-4 × max(1, max |ref|) (a
     texture sums 1600 products per pixel through eight conditional batch
     norms, in another order than XLA's); updated batch-norm statistics and
@@ -32,7 +35,7 @@ from im23d_tpu_torch.core.convert import (
 )
 from im23d_tpu_torch.losses.gan_losses import gan_loss
 from im23d_tpu_torch.models import gan as tgan
-from im23d_tpu_torch.ops.conv import head_conv_tanh
+from im23d_tpu_torch.ops.conv import head_conv_dw_torch, head_conv_tanh
 
 RES = 128  # the generator's smallest texture resolution
 
@@ -84,6 +87,42 @@ def test_head_conv_plain_matches_pallas_interpret(shape, pad_mode):
     for name, g, r in zip(("dx", "dW", "db"), got, jgrads):
         np.testing.assert_allclose(g, np.asarray(r), atol=1e-4, rtol=0,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("pad_mode", ["replicate", "circular"])
+@pytest.mark.parametrize("shape", [(2, 16, 16, 8), (1, 12, 24, 16)])
+def test_head_conv_dw_bf16_matches_jax_vjp(shape, pad_mode):
+    """K8's plain dW rounds the float32 upstream g = dy (1 - y^2) to x's
+    type before its sum, as the JAX VJP does (``conv_pallas.py:316-322``):
+    for bfloat16 x both sum the same bf16 products."""
+    rng = np.random.default_rng(1)
+    B, H, W, C = shape
+    x = jnp.asarray(rng.standard_normal(shape), jnp.bfloat16)
+    k = jnp.asarray(rng.standard_normal((5, 5, C, 3)) * 0.1, jnp.float32)
+    b = jnp.asarray(rng.standard_normal(3) * 0.1, jnp.float32)
+    dy = rng.standard_normal((B, H, W, 3)).astype(np.float32)
+
+    def jloss(k):
+        y = j_head_conv(x, k, b, True, pad_mode)[..., :3]
+        return jnp.sum(y.astype(jnp.float32) * dy)
+
+    jdw = np.asarray(jax.grad(jloss)(k))  # (5, 5, C, 3)
+    y = np.asarray(j_head_conv(x, k, b, True, pad_mode)[..., :3],
+                   np.float32)
+    # the VJP's float32 upstream: the cotangent reaches the bf16 output
+    # rounded to bf16
+    dyb = np.asarray(jnp.asarray(dy, jnp.bfloat16), np.float32)
+    g = dyb * (1.0 - y * y)
+    tx = torch.from_numpy(np.asarray(x, np.float32).transpose(0, 3, 1, 2)
+                          .copy()).to(torch.bfloat16)
+    tg = torch.from_numpy(g.transpose(0, 3, 1, 2).copy())
+    got = head_conv_dw_torch(tx, tg, pad_mode).numpy().transpose(2, 3, 1, 0)
+    rel = np.linalg.norm(got - jdw) / np.linalg.norm(jdw)
+    assert rel <= 1e-5, rel
+    # without the rounding the sums differ by the upstream's bf16 rounding
+    raw = head_conv_dw_torch(tx.float(), tg, pad_mode).numpy()
+    assert np.linalg.norm(raw.transpose(2, 3, 1, 0) - jdw) > 10 * rel * \
+        np.linalg.norm(jdw)
 
 
 def _configs(**kw):

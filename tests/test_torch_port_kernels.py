@@ -8,9 +8,10 @@ the repository root:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_port_kernels.py
 
-Tolerances: K1 splats in 8.24 fixed point (each corner's weight rounded
-to 2^-24) and blurs in another order than the plain band matmul, atol 1e-5
-on silhouettes <= ~1; K2 is held by relative L2 error per output,
+Tolerances: K1 splats in signed 64-bit 2^-40 fixed point (weights of
+either sign, as the plain chain sums them) and blurs in another order than
+the plain band matmul, atol 1e-5 on silhouettes <= ~1; K2 is held by
+relative L2 error per output,
 ||kernel - plain|| / ||plain|| <= 1e-4, because a clamp mask within
 rounding of its bound can flip and move a few gradients by O(1) of their
 value.  Both add the splat with integer atomics, so their launches are
@@ -21,7 +22,10 @@ FMA contraction, rtol 1e-5; K4 computes the plain rasterizer's
 arithmetic with FMA contraction ruled out: feat by the 0.999 quantile of
 |kernel - plain| <= 1e-5 (an edge function rounded to the other side would
 move a boundary pixel to the other face), soft atol 1e-5 (its log1p terms
-are summed in another order); K5 is bit-equal to the plain gather.
+are summed in another order, its segment parameters and d2 / sigma taken
+by products with reciprocals); its winner cache (win, wz) bit-equal to the
+plain winner rule ``rasterize_winners_torch``; K5 is bit-equal to the
+plain gather.
 
 The backward kernels are held to the autograd of the plain forwards.  K5's
 backward by relative L2 per output (d img sums by atomicAdd in another
@@ -44,7 +48,8 @@ it: relative L2 per output <= 1e-4, as K2.
 
 K8 (the GAN head conv) sums 25·C products per output in another order than
 cuDNN (in bfloat16 on the tensor cores): forward atol 1e-5 in float32 and
-1e-2 in bfloat16 (one bfloat16 ulp near 1); dW by relative L2 <= 1e-4 against the float64 plain version,
+1e-2 in bfloat16 (one bfloat16 ulp near 1); dW by relative L2 <= 1e-4
+against the float64 plain version of the upstream rounded to x's type,
 bit-equal between launches (a two-pass reduction with no atomics); the
 autograd Function's dx, dW and db against autograd of the plain forward.
 
@@ -118,11 +123,14 @@ from im23d_tpu_torch.ops.splat import (
     trilinear_splat,
 )
 from im23d_tpu_torch.render.rasterizer import (
+    _gather_corners,
+    _launch_forward,
     rasterize,
     rasterize_backward_kernel,
     rasterize_backward_torch,
     rasterize_kernel,
     rasterize_torch,
+    rasterize_winners_torch,
 )
 
 pytestmark = pytest.mark.cuda
@@ -332,6 +340,34 @@ def test_k1_k2_empty_clouds(dev):
     assert torch.equal(dscale, projection_backward_torch(*ops)[3])
 
 
+@pytest.mark.parametrize("S,ks,sigma", [(64, 21, 3.0), (16, 9, 0.8)])
+def test_k1_k2_mixed_sign_weights(dev, S, ks, sigma):
+    """Weights of either sign: points of weight <= 0 are pinned to grid
+    coordinate 0 (``_prep_projection``), where positive points also sit,
+    so the signed sum before the clamp to [0, 1] decides the corner voxels
+    (a kernel that dropped the negative weights reads ~0.1 off there)."""
+    pts, _, scale = _points(21, 3, 1000, dev=dev)
+    gen = torch.Generator(dev).manual_seed(22)
+    w = torch.rand((3, 1000), device=dev, generator=gen) * 2.0 - 1.0
+    pts[:, :100] = -0.5 + torch.rand((3, 100, 3), device=dev,
+                                     generator=gen) * 0.03
+    w[:, :100] = w[:, :100].abs() + 0.5
+    gz, gy, gx, c = _prep_projection(pts, S, w, 1e-6)
+    assert bool((c < 0).any())
+    taps, sc = _taps_and_scale(torch.tensor(sigma, device=dev), scale, ks, 3,
+                               dev)
+    gsil = torch.randn((3, S, S), device=dev, generator=gen)
+    ops = [t.contiguous() for t in (gz, gy, gx, c, taps, sc, gsil)]
+    got = projection_kernel(*ops[:6], S)
+    ref = projection_grid_torch(*ops[:6], S)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    for g, r in zip(projection_backward_kernel(*ops),
+                    projection_backward_torch(*ops)):
+        assert torch.isfinite(g).all()
+        assert _rel_l2(g, r) <= 1e-4, (_rel_l2(g, r),
+                                       float((g - r).abs().max()))
+
+
 def test_k1_k2_launches_are_bit_equal(dev):
     """The splat's integer atomics commute and dscale is a fixed-order
     reduction: three launches give the same bits."""
@@ -388,6 +424,25 @@ def test_k4_matches_plain(dev, cull, h, w, sigma, A):
     _check_k4(got, ref)
 
 
+@pytest.mark.parametrize("cull,h,w,sigma,A", [
+    (True, 64, 64, 1e-3, 3), (False, 64, 64, 1e-3, 3),
+    (True, 70, 45, 1e-4, 1), (False, 33, 97, 1e-4, 8),
+    (True, 48, 48, 1e-2, 3),
+])
+def test_k4_winners_match_plain_rule(dev, cull, h, w, sigma, A):
+    """The winner cache K4 writes for its backward (chunk << 6 | count,
+    and z) is bit-equal to the plain winner rule, and so is feat where a
+    face covers the pixel alone in its chunk."""
+    verts, faces, attrs = _scene(7, dev, A=A)
+    out = _launch_forward(_gather_corners(verts, faces), attrs, h, w, sigma,
+                          cull, winners=True)
+    win, wz = rasterize_winners_torch(verts, faces, h, w, cull)
+    torch.cuda.synchronize()
+    assert torch.equal(out[2], win)
+    assert torch.equal(out[3], wz)
+    assert bool((win >= 0).any()) and bool((win < 0).any())
+
+
 def test_k4_sphere_ties_match_plain(dev):
     """A closed sphere: shared edges give depth ties within and across
     chunks of 32, the case the tie rules exist for."""
@@ -402,9 +457,13 @@ def test_k4_sphere_ties_match_plain(dev):
     for cull in (True, False):
         got = rasterize(v, faces, attrs, 128, 128, 1e-4, cull)
         ref = rasterize_torch(v, faces, attrs, 128, 128, 1e-4, cull)
+        out = _launch_forward(_gather_corners(v, faces), attrs, 128, 128,
+                              1e-4, cull, winners=True)
+        win, wz = rasterize_winners_torch(v, faces, 128, 128, cull)
         torch.cuda.synchronize()
         _check_k4(got, ref)
         assert torch.equal(got[0][..., 0] != 0, ref[0][..., 0] != 0)
+        assert torch.equal(out[2], win) and torch.equal(out[3], wz)
 
 
 def test_k4_empty_scene(dev):
@@ -746,6 +805,32 @@ def test_k8_bf16_unaligned_matches_plain(dev, pad_mode):
     y = head_conv_kernel(x, w, b, pad_mode)
     ref = head_conv_tanh_torch(x, w, b, pad_mode)
     torch.testing.assert_close(y.float(), ref.float(), atol=1e-2, rtol=0)
+
+
+@pytest.mark.parametrize("pad_mode", ["replicate", "circular"])
+@pytest.mark.parametrize("shape", [(2, 64, 24, 64), (1, 64, 9, 256),
+                                   (2, 32, 30, 136)])
+def test_k8_dw_unaligned_matches_plain(dev, shape, pad_mode):
+    """bf16 x or g 2 bytes / 4 bytes past a 16-byte boundary (the plain
+    loads), and W of two and three column tiles with TMA boxes: dW
+    bit-equal between launches and within relative L2 1e-4 of the float64
+    plain version of the bf16-rounded upstream."""
+    gen = torch.Generator(dev).manual_seed(11)
+    n = math.prod(shape)
+    g_shape = (shape[0], 3, *shape[2:])
+    for x_off, g_off in ((0, 0), (1, 0), (0, 1)):
+        x = torch.empty(n + x_off, dtype=torch.bfloat16,
+                        device=dev)[x_off:].view(shape)
+        x.copy_(torch.randn(shape, device=dev, generator=gen))
+        g = torch.empty(math.prod(g_shape) + g_off,
+                        device=dev)[g_off:].view(g_shape)
+        g.copy_(torch.randn(g_shape, device=dev, generator=gen))
+        d1 = head_conv_dw_kernel(x, g, pad_mode)
+        d2 = head_conv_dw_kernel(x, g, pad_mode)
+        ref = head_conv_dw_torch(x, g, pad_mode)
+        torch.cuda.synchronize()
+        assert torch.equal(d1, d2)
+        assert _rel_l2(d1, ref) <= 1e-4, (x_off, g_off, _rel_l2(d1, ref))
 
 
 @pytest.mark.parametrize("pad_mode", ["replicate", "circular"])

@@ -25,6 +25,7 @@ from im23d_tpu.ops.voxel import (
 from im23d_tpu_torch.ops.projection import (
     _prep_projection,
     projection_silhouette,
+    projection_silhouette_torch,
 )
 
 B, N, S, KS = 2, 160, 16, 9
@@ -75,6 +76,41 @@ def test_plain_chain_matches_pallas_kernel(sorted_blocks):
         sorted_blocks=sorted_blocks))
     np.testing.assert_allclose(_port(torch.from_numpy(pts), w, scale, 0.8),
                                ref, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("sigma", [0.8, 3.0])
+def test_mixed_sign_weights_match_pallas_kernel(sigma):
+    """Weights of either sign: both versions pin a point with c <= 0 to
+    grid coordinate 0 (the corner voxel, empty here), where the port adds
+    its signed weight and clamps the grid to [0, 1] and the sorted Pallas
+    kernel sorts it past every block window; with no positive weight at
+    that voxel both give the same silhouettes."""
+    pts, _, scale = _inputs(11)
+    w = np.random.RandomState(12).uniform(-1.0, 1.0, (B, N)).astype(
+        np.float32)
+    ref = np.asarray(projection_silhouette_pallas(
+        jnp.asarray(pts), S, jnp.float32(sigma), jnp.asarray(scale),
+        weights=jnp.asarray(w), kernel_size=KS, dot_bf16=False))
+    got = projection_silhouette_torch(
+        torch.from_numpy(pts), S, torch.tensor(sigma), torch.from_numpy(scale),
+        weights=torch.from_numpy(w), kernel_size=KS).numpy()
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=0)
+
+
+def test_prep_pins_mixed_sign_weights_as_jax():
+    """The cull, the signed weights c and the coordinates of points with
+    c <= 0 pinned to 0, as the JAX prep pins them."""
+    pts, _, _ = _inputs(4)
+    w = np.random.RandomState(5).uniform(-1.0, 1.0, (B, N)).astype(
+        np.float32)
+    port = _prep_projection(torch.from_numpy(pts), S, torch.from_numpy(w),
+                            1e-6)
+    ref = j_prep(jnp.asarray(pts), S, jnp.asarray(w), 1e-6)
+    for a, b in zip(port, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b)[:, :N], atol=ATOL,
+                                   rtol=0)
+    c = port[3]
+    assert bool((c < 0).any()) and bool((port[0][c < 0] == 0).all())
 
 
 def test_prep_matches_jax():

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Times of K9 (folded affine + leaky ReLU + 3 × 3 conv), K5 forward
-(texture sampler), K8 forward (the GAN head conv), K4 backward (the
-rasterizer's gradient) and K1 and K2 (the projection forward and
-backward) on one GPU, for the port found under ``--root``.
+(texture sampler), K8 forward and dW (the GAN head conv and its weight
+gradient), K4 forward and backward (the rasterizer and its gradient) and
+K1 and K2 (the projection forward and backward) on one GPU, for the port
+found under ``--root``.
 
 ``--root`` (default: this checkout) is put first on ``sys.path``, so the
 same script times another checkout's kernels, e.g. a ``git archive`` of
@@ -54,13 +55,30 @@ event and device time over 20 calls, min / median / max of ``--repeats``
 repeats; the peak device memory one call adds; for K2 whether 3 launches
 give a bit-equal dscale.
 
+K1 and K2 also at the planes / cars configuration (``k1s32``, ``k2s32``:
+``ShapeNetConfig.planes()``, 320 clouds × 4000 points for K1 and 80 for K2
+at 32³, sigma 2.44, keep-prob 0.256), each with a hash of its outputs.
+
+K4 forward (``k4f``) at ``_cub_scene``, back faces culled, with the winner
+cache (the recon train step's launch) and without (eval, FID): event and
+device time; the hashes of feat, soft, win and wz with back faces culled
+and drawn (equal hashes: bit-equal checkouts), and whether two launches
+are bit-equal.
+
+K8 dW (``k8dw``) at the head's shape, bf16 x, replicate, the float32
+upstream of ``chip_smoke.py`` phase 19: event and device time, cuDNN's pad
++ weight gradient on the bf16-rounded upstream (event time), the bytes
+bound and a hash of dW.
+
 The timing helpers are ``tools/gpu_timing.py``'s, from this checkout
 whatever the root.  Prints one JSON line ``{"root": ..., "gpu": ...,
 "k9": [...], "k5": {...}, "k8": {...}, "k4b": {...}, "k1": {...},
-"k2": {...}}`` as its last line.
+"k2": {...}, "k4f": {...}, "k8dw": {...}, "k1s32": {...},
+"k2s32": {...}}`` (the ones run) as its last line.
 
 Usage (from the repository root, on a machine with a CUDA device):
-    python3 tools/kernel_times.py [--root DIR] [--only k9 k5 k8 k4b k1 k2]
+    python3 tools/kernel_times.py [--root DIR]
+        [--only k9 k5 k8 k4b k1 k2 k4f k8dw k1s32 k2s32]
 """
 
 from __future__ import annotations
@@ -161,9 +179,16 @@ def time_k4b(repeats: int) -> dict:
     return res
 
 
-def _projection_operands(backward: bool) -> list:
+# the planes and cars configurations (``ShapeNetConfig.planes()``,
+# ``.cars()``): bs 16, 5 views, 4 candidates, 4000 points, 32³, the planes'
+# schedule start (sigma 2.44, keep-prob 0.256)
+S32 = dict(batch=16, n=4000, S=32, sigma=2.44, p=0.256)
+
+
+def _projection_operands(backward: bool, cfg: dict | None = None) -> list:
     """K1's (or, with ``backward``, K2's) operands at ``chip_smoke.py``'s
-    timed shapes, on the grid-coordinate planes."""
+    timed shapes, or at ``cfg`` (batch, n, S, sigma, p), on the
+    grid-coordinate planes."""
     import numpy as np
     import torch
 
@@ -177,46 +202,57 @@ def _projection_operands(backward: bool) -> list:
     from im23d_tpu_torch.ops.quaternion import qnormalize
 
     dev = torch.device("cuda")
-    C = cs.B * cs.V * (1 if backward else cs.K)
+    cfg = cfg or dict(batch=cs.B, n=cs.N, S=cs.S, sigma=cs.K1_CASES[0][0],
+                      p=cs.K1_CASES[0][1])
+    C = cfg["batch"] * cs.V * (1 if backward else cs.K)
+    S, N = cfg["S"], cfg["n"]
     rng = np.random.RandomState(3 if backward else 0)
-    cloud = cs._clouds(rng, C, cs.N, dev)
+    cloud = cs._clouds(rng, C, N, dev)
     quats = qnormalize(torch.as_tensor(rng.randn(C, 4).astype(np.float32),
                                        device=dev))
     planes = world_to_camera_zyx(cloud, quats)
     scale = torch.as_tensor(rng.uniform(0.2, 1.5, C).astype(np.float32),
                             device=dev)
     gen = torch.Generator(device=dev).manual_seed(1 if backward else 0)
-    sigma, p = cs.K1_CASES[0]
-    w = keep_mask(gen, C, cs.N, p)
-    gz, gy, gx, c = _prep_projection(planes, cs.S, w, 1e-6)
-    taps, sc = _taps_and_scale(torch.tensor(sigma, device=dev), scale, 21, C,
-                               dev)
+    w = keep_mask(gen, C, N, cfg["p"])
+    gz, gy, gx, c = _prep_projection(planes, S, w, 1e-6)
+    taps, sc = _taps_and_scale(torch.tensor(cfg["sigma"], device=dev), scale,
+                               21, C, dev)
     ops = [gz, gy, gx, c, taps, sc]
     if backward:
-        ops.append(torch.randn((C, cs.S, cs.S), device=dev, generator=gen))
+        ops.append(torch.randn((C, S, S), device=dev, generator=gen))
     return [t.contiguous() for t in ops]
 
 
-def time_projection(backward: bool, repeats: int) -> dict:
+def time_projection(backward: bool, repeats: int,
+                    cfg: dict | None = None) -> dict:
     import torch
 
-    import chip_smoke as cs  # the root's
     from im23d_tpu_torch.ops.projection import (
         projection_backward_kernel,
         projection_kernel,
     )
 
-    ops = _projection_operands(backward)
+    ops = _projection_operands(backward, cfg)
+    S = ops[-1].shape[-1] if backward else None
     if backward:
         def call():
             return projection_backward_kernel(*ops)
     else:
+        import chip_smoke as cs  # the root's
+
+        S = cfg["S"] if cfg else cs.S
+
         def call():
-            return projection_kernel(*ops, cs.S)
+            return projection_kernel(*ops, S)
     res = _timed(call, repeats)
     res["peak_mib"] = peak_mib(call)
     res["clouds"] = ops[0].shape[0]
-    tag = "K2" if backward else "K1"
+    res["S"] = S
+    # equal hashes: bit-equal outputs of two checkouts
+    out = call()
+    res["sha256"] = [_digest(t) for t in (out if backward else (out,))]
+    tag = ("K2" if backward else "K1") + (f" S={S}" if cfg else "")
     if backward:
         ds = [call()[3] for _ in range(3)]
         res["dscale_bit_equal"] = all(torch.equal(d, ds[0]) for d in ds)
@@ -227,7 +263,81 @@ def time_projection(backward: bool, repeats: int) -> dict:
     print(f"[{tag}] {res['clouds']} clouds: one call adds "
           f"{res['peak_mib']:.1f} MiB at its peak"
           + (f"; dscale bit-equal over 3 launches: "
-             f"{res['dscale_bit_equal']}" if backward else ""), flush=True)
+             f"{res['dscale_bit_equal']}" if backward else "")
+          + f"; output sha256 {res['sha256']}", flush=True)
+    return res
+
+
+def time_k4f(repeats: int) -> dict:
+    """K4 forward at ``_cub_scene``, back faces culled: with the winner
+    cache (the recon train step's launch) and without (eval, FID)."""
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
+    from im23d_tpu_torch.render.rasterizer import _launch_forward
+
+    dev = torch.device("cuda")
+    verts, faces, attrs, _ = cs._cub_scene(
+        MeshTemplate(segments=32, rings=16), dev)
+    fv, at = verts[:, faces].contiguous(), attrs.contiguous()
+    R = cs.RES
+    res = {}
+    for winners in (True, False):
+        def k4f(winners=winners):
+            return _launch_forward(fv, at, R, R, cs.SIGMA, True, winners)
+
+        key = "winners" if winners else "no_winners"
+        res[key] = _timed(k4f, repeats)
+        for k in ("event_ms", "device_ms"):
+            v = res[key][k]
+            print(f"[K4 fwd] {key} {k}: min {v['min']:.4f} / median "
+                  f"{v['median']:.4f} / max {v['max']:.4f}", flush=True)
+    outs = [_launch_forward(fv, at, R, R, cs.SIGMA, cull, True)
+            for cull in (True, False)]
+    res["sha256"] = {f"{name} cull={cull}": _digest(t)
+                     for cull, out in zip((True, False), outs)
+                     for name, t in zip(("feat", "soft", "win", "wz"), out)}
+    again = _launch_forward(fv, at, R, R, cs.SIGMA, True, True)
+    res["bit_equal_launches"] = all(torch.equal(a, b)
+                                    for a, b in zip(outs[0], again))
+    print(f"[K4 fwd] output sha256 {res['sha256']}; 2 launches bit-equal: "
+          f"{res['bit_equal_launches']}", flush=True)
+    return res
+
+
+def time_k8dw(repeats: int) -> dict:
+    """K8 dW at the head's shape, bf16 x, replicate, the float32 upstream
+    ``chip_smoke.py`` phase 19 forms; cuDNN's pad + weight gradient on the
+    bf16-rounded upstream beside it."""
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.models.reconstruction import replicate_pad_w
+    from im23d_tpu_torch.ops.conv import head_conv_dw_kernel, head_conv_kernel
+
+    x, w, b = cs._head_operands(torch.bfloat16, 21)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    y = head_conv_kernel(x, w, b).float()
+    g = (torch.randn(y.shape, device="cuda", generator=gen)
+         * (1.0 - y * y)).contiguous()
+    del y
+    gd = g.to(torch.bfloat16)
+    res = _timed(lambda: head_conv_dw_kernel(x, g), repeats)
+    res["library_event_ms"] = spread([events_ms(
+        lambda: torch.nn.grad.conv2d_weight(replicate_pad_w(x, 2), w.shape,
+                                            gd, padding=(2, 0)), 10)
+        for _ in range(repeats)])
+    res["sha256"] = _digest(head_conv_dw_kernel(x, g))
+    # reads x and the bf16 upstream, writes dW
+    nbytes = x.numel() * 2 + gd.numel() * 2 + w.numel() * 4
+    res.update(shape=list(x.shape), bound_ms=nbytes / PEAK_BYTES * 1e3)
+    for k in ("event_ms", "device_ms", "library_event_ms"):
+        v = res[k]
+        print(f"[K8 dW] {k}: min {v['min']:.4f} / median {v['median']:.4f} "
+              f"/ max {v['max']:.4f}", flush=True)
+    print(f"[K8 dW] bound {res['bound_ms']:.4f} ms (bytes); output sha256 "
+          f"{res['sha256']}", flush=True)
     return res
 
 
@@ -348,7 +458,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--only", nargs="+",
-                    choices=("k9", "k5", "k8", "k4b", "k1", "k2"))
+                    choices=("k9", "k5", "k8", "k4b", "k1", "k2", "k4f",
+                             "k8dw", "k1s32", "k2s32"))
     ap.add_argument("--k9_reps", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
@@ -384,6 +495,14 @@ def main(argv=None) -> int:
         res["k1"] = time_projection(False, args.repeats)
     if args.only is None or "k2" in args.only:
         res["k2"] = time_projection(True, args.repeats)
+    if args.only is None or "k4f" in args.only:
+        res["k4f"] = time_k4f(args.repeats)
+    if args.only is None or "k8dw" in args.only:
+        res["k8dw"] = time_k8dw(args.repeats)
+    if args.only is None or "k1s32" in args.only:
+        res["k1s32"] = time_projection(False, args.repeats, S32)
+    if args.only is None or "k2s32" in args.only:
+        res["k2s32"] = time_projection(True, args.repeats, S32)
     print(json.dumps(res))
     return 0
 

@@ -483,7 +483,7 @@ def profile_gan_train(iters: int) -> None:
         "EMA update": lambda: trainer._update_ema(0.999),
     }
     kernels = {"K8 forward alone": "head_conv",
-               "K8 dW alone": "head_conv_dw_partial",
+               "K8 dW alone": "head_conv_dw_tc",
                "K9 forward alone (blk6 conv2)": "fused_conv_bf16"}
     for name, fn in parts.items():
         busy = report(name, fn, it, kernel=kernels.get(name))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the time of a K4 backward, a K8 forward and the projection's K1
-and K2 goes on one GPU, by variant copies of their sources and, for K1
-and K2, by torch.profiler: the tiled K4 backward of commit 3892a42
+"""Where the time of a K4 backward or forward, a K8 forward or dW and the
+projection's K1 and K2 goes on one GPU, by variant copies of their sources
+and, for K1 and K2, by torch.profiler: the tiled K4 backward of commit
+3892a42
 (``csrc/rasterize.cu`` ``rasterize_bwd_kernel``: 32 x 8 pixel tiles, face
 chunks, per-face sums by shuffles, shared and global atomics) and its K8
 forward (``csrc/head_conv.cu`` ``head_conv_fwd_kernel``: float32 FMA
@@ -55,13 +56,27 @@ K1 at ``chip_smoke.py`` phase 2's timed shape (480 x 8000 at 64³, sigma
     ``rank_order`` is ``full`` with every warp reading the owners in rank
     order.
 
+K4 forward (``--only k4f``) at ``_cub_scene`` with the winner cache, back
+faces culled: for a root with the tiled kernel of commit 1c94fd3
+(``k4f_variants``: ``parent``, ``no_stores``, ``staging_only`` (the
+chunks staged, no ballot), ``ballot_only`` (no per-pixel face loop),
+``no_inside_branch``, ``no_segments``, ``no_soft``), for a root with the
+binned kernel ``k4f_binned_variants``; and the pixel-face pairs the
+tiles (or the binned kernel's 8 × 4 warps) visit against those in the
+faces' widened boxes.
+
+K8 dW (``--only k8dw``) for a root with the tensor-core dW
+(``k8dw_variants``) at the head's shape, the upstream of ``chip_smoke.py``
+phase 19.
+
 Each variant keeps a value that depends on the removed work's inputs, so
 the compiler keeps the rest.  Times: CUDA events over ``--reps``
 back-to-back launches of the entry point alone (no zeroing, no
 allocation), median of 3.  Prints one JSON line as its last line.
 
 Usage (from the repository root, on a machine with a CUDA device):
-    python3 tools/time_split.py --root build/parent [--only k4k8|projection]
+    python3 tools/time_split.py --root build/parent
+        [--only k4k8|k4f|k8dw|projection]
 """
 
 from __future__ import annotations
@@ -119,6 +134,51 @@ def k4_variants(src: str) -> dict:
         ("parent", bwd), ("no_global_atomics", no_global),
         ("shuffles_only", shuffles), ("no_reductions", no_red),
         ("walk_only", walk))}
+
+
+def k4f_variants(src: str) -> dict:
+    """The tiled forward's variants (commit 1c94fd3's ``rasterize_fwd_kernel``:
+    32 x 8 tiles, 32-face chunks staged with 3 barriers each, a ballot of
+    the chunk's faces against the tile by warp 0); the backward stays."""
+    head, rest = src.split("template <bool kCull>\n__global__ void "
+                           "__launch_bounds__(kThreads)\n    "
+                           "rasterize_fwd_kernel", 1)
+    fwd, tail = rest.split("__device__ __forceinline__ float warp_sum", 1)
+    store0 = "  if (row >= H || col >= W) return;\n"
+    no_stores = _cut(fwd, store0, "}\n\n", (
+        "  float sink = best_z + log_miss + static_cast<float>(best_word);\n"
+        "#pragma unroll\n  for (int a = 0; a < kMaxA; ++a) sink += best[a];\n"
+        "  if (sink == 1.2345e-30f) soft[0] = sink;\n"))
+    ballot = ("    unsigned mask = s_mask;  // block-uniform\n"
+              "    if (mask == 0u) continue;\n")
+    ballot_only = _edit(fwd, ballot, ballot + "    log_miss += __popc(mask);\n"
+                        "    if (log_miss > -1.f) continue;\n")
+    staging_only = _cut(ballot_only, "    if (tid < kChunk) {\n",
+                        "    __syncthreads();\n    unsigned mask",
+                        "    if (tid == 0)\n      s_mask = s_v[0] + s_at[0] "
+                        "== 1.2345e-30f ? 1u : 0u;\n")
+    seg = ("        d2 = fminf(fminf(seg_dist2(px, py, x0, y0, x1, y1),\n"
+           "                         seg_dist2(px, py, x1, y1, x2, y2)),\n"
+           "                   seg_dist2(px, py, x2, y2, x0, y0));\n")
+    no_segments = _edit(fwd, seg, "        d2 = __fmul_rn(__fsub_rn(px, x0), "
+                        "__fsub_rn(py, y2));\n")
+    soft_terms = ("      const float cov = expf(__fdiv_rn(-d2, sigma));\n"
+                  "      log_miss = __fadd_rn(log_miss, "
+                  "log1pf(-fminf(cov, kCovMax)));\n")
+    no_soft = _edit(no_segments, soft_terms,
+                    "      log_miss = __fadd_rn(log_miss, d2);\n")
+    no_inside = _cut(fwd, "      if (inside) {\n        const float inv",
+                     "      } else {\n        d2 = fminf(",
+                     "      if (inside) {\n        cz = fmaxf(cz, e01);\n"
+                     "        cnt += 1.f;\n")
+    pre = head + ("template <bool kCull>\n__global__ void __launch_bounds__"
+                  "(kThreads)\n    rasterize_fwd_kernel")
+    post = "__device__ __forceinline__ float warp_sum" + tail
+    return {name: pre + body + post for name, body in (
+        ("parent", fwd), ("no_stores", no_stores),
+        ("staging_only", staging_only), ("ballot_only", ballot_only),
+        ("no_inside_branch", no_inside), ("no_segments", no_segments),
+        ("no_soft", no_soft))}
 
 
 def k8_variants(src: str) -> dict:
@@ -370,11 +430,197 @@ def time_k4k8(root: str, csrc: str, nvcc: str, tmp: str, reps: int) -> dict:
     return res
 
 
+def k4f_binned_variants(src: str) -> dict:
+    """The binned forward's variants (``raster_binned_kernel``; the set-up
+    pass stays): ``no_segments`` (a product for the three segment
+    distances), ``no_soft`` (also no exp and log1p), ``walk_only`` (the bins
+    walked and the records staged, no pixel-face work), ``no_stores`` and
+    ``setup_only`` (the set-up pass alone)."""
+    soft = ("        const float cov = expf(__fmul_rn(d2, nis));\n"
+            "        log_miss = __fadd_rn(log_miss, "
+            "log1pf(-fminf(cov, kCovMax)));\n")
+    seg = _cut(src, "          d2 = fminf(fminf(seg_dist2_v(",
+               "        }\n        const float cov",
+               "          d2 = __fmul_rn(__fsub_rn(px, x0), "
+               "__fsub_rn(py, y2));\n")
+    no_soft = _edit(seg, soft, "        log_miss = __fadd_rn(log_miss, d2);\n")
+    walk = _cut(src, "        const float4 v01 = r[0], v2",
+                "      }\n      if (cz > best_z)",
+                "        log_miss += bx.x;\n")
+    no_stores = _cut(src, "  if (!valid) return;\n", "}\n\n", (
+        "  float sink = best_z + log_miss + static_cast<float>(best_word);\n"
+        "#pragma unroll\n  for (int a = 0; a < kA; ++a) sink += best[a];\n"
+        "  if (sink == 1.2345e-30f) soft[0] = sink;\n"))
+    setup_only = _cut(src, "  kernel<<<dim3(tiles, B), kBinThreads",
+                      "  return cudaGetLastError();", "")
+    return {"full": src, "no_segments": seg, "no_soft": no_soft,
+            "walk_only": walk, "no_stores": no_stores,
+            "setup_only": setup_only}
+
+
+def k8dw_variants(src: str) -> dict:
+    """The tensor-core dW's variants: ``full``; ``loads_only`` without the
+    consumers' fragments and products (the copier and fixer warps, the
+    mbarriers, the partial rows and the ordered sum stay); ``compute_only``
+    without the x rows' copies and the waits on them (the products run on
+    whatever the ring holds)."""
+    loads = _cut(src, "    uint32_t fa0[4], fb0[KS][4], fa1[4], fb1[KS][4];",
+                 "    // release the g row and the x rows the next task",
+                 "    acc[0][0][0] += __int_as_float(gs[a0_off]) + "
+                 "static_cast<float>(nint);\n")
+    compute = _edit(_edit(_edit(_edit(
+        src, "          mbar_expect_tx(&full[s], DW_ROWB);\n", ""),
+        "          tma_load(box, &xmap, &full[s], ic.tile * DW_TW - DW_OFF, "
+        "ic.r, 0,\n                   ic.b);\n", ""),
+        "      if (kVec) {\n        dw_wait(&full[s], n / DW_NS);\n",
+        "      if (kVec) {\n"),
+        "    dw_wait(&full[n % DW_NS], n / DW_NS);\n", "")
+    return {"full": src, "loads_only": loads, "compute_only": compute}
+
+
+def time_k8dw(root: str, csrc: str, nvcc: str, tmp: str, reps: int) -> dict:
+    """The tensor-core dW's variants at the head's shape (32 x 64 x 512 x
+    256 bf16, replicate), the upstream of ``chip_smoke.py`` phase 19."""
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.ops.conv import head_conv_kernel
+
+    with open(os.path.join(csrc, "head_conv.cu")) as fh:
+        src = fh.read()
+    if "head_conv_dw_tc_kernel" not in src:
+        raise RuntimeError("the root's K8 dW is not the tensor-core kernel")
+    libs = build({f"k8dw_{k}": v for k, v in k8dw_variants(src).items()},
+                 tmp, nvcc, csrc)
+    x, w, b = cs._head_operands(torch.bfloat16, 21)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    y = head_conv_kernel(x, w, b).float()
+    g = (torch.randn(y.shape, device="cuda", generator=gen)
+         * (1.0 - y * y)).contiguous()
+    del y
+    nrows = torch.cuda.get_device_properties(0).multi_processor_count
+    partial = torch.empty((nrows, w.numel()), device="cuda")
+    dw = torch.empty_like(w)
+    P = ctypes.c_void_p
+    stream = P(torch.cuda.current_stream().cuda_stream)
+    ptrs = [t.data_ptr() for t in (x, g, partial, dw)]
+    res = dict(k8_dw={})
+    for name, lib in libs.items():
+        fn = lib.im23d_head_conv_dw
+        fn.argtypes = [P] * 4 + [ctypes.c_int] * 7 + [P]
+
+        def call(fn=fn, name=name):
+            rc = fn(*ptrs, *x.shape, 0, 1, nrows, stream)
+            if rc:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+
+        ms = sorted(events_ms(call, reps) for _ in range(3))[1]
+        res["k8_dw"][name[5:]] = ms
+        print(f"[K8 dW] {name[5:]}: {ms:.4f} ms", flush=True)
+    return res
+
+
+def tile_face_pairs(fv, height: int, width: int, sigma: float,
+                    tile_w: int, tile_h: int) -> int:
+    """Pixel-face pairs that a tiled forward visits: for every tile of
+    ``tile_w`` x ``tile_h`` pixels, the pixels of the tile times the drawn
+    (front-facing) faces whose box widened by ``soft_margin(sigma)``
+    reaches the tile's pixel centres, the test of the tiled kernel's
+    ballot."""
+    import torch
+
+    from im23d_tpu_torch.render.rasterizer import soft_margin
+
+    x, y = fv[..., 0], fv[..., 1]  # (B, F, 3)
+    area = ((x[..., 1] - x[..., 0]) * (y[..., 2] - y[..., 0])
+            - (y[..., 1] - y[..., 0]) * (x[..., 2] - x[..., 0]))
+    m = soft_margin(sigma)
+    lo_x, hi_x = x.amin(-1) - m, x.amax(-1) + m
+    lo_y, hi_y = y.amin(-1) - m, y.amax(-1) + m
+    sx, sy = 2.0 / width, 2.0 / height
+    c0 = torch.arange(0, width, tile_w, device=fv.device, dtype=x.dtype)
+    r0 = torch.arange(0, height, tile_h, device=fv.device, dtype=x.dtype)
+    tx0, tx1 = (c0 + 0.5) * sx - 1, (c0 + tile_w - 0.5) * sx - 1
+    ty1, ty0 = 1 - (r0 + 0.5) * sy, 1 - (r0 + tile_h - 0.5) * sy
+    hit_x = (lo_x[..., None] <= tx1) & (hi_x[..., None] >= tx0)  # (B, F, X)
+    hit_y = (lo_y[..., None] <= ty1) & (hi_y[..., None] >= ty0)  # (B, F, Y)
+    drawn = (area > 1e-9).to(x.dtype)
+    n = torch.einsum("bf,bfx,bfy->", drawn, hit_x.to(x.dtype),
+                     hit_y.to(x.dtype))
+    return int(n) * tile_w * tile_h
+
+
+def time_k4f(root: str, csrc: str, nvcc: str, tmp: str, reps: int) -> dict:
+    """K4 forward's variants at ``_cub_scene``, back faces culled, with the
+    winner cache (the recon train step's launch)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
+    from im23d_tpu_torch.render.rasterizer import soft_margin
+
+    with open(os.path.join(csrc, "rasterize.cu")) as fh:
+        src = fh.read()
+    binned = "raster_binned_kernel" in src
+    variants = k4f_binned_variants(src) if binned else k4f_variants(src)
+    libs = build({f"k4f_{k}": v for k, v in variants.items()}, tmp, nvcc,
+                 csrc)
+    dev = torch.device("cuda")
+    verts, faces, attrs, _ = cs._cub_scene(
+        MeshTemplate(segments=32, rings=16), dev)
+    fv = verts[:, faces].contiguous()
+    attrs = attrs.contiguous()
+    B, F = fv.shape[:2]
+    A, R = attrs.shape[-1], cs.RES
+    feat = torch.empty((B, R, R, A), device=dev)
+    soft = torch.empty((B, R, R, 1), device=dev)
+    win = torch.empty((B, R, R), dtype=torch.int32, device=dev)
+    wz = torch.empty((B, R, R), device=dev)
+    P = ctypes.c_void_p
+    stream = P(torch.cuda.current_stream().cuda_stream)
+    s = float(np.float32(2.0 / R))
+    res = dict(k4_forward={})
+    ptrs = [t.data_ptr() for t in (fv, attrs, feat, soft, win, wz)]
+    ints = [B, F, A, R, R]
+    if binned:  # the set-up pass's scratch and the bin tile
+        from im23d_tpu_torch.render.rasterizer import _RECORD, BIN_TILE
+
+        recs = torch.empty((B, F, _RECORD), device=dev)
+        bins = torch.empty((B, (-(-R // BIN_TILE)) ** 2, -(-F // 32)),
+                           dtype=torch.int32, device=dev)
+        ptrs += [recs.data_ptr(), bins.data_ptr()]
+        ints += [BIN_TILE, BIN_TILE]
+    for name, lib in libs.items():
+        fn = lib.im23d_rasterize_fwd
+        fn.argtypes = [P] * len(ptrs) + [ctypes.c_int] * len(ints) \
+            + [ctypes.c_float] * 4 + [ctypes.c_int, P]
+
+        def call(fn=fn, name=name):
+            rc = fn(*ptrs, *ints, s, s, cs.SIGMA, soft_margin(cs.SIGMA), 1,
+                    stream)
+            if rc:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+
+        ms = sorted(events_ms(call, reps) for _ in range(3))[1]
+        res["k4_forward"][name[4:]] = ms
+        print(f"[K4 fwd] {name[4:]}: {ms:.4f} ms", flush=True)
+    tw, th = (8, 4) if binned else (32, 8)
+    tiled = tile_face_pairs(fv, R, R, cs.SIGMA, tw, th)
+    bound = cs._raster_pairs(verts, faces, R, R, cs.SIGMA)
+    res.update(tiled_pairs=tiled, box_pairs=bound)
+    print(f"[K4 fwd] pixel-face pairs: the {tw} x {th} "
+          f"{'warps' if binned else 'tiles'} visit {tiled}, the faces' "
+          f"widened boxes hold {bound} ({tiled / max(bound, 1):.2f}x)",
+          flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=("k4k8", "projection"))
+    ap.add_argument("--only", choices=("k4k8", "k4f", "k8dw", "projection"))
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -392,6 +638,10 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         if args.only in (None, "k4k8"):
             res.update(time_k4k8(root, csrc, nvcc, tmp, args.reps))
+        if args.only in (None, "k4f"):
+            res.update(time_k4f(root, csrc, nvcc, tmp, args.reps))
+        if args.only in (None, "k8dw"):
+            res.update(time_k8dw(root, csrc, nvcc, tmp, args.reps))
         if args.only in (None, "projection"):
             res["projection"] = time_projection(root, csrc, nvcc, tmp,
                                                 args.reps)
