@@ -58,8 +58,12 @@ Phases:
  12. K5 backward against autograd of the plain gather: at phase 9's shape
      on rendered UVs and on random coordinates, and at the visibility
      render's shape (50 x 1024² samples into 128 x 130 texels, the upstream
-     gradient the hard mask); ``F.grid_sample``'s backward timed beside it
-     at both shapes, with the bound at both;
+     gradient the hard mask), each with the plan it took (runs of
+     neighbouring samples a thread) and whether its launches are
+     bit-equal; ``F.grid_sample``'s backward timed beside it at both
+     shapes, with the bound at both (the grid read only where the upstream
+     is not 0); then at a 256 x 258 x 3 texture and at 5 channels (a
+     thread a sample);
  13. K4 backward against autograd of the plain rasterizer at 50 x 256² x
      960 faces, A = 3, sigma 1e-4, back faces culled (the plain version on
      the first 10 images; the gradients of separate images are
@@ -108,7 +112,9 @@ Phases:
  23. 1G + 2D groups/s at the full configuration, the batch on the card;
  24. (run after phase 4) K6 (the standalone splat) against its plain
      version at the candidate sweep's shape (480 x 8000 at 64^3, keep-prob
-     0.07) and at the eval CLI's IoU shape ((24, 8000) at 32^3); K6
+     0.07: the generic path) and at the eval CLI's IoU shape ((24, 8000)
+     at 32^3: the shared path, a cluster of CTAs a cloud), each with its
+     plan and timed; K6
      backward against autograd of the plain splat at 120 x 8000 at 64^3;
  25. (after phase 24) K7 (splat, clamp, Y/X blur) forward and backward
      against the plain versions at 480 x 8000 at 64^3 at sigma 3.0 and 0.2,
@@ -235,14 +241,18 @@ from im23d_tpu_torch.ops.splat import (
     splat_blur_torch,
     splat_grid_torch,
     splat_kernel,
+    splat_limits,
+    splat_plan,
     trilinear_splat_torch,
 )
 from im23d_tpu_torch.ops.sampling import (
+    grid_sample_backward_plan,
     grid_sample_bilinear,
     grid_sample_bilinear_backward_kernel,
     grid_sample_bilinear_backward_torch,
     grid_sample_bilinear_kernel,
     grid_sample_bilinear_torch,
+    k5b_limits,
     resize_bilinear,
 )
 from im23d_tpu_torch.render import renderer
@@ -780,6 +790,8 @@ def phase_k6(gpu: str) -> tuple[dict, dict]:
              None)):
         w = None if p is None else keep_mask(gen, pts.shape[0], N, p)
         gz, gy, gx, c = _prep_splat(pts, size, w, 1e-6)
+        plan = splat_plan(pts.shape[0], size, splat_limits(dev))
+        print(f"[K6] {tag} {tuple(pts.shape)} at {size}^3: plan {plan}")
         got = splat_kernel(gz, gy, gx, c, size)
         ref = splat_grid_torch(gz, gy, gx, c, size)
         torch.cuda.synchronize()
@@ -794,8 +806,9 @@ def phase_k6(gpu: str) -> tuple[dict, dict]:
         del got, ref
         ms = _time_ms(lambda: splat_kernel(gz, gy, gx, c, size), 20)
         plain_ms = _time_ms(lambda: splat_grid_torch(gz, gy, gx, c, size), 5)
-        # reads the planes and weights, writes the grid; the clamp reads and
-        # writes it again, which the bound does not count
+        # reads the planes and weights, writes the grid (the generic path's
+        # clamp pass reads and writes it again, which the bound does not
+        # count)
         bound = _bound(_nbytes(gz, gy, gx, c) + pts.shape[0] * size ** 3 * 4,
                        _splat_ops(c) + pts.shape[0] * size ** 3)
         print(f"[K6] {tag}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per "
@@ -1423,6 +1436,43 @@ def phase_recon(gpu: str, template, tmp: str) -> dict:
     return launches
 
 
+def _contributing(dout: torch.Tensor) -> int:
+    """Samples whose upstream is not 0 on every channel: the others add
+    nothing to d texture, and their d grid is 0."""
+    return int((dout != 0).any(dim=-1).sum())
+
+
+def _k5_backward_other_shapes() -> None:
+    """K5 backward at a texture of ``--texture_resolution 256`` (256 x 258
+    x 3, the runs kernel takes any size) and at 5 channels (a thread a
+    sample), 4 images x 256² random samples each: d img and d grid by
+    relative L2 against the plain version, and under a 0/1 upstream the
+    texels with d img > 0 exactly."""
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    for shape in ((4, 256, 258, 3), (4, 64, 66, 5)):
+        B, C = shape[0], shape[-1]
+        img = torch.rand(shape, device=DEVICE, generator=gen)
+        grid = (torch.rand((B, RES, RES, 2), device=DEVICE, generator=gen)
+                * 2.2 - 1.1)
+        plan = grid_sample_backward_plan(*shape, RES * RES, True,
+                                         k5b_limits())
+        for what, dout in (
+                ("random", torch.randn((B, RES, RES, C), device=DEVICE,
+                                       generator=gen)),
+                ("0/1", (torch.rand((B, RES, RES, 1), device=DEVICE,
+                                    generator=gen) > 0.5).float()
+                 .expand(-1, -1, -1, C).contiguous())):
+            got = grid_sample_bilinear_backward_kernel(img, grid, dout)
+            ref = grid_sample_bilinear_backward_torch(img, grid, dout)
+            rls = [_rel_l2(g, r) for g, r in zip(got, ref)]
+            same = bool(torch.equal(got[0] > 0, ref[0] > 0))
+            print(f"[K5 bwd] {shape} <- {B} x {RES}², {what} upstream: plan "
+                  f"{plan}; rel L2 d img {rls[0]:.3e}, d grid {rls[1]:.3e} "
+                  f"(limit {K5B_REL_L2}); texels > 0 equal {same}")
+            if max(rls) > K5B_REL_L2 or (what == "0/1" and not same):
+                raise AssertionError(f"K5 backward disagrees at {shape}")
+
+
 def phase_k5_backward(gpu: str, uv, tex_adj, scene) -> dict:
     """K5 backward vs autograd of the plain gather at the train render's
     shape (rendered UVs and random coordinates) and at the visibility
@@ -1441,6 +1491,10 @@ def phase_k5_backward(gpu: str, uv, tex_adj, scene) -> dict:
     }
     err, timed = 0.0, None
     for name, grid in grids.items():
+        plan = grid_sample_backward_plan(*tex_adj.shape, RES * RES, True,
+                                         k5b_limits())
+        print(f"[K5 bwd] {name} {tuple(tex_adj.shape)} <- {RB} x {RES}²: "
+              f"plan {plan}")
         dout = torch.randn(tex_adj.shape[:1] + grid.shape[1:3]
                            + tex_adj.shape[3:], device=DEVICE, generator=gen)
         if timed is None:
@@ -1451,16 +1505,23 @@ def phase_k5_backward(gpu: str, uv, tex_adj, scene) -> dict:
                   f"pixel on one texel): kernel {unmasked_ms:.3f} ms [{gpu}]")
             dout = (dout * hard).contiguous()
         ref = grid_sample_bilinear_backward_torch(tex_adj, grid, dout)
-        # d img's atomicAdd order changes from launch to launch: each of
-        # K5B_REPEATS launches is held
+        # d img's atomic order changes from launch to launch: each of
+        # K5B_REPEATS launches is held; d grid has no atomics
         rls = {"d img": [], "d grid": []}
+        first, same = None, [True, True]
         for _ in range(K5B_REPEATS):
             got = grid_sample_bilinear_backward_kernel(tex_adj, grid, dout)
+            first = got if first is None else first
+            same = [a and bool(torch.equal(g, f))
+                    for a, g, f in zip(same, got, first)]
             for (what, rl), g, r in zip(rls.items(), got, ref):
                 if not torch.isfinite(g).all():
                     raise AssertionError(f"K5 backward not finite ({name})")
                 rl.append(_rel_l2(g, r))
                 err = max(err, float((g - r).abs().max()))
+        print(f"[K5 bwd] {name}: bit-equal over {K5B_REPEATS} launches: "
+              f"d img {same[0]}, d grid {same[1]}")
+        del first
         for what, rl in rls.items():
             print(f"[K5 bwd] {name} {what}: rel L2 {min(rl):.3e} to "
                   f"{max(rl):.3e} over {K5B_REPEATS} launches (limit "
@@ -1481,11 +1542,13 @@ def phase_k5_backward(gpu: str, uv, tex_adj, scene) -> dict:
             library_ms = _time_ms(
                 lambda: torch.ops.aten.grid_sampler_2d_backward(
                     dout_nchw, img_nchw, grid, 0, 0, True, [True, True]), 50)
-            n, C = grid[..., 0].numel(), tex_adj.shape[-1]
-            # reads texture, grid, upstream; writes d texture and d grid;
-            # per sample 4 corners x C x 4 operations plus ~20
-            bound = _bound(_nbytes(tex_adj, grid, dout) * 2 - _nbytes(dout),
-                           n * (20 + 16 * C))
+            n, C = _contributing(dout), tex_adj.shape[-1]
+            # reads texture, upstream and the grid of the samples whose
+            # upstream is not 0 on every channel (no other sample adds
+            # anything); writes d texture and d grid; per contributing
+            # sample 4 corners x C x 4 operations plus ~20
+            bound = _bound(_nbytes(tex_adj, dout) + 8 * n
+                           + _nbytes(tex_adj, grid), n * (20 + 16 * C))
             print(f"[K5 bwd] {tuple(tex_adj.shape)} <- {RB} x {RES}², "
                   f"upstream x hard mask: kernel "
                   f"{ms:.3f} ms, plain {plain_ms:.3f} ms, F.grid_sample's "
@@ -1502,18 +1565,26 @@ def phase_k5_backward(gpu: str, uv, tex_adj, scene) -> dict:
              ).contiguous()
     dout = feat[..., 2:3].expand(-1, -1, -1, tex_adj.shape[-1]).contiguous()
     del feat
+    plan = grid_sample_backward_plan(*tex_adj.shape, vres * vres, True,
+                                     k5b_limits())
+    print(f"[K5 bwd] visibility {tuple(tex_adj.shape)} <- {RB} x {vres}²: "
+          f"plan {plan}")
     ref, _ = grid_sample_bilinear_backward_torch(tex_adj, vgrid, dout)
-    rls, same = [], True
+    rls, same, first, equal = [], True, None, True
     for _ in range(K5B_REPEATS):
         got, _ = grid_sample_bilinear_backward_kernel(tex_adj, vgrid, dout,
                                                       need_grid=False)
         rls.append(_rel_l2(got, ref))
         same = same and bool(torch.equal(got > 0, ref > 0))
+        first = got if first is None else first
+        equal = equal and bool(torch.equal(got, first))
     cover = float((ref > 0).float().mean())
     print(f"[K5 bwd] visibility {tuple(tex_adj.shape)} <- {RB} x {vres}²: "
           f"d img rel L2 {min(rls):.3e} to {max(rls):.3e} over {K5B_REPEATS} "
           f"launches (limit {K5B_REL_L2}); texels > 0 equal {same}; texels "
-          f"touched {cover:.4f}")
+          f"touched {cover:.4f}; launches bit-equal {equal}; samples "
+          f"contributing {_contributing(dout) / dout[..., 0].numel():.4f}")
+    del first
     if not (same and max(rls) <= K5B_REL_L2):
         raise AssertionError("K5 backward disagrees at the visibility shape")
     vis_ms = _time_ms(lambda: grid_sample_bilinear_backward_kernel(
@@ -1526,17 +1597,18 @@ def phase_k5_backward(gpu: str, uv, tex_adj, scene) -> dict:
     vis_library_ms = _time_ms(
         lambda: torch.ops.aten.grid_sampler_2d_backward(
             dout_nchw, img_nchw, vgrid, 0, 0, True, [True, False]), 10)
-    n, C = vgrid[..., 0].numel(), tex_adj.shape[-1]
-    # reads texture, grid and upstream, writes d texture; per sample 4
-    # corners x C products and sums plus ~12 for the weights
-    vis_bound = _bound(_nbytes(tex_adj, vgrid, dout, tex_adj),
-                       n * (12 + 8 * C))
+    n, C = _contributing(dout), tex_adj.shape[-1]
+    # reads the upstream and the grid of the contributing samples, writes
+    # d texture; per contributing sample 4 corners x C products and sums
+    # plus ~12 for the weights
+    vis_bound = _bound(_nbytes(dout, tex_adj) + 8 * n, n * (12 + 8 * C))
     print(f"[K5 bwd] visibility shape: kernel {vis_ms:.3f} ms, plain "
           f"{vis_plain_ms:.3f} ms, grid_sampler_2d_backward (d input "
           f"only, NCHW) {vis_library_ms:.3f} ms per call; bound {vis_bound} "
           f"[{gpu}]")
     del vgrid, dout, img_nchw, dout_nchw
     torch.cuda.empty_cache()
+    _k5_backward_other_shapes()
     return dict(max_abs_err=err, **timed, visibility_ms=vis_ms,
                 visibility_plain_ms=vis_plain_ms,
                 visibility_library_ms=vis_library_ms,

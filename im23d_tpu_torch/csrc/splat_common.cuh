@@ -1,7 +1,9 @@
-// Device code shared by the splat-family kernels: K1 and K2
-// (projection.cu), K6 and K7 (splat.cu).
-//   splat_kernel:      one thread per point, 8 trilinear atomicAdds into a
-//                      zeroed (B, S, S, S) grid;
+// Device code shared by the splat-family kernels K6 and K7 (splat.cu):
+//   splat_corners:     one point's 8 trilinear corners: flat indices into
+//                      an (S, S, S) grid and weights;
+//   splat_kernel:      one thread per point, its 8 corners added by
+//                      atomicAdd into a zeroed (B, S, S, S) grid in device
+//                      memory;
 //   blur_yx_kernel:    one block per (cloud, z-plane), the plane clamped
 //                      and blurred along Y then X in shared memory, or the
 //                      transpose of that with the clamp's mask;
@@ -29,6 +31,34 @@ __device__ __forceinline__ int clamp_index(int i, int S) {
   return min(max(i, 0), S - 1);
 }
 
+// point (pz, py, px) of weight w: its 8 corners' flat indices into an S^3
+// grid and trilinear weights times w, in (dz, dy, dx) order
+__device__ __forceinline__ void splat_corners(float pz, float py, float px,
+                                              float w, int S, int (&idx)[8],
+                                              float (&v)[8]) {
+  const float fz = floorf(pz), fy = floorf(py), fx = floorf(px);
+  const int iz = static_cast<int>(fz), iy = static_cast<int>(fy),
+            ix = static_cast<int>(fx);
+  const float tz = pz - fz, ty = py - fy, tx = px - fx;
+  const float wz[2] = {1.f - tz, tz};
+  const float wy[2] = {1.f - ty, ty};
+  const float wx[2] = {1.f - tx, tx};
+#pragma unroll
+  for (int dz = 0; dz < 2; ++dz) {
+    const int z = clamp_index(iz + dz, S);
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+      const int y = clamp_index(iy + dy, S);
+      const float wzy = w * wz[dz] * wy[dy];
+#pragma unroll
+      for (int dx = 0; dx < 2; ++dx) {
+        idx[4 * dz + 2 * dy + dx] = (z * S + y) * S + clamp_index(ix + dx, S);
+        v[4 * dz + 2 * dy + dx] = wzy * wx[dx];
+      }
+    }
+  }
+}
+
 __global__ void splat_kernel(const float* __restrict__ gz,
                              const float* __restrict__ gy,
                              const float* __restrict__ gx,
@@ -40,30 +70,13 @@ __global__ void splat_kernel(const float* __restrict__ gz,
   const float w = c[i];
   if (w == 0.f) return;  // culled or dropped point
   const int b = static_cast<int>(i / N);
-  const float pz = gz[i], py = gy[i], px = gx[i];
-  const float fz = floorf(pz), fy = floorf(py), fx = floorf(px);
-  const int iz = static_cast<int>(fz), iy = static_cast<int>(fy),
-            ix = static_cast<int>(fx);
-  const float tz = pz - fz, ty = py - fy, tx = px - fx;
-  const float wz[2] = {1.f - tz, tz};
-  const float wy[2] = {1.f - ty, ty};
-  const float wx[2] = {1.f - tx, tx};
   float* g = grid + static_cast<size_t>(b) * S * S * S;
+  int idx[8];
+  float v[8];
+  splat_corners(gz[i], gy[i], gx[i], w, S, idx, v);
 #pragma unroll
-  for (int dz = 0; dz < 2; ++dz) {
-    const int z = clamp_index(iz + dz, S);
-#pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-      const int y = clamp_index(iy + dy, S);
-      const float wzy = w * wz[dz] * wy[dy];
-#pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        const int x = clamp_index(ix + dx, S);
-        const float v = wzy * wx[dx];
-        if (v != 0.f) atomicAdd(&g[(z * S + y) * S + x], v);
-      }
-    }
-  }
+  for (int q = 0; q < 8; ++q)
+    if (v[q] != 0.f) atomicAdd(g + idx[q], v[q]);
 }
 
 int splat_launch(const float* gz, const float* gy, const float* gx,

@@ -58,8 +58,11 @@ _SIGNATURES = {
                             _I, _I, _F, _F, _F, _F, _I, _P],
     # img, grid, out, B, H, W, C, P, stream
     "im23d_grid_sample_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # img, grid, dout, dimg, dgrid, B, H, W, C, P, stream
-    "im23d_grid_sample_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # img, grid, dout, dimg, dgrid, B, H, W, C, P, runs, stream
+    "im23d_grid_sample_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P],
+    # out
+    "im23d_k5b_limits": [_P],
     # x, w, bias, y, B, C, H, W, circular, stream (float32 x; bfloat16 x)
     "im23d_head_conv_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "im23d_head_conv_fwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -69,8 +72,10 @@ _SIGNATURES = {
     # th, tw, vec, resident, bw, bh, stream
     "im23d_fused_conv_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # gz, gy, gx, c, out, B, N, S, stream
-    "im23d_splat_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # gz, gy, gx, c, out, B, N, S, cluster, smem, stream
+    "im23d_splat_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
+    # dev, out
+    "im23d_splat_limits": [_I, _P],
     # gz, gy, gx, c, g, raw, dgz, dgy, dgx, dc, B, N, S, stream
     "im23d_splat_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _P],

@@ -4,13 +4,21 @@
 ``grid_sample_bilinear`` is the texture lookup of the mesh renderer: it runs
 the plain ``grid_sample_bilinear_torch`` on CPU tensors and the CUDA kernel
 K5 (``csrc/grid_sample.cu``) on CUDA tensors, with K5's backward as the
-gradient when one is needed (``_GridSample``).  ``resize_bilinear`` is the
+gradient when one is needed (``_GridSample``).  K5's backward runs one of
+two kernels, chosen by shape alone (``grid_sample_backward_plan``): a
+thread a run of neighbouring samples with a corner cell's sums in
+registers, or, for more than 4 channels, a thread a sample;
+``grid_sample_backward_runs_torch`` is the plain twin of the first's
+order of sums.  ``resize_bilinear`` is the
 separable hat-matmul resize of the JAX version (the mask downsample of the
 projection loss, and the texture down-resize of pseudo-ground-truth
 generation).
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -107,6 +115,78 @@ def grid_sample_bilinear_backward_torch(img: torch.Tensor, grid: torch.Tensor,
         return torch.autograd.grad(out, (img, grid), dout)
 
 
+class K5bLimits(NamedTuple):
+    """What ``grid_sample_backward_plan`` reads from the kernel library
+    (``im23d_k5b_limits``): the register-window kernel's largest channel
+    count, threads a block, samples a thread reads at once and samples a
+    run at most."""
+    max_c: int
+    threads: int
+    spt: int
+    max_run: int
+
+
+# the run lengths the plan chooses from (tools/time_split.py --only k5b on
+# an H100 80GB HBM3 at 700 W: 8 best at the recon train step's 3.9 samples
+# a texel, 64 at the visibility render's 63)
+RUN_MIN, RUN_MAX = 8, 64
+
+
+def grid_sample_backward_plan(B: int, H: int, W: int, C: int, P: int,
+                              need_img: bool, lim: K5bLimits) -> dict:
+    """K5 backward's kernel for B textures (H, W, C) and P samples an
+    image.
+
+    ``runs`` when d texture is wanted and C <= ``lim.max_c``: a thread a
+    run of ``run`` neighbouring samples of one image, ``blocks`` blocks of
+    ``lim.threads``; any texture size.  ``run`` is about the samples that
+    fall on one texel, P / (H W), as a power of two within [RUN_MIN,
+    RUN_MAX]: the longer a corner cell's share of a run, the fewer adds.
+    Otherwise ``generic``: a thread a sample.  d texture is zeroed first
+    either way.  Whether d grid is wanted does not change the kernel."""
+    if need_img and int(C) <= lim.max_c:
+        run = max(RUN_MIN, lim.spt)
+        while run < min(RUN_MAX, lim.max_run) and run * int(H) * int(W) < P:
+            run *= 2
+        runs = int(B) * -(-int(P) // run)
+        return dict(path="runs", run=run, blocks=-(-runs // lim.threads))
+    return dict(path="generic", run=0, blocks=-(-int(B) * int(P) // 256))
+
+
+_K5B_LIMITS: list = []
+
+
+def k5b_limits() -> K5bLimits:
+    """``K5bLimits`` of the kernel library, read once."""
+    if not _K5B_LIMITS:
+        lib = _build.load_kernels()
+        out = (ctypes.c_int * len(K5bLimits._fields))()
+        _build.check(lib, lib.im23d_k5b_limits(out), "K5 bwd limits")
+        _K5B_LIMITS.append(K5bLimits(*out))
+    return _K5B_LIMITS[0]
+
+
+def grid_sample_backward_runs_torch(img: torch.Tensor, grid: torch.Tensor,
+                                    dout: torch.Tensor,
+                                    run: int) -> torch.Tensor:
+    """Plain twin of the register-window kernel's d texture in its order of
+    sums: each run of ``run`` neighbouring samples of an image sums its
+    products on its own (as a thread keeps them in registers), and the
+    runs' sums are then added.  Equal to
+    ``grid_sample_bilinear_backward_torch``'s d texture up to the order of
+    the sums."""
+    B, H, W, C = img.shape
+    P = grid.shape[1] * grid.shape[2]
+    R = -(-P // run)
+    pad = R * run - P
+    flat_g = torch.nn.functional.pad(grid.reshape(B, P, 2), (0, 0, 0, pad))
+    flat_d = torch.nn.functional.pad(dout.reshape(B, P, C), (0, 0, 0, pad))
+    per_run = grid_sample_bilinear_backward_torch(
+        img.repeat_interleave(R, dim=0), flat_g.reshape(B * R, run, 1, 2),
+        flat_d.reshape(B * R, run, 1, C))[0]
+    return per_run.reshape(B, R, H, W, C).sum(dim=1)
+
+
 def grid_sample_bilinear_backward_kernel(img: torch.Tensor,
                                          grid: torch.Tensor,
                                          dout: torch.Tensor,
@@ -117,10 +197,15 @@ def grid_sample_bilinear_backward_kernel(img: torch.Tensor,
     dout (B, Hg, Wg, C).
 
     Replaces the Pallas kernel ``_bwd_kernel``
-    (``im23d_tpu/ops/sampling_pallas.py:213``).  One thread per sample: d
-    grid from its four corners, d img scattered with ``atomicAdd`` (order of
-    the sums changes between runs), a zero product not added, so a texel
-    no sample weighs stays exactly 0 (see ``csrc/grid_sample.cu``).
+    (``im23d_tpu/ops/sampling_pallas.py:213``).  The kernel is the plan's
+    (``grid_sample_backward_plan``): a thread walks a run of 8 to 64
+    neighbouring samples keeping one corner cell's sums in registers and
+    adds them into the zeroed d texture only when the cell moves on (with
+    atomicAdd, which L2 carries out as a native float add), or, for more
+    than 4 channels, a thread a sample.  The order of the sums changes
+    between runs; a zero product is not added, so a texel no sample weighs
+    stays exactly 0; d grid comes from the sample's four corners (see
+    ``csrc/grid_sample.cu``).
     """
     dev = img.device
     if dev.type != "cuda" or grid.device != dev or dout.device != dev:
@@ -142,12 +227,14 @@ def grid_sample_bilinear_backward_kernel(img: torch.Tensor,
     dgrid = torch.empty_like(grid) if need_grid else None
     if Hg * Wg == 0 or not (need_img or need_grid):
         return dimg, (dgrid.zero_() if need_grid else None)
+    plan = grid_sample_backward_plan(B, H, W, C, Hg * Wg, need_img,
+                                     k5b_limits())
     lib = _build.load_kernels()
     rc = lib.im23d_grid_sample_bwd(
         img.data_ptr(), grid.data_ptr(), dout.data_ptr(),
         dimg.data_ptr() if need_img else None,
         dgrid.data_ptr() if need_grid else None, B, H, W, C, Hg * Wg,
-        torch.cuda.current_stream(dev).cuda_stream)
+        plan["run"], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "grid_sample backward kernel (K5 bwd)")
     grid_sample_bilinear_backward_kernel.launches += 1
     return dimg, dgrid

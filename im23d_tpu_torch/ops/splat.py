@@ -7,7 +7,12 @@ CPU tensor both run their plain PyTorch versions under autograd.  On a CUDA
 tensor the splat grid is the kernel K6 (``trilinear_splat``) or K7
 (``splat_blur``: splat, clamp and the Y/X blur), forward and backward, in
 ``csrc/splat.cu``, joined by the ``torch.autograd.Function``s
-``_SplatGrid`` and ``_SplatBlurGrid``; there is no other path.  Both are
+``_SplatGrid`` and ``_SplatBlurGrid``; there is no other path.  K6's
+forward takes one of two kernel paths, chosen by shape alone
+(``splat_plan``): a cluster of CTAs a cloud, each with a copy of the grid
+in shared memory, or, for a grid too large for that, atomics into device
+memory; ``splat_grid_shared_torch`` is the plain twin of the first's order
+of sums.  Both are
 differentiable in the points and the weights; ``splat_blur`` in ``scale``
 too (its Z blur, scale and last clip run in plain PyTorch, as the JAX
 package runs them outside its kernel, and autograd gives their gradient).
@@ -26,11 +31,14 @@ Two choices differ from the JAX wrappers, which are the reference:
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from im23d_tpu_torch.ops import _build
 from im23d_tpu_torch.ops.projection import _check_operand, _taps_and_scale
-from im23d_tpu_torch.ops.voxel import blur_3d, splat_grid
+from im23d_tpu_torch.ops.voxel import blur_3d, splat_grid, splat_sum
 # the plain version of ``trilinear_splat``: the same cull and weights as
 # ``_prep_splat``, then ``splat_grid``
 from im23d_tpu_torch.ops.voxel import trilinear_splat as trilinear_splat_torch
@@ -143,26 +151,92 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+class SplatLimits(NamedTuple):
+    """What ``splat_plan`` reads from the kernel library
+    (``im23d_splat_limits``): the card's opt-in shared memory a block
+    (bytes) and its multiprocessors, then the shared path's largest
+    cluster and threads a CTA."""
+    smem_optin: int
+    sms: int
+    max_cluster: int
+    threads: int
+
+
+def splat_plan(B: int, size: int, lim: SplatLimits) -> dict:
+    """K6 forward's path for B clouds at an S³ grid.
+
+    ``shared`` when S³ float32 fit a block's shared memory (S <= 38 on an
+    H100): a cluster of ``cluster`` CTAs a cloud, each holding a copy of
+    the grid (``smem`` bytes), ``cluster`` the largest power of two up to
+    ``lim.max_cluster`` with B·cluster <= ``lim.sms`` (one wave: one CTA a
+    multiprocessor), 1 at least.  Otherwise ``generic``: atomics into the
+    zeroed output, then a clamp pass."""
+    grid = int(size) ** 3 * 4
+    if grid <= lim.smem_optin:
+        k = 1
+        while 2 * k <= lim.max_cluster and B * 2 * k <= lim.sms:
+            k *= 2
+        return dict(path="shared", cluster=k, smem=grid)
+    return dict(path="generic", cluster=0, smem=0)
+
+
+_SPLAT_LIMITS: dict = {}
+
+
+def splat_limits(dev: torch.device) -> SplatLimits:
+    """``SplatLimits`` of CUDA device ``dev``, read from the library once."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _SPLAT_LIMITS:
+        lib = _build.load_kernels()
+        out = (ctypes.c_int * len(SplatLimits._fields))()
+        _build.check(lib, lib.im23d_splat_limits(key, out), "splat limits")
+        _SPLAT_LIMITS[key] = SplatLimits(*out)
+    return _SPLAT_LIMITS[key]
+
+
+def splat_grid_shared_torch(gz, gy, gx, c, size: int, plan: dict,
+                            lim: SplatLimits) -> torch.Tensor:
+    """Plain twin of K6's shared path, in its partition: point i of a cloud
+    goes to CTA (i // threads) mod cluster, each CTA splats its points
+    into its own copy, and the copies are added in rank order before the
+    clamp to [0, 1].  Equal to ``splat_grid_torch`` up to the order of the
+    sums."""
+    k = plan["cluster"]
+    coords = torch.stack((gz, gy, gx), dim=-1)
+    owner = (torch.arange(gz.shape[1], device=gz.device) // lim.threads) % k
+    total = None
+    for r in range(k):
+        part = splat_sum(coords, c * (owner == r), size)
+        total = part if total is None else total + part
+    return total.clamp(0.0, 1.0)
+
+
 def splat_kernel(gz, gy, gx, c, size: int) -> torch.Tensor:
     """Launch K6 on (B, N) grid-coordinate planes and weights ``c`` (all
     float32, contiguous, on one CUDA device); returns the clamped
     (B, S, S, S) splat.
 
     Replaces the Pallas kernel ``_fwd_kernel``
-    (``im23d_tpu/ops/splat_pallas.py:59``).  One thread per point adds its 8
-    corners with ``atomicAdd`` into the zeroed output, a second pass clamps
-    it to 1; bound by the grid's bytes.  The atomics add in an order that
-    changes between runs: results agree with ``splat_grid_torch`` to float
-    rounding, not bit for bit.
+    (``im23d_tpu/ops/splat_pallas.py:59``).  The path is the plan's
+    (``splat_plan``): on the shared path one launch, a cluster of CTAs a
+    cloud each splatting its share of the points into a copy of the grid
+    in shared memory, the copies summed in rank order, clamped and written
+    once (``torch.empty`` output, no clamp pass); on the generic path one
+    thread per point adds its 8 corners with ``atomicAdd`` into the zeroed
+    output and a second pass clamps it.  Bound by the grid's bytes.  The
+    atomics add in an order that changes between runs: results agree with
+    ``splat_grid_torch`` to float rounding, not bit for bit.
     """
     S = int(size)
     dev, B, N = _check_points("splat_kernel", gz, gy, gx, c, S,
                               SPLAT_MAX_SIZE)
+    plan = splat_plan(B, S, splat_limits(dev))
     lib = _build.load_kernels()
-    out = _zeros(B, S, dev)
+    out = (torch.empty((B, S, S, S), dtype=torch.float32, device=dev)
+           if plan["path"] == "shared" else _zeros(B, S, dev))
     rc = lib.im23d_splat_fwd(gz.data_ptr(), gy.data_ptr(), gx.data_ptr(),
                              c.data_ptr(), out.data_ptr(), B, N, S,
-                             _stream(dev))
+                             plan["cluster"], plan["smem"], _stream(dev))
     _build.check(lib, rc, "splat kernel (K6)")
     splat_kernel.launches += 1
     return out

@@ -22,11 +22,11 @@ def _corner_offsets(device) -> torch.Tensor:
     )
 
 
-def splat_grid(coords: torch.Tensor, weights: torch.Tensor,
-               size: int) -> torch.Tensor:
+def splat_sum(coords: torch.Tensor, weights: torch.Tensor,
+              size: int) -> torch.Tensor:
     """Scatter (B, N, 3) grid coordinates (z, y, x) in [0, S-1] into a
-    (B, S, S, S) grid by trilinear weights times ``weights`` (B, N), clamped
-    to [0, 1].  Corner indices are clamped to the grid: zero-weight points
+    (B, S, S, S) grid by trilinear weights times ``weights`` (B, N), not
+    clamped.  Corner indices are clamped to the grid: zero-weight points
     may lie anywhere."""
     B = coords.shape[0]
     S = int(size)
@@ -45,7 +45,13 @@ def splat_grid(coords: torch.Tensor, weights: torch.Tensor,
     flat = flat + (torch.arange(B, device=coords.device) * S**3)[:, None, None]
     vox = torch.zeros(B * S**3, dtype=coords.dtype, device=coords.device)
     vox = vox.index_add(0, flat.reshape(-1), cw.reshape(-1))
-    return vox.reshape(B, S, S, S).clamp(0.0, 1.0)
+    return vox.reshape(B, S, S, S)
+
+
+def splat_grid(coords: torch.Tensor, weights: torch.Tensor,
+               size: int) -> torch.Tensor:
+    """``splat_sum`` clamped to [0, 1]."""
+    return splat_sum(coords, weights, size).clamp(0.0, 1.0)
 
 
 def trilinear_splat(

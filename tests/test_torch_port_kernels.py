@@ -28,10 +28,11 @@ plain winner rule ``rasterize_winners_torch``; K5 is bit-equal to the
 plain gather.
 
 The backward kernels are held to the autograd of the plain forwards.  K5's
-backward by relative L2 per output (d img sums by atomicAdd in another
-order; d grid differs from autograd in the order of its additions): 1e-5,
-and the set of texels with d img > 0 exactly (pseudo-GT visibility tests
-> 0).  K4's backward by the limits of the JAX package's rasterizer gradient
+backward by relative L2 per output (d img sums each run of samples in
+registers, then by atomicAdd in another order; d grid differs from
+autograd in the order of its additions): 1e-5, and the set of texels with
+d img > 0 exactly (pseudo-GT visibility tests > 0); both of its kernels
+(runs of samples, a thread a sample) at the shapes that take them.  K4's backward by the limits of the JAX package's rasterizer gradient
 test (``tests/test_rasterizer_pallas.py:76-80``): max |d verts| error
 < 1e-3 x max(max |d verts|, 1), max |d attrs| error < 1e-4 x
 max(max |d attrs|, 1), read on the per-corner gradients d fv: per-face
@@ -40,9 +41,11 @@ vanishes at the nearest point dropped, and d log_miss taken from 1 − soft.
 It sums each face's gradients in registers and one warp reduction, so its
 launches are bit-equal.
 
-K6 (the standalone splat) and K7 (splat, clamp, Y/X blur) add with
-atomicAdd (order changes between runs) and K7 blurs in another order than
-the plain band matmul: values atol 1e-5.  Their backward kernels recompute
+K6 (the standalone splat: a cluster of CTAs a cloud with a copy of the
+grid each in shared memory, or atomics into device memory for a grid too
+large) and K7 (splat, clamp, Y/X blur) add with atomicAdd (order changes
+between runs) and K7 blurs in another order than the plain band matmul:
+values atol 1e-5.  Their backward kernels recompute
 the splat for the clamp's mask, so a voxel within rounding of 1 can flip
 it: relative L2 per output <= 1e-4, as K2.
 
@@ -103,14 +106,18 @@ from im23d_tpu_torch.ops.projection import (
     projection_silhouette_torch,
 )
 from im23d_tpu_torch.ops.sampling import (
+    grid_sample_backward_plan,
     grid_sample_bilinear,
     grid_sample_bilinear_backward_kernel,
     grid_sample_bilinear_backward_torch,
     grid_sample_bilinear_kernel,
     grid_sample_bilinear_torch,
+    k5b_limits,
 )
 from im23d_tpu_torch.ops.splat import (
     _prep_splat,
+    splat_limits,
+    splat_plan,
     splat_backward_kernel,
     splat_backward_torch,
     splat_blur,
@@ -623,6 +630,77 @@ def test_k5_backward_visibility_zero_pattern(dev):
     assert 0 < float((ref > 0).float().mean()) < 1
 
 
+def test_k5b_limits_are_the_plans(dev):
+    """The kernel library's constants are those that the CPU tests of
+    ``grid_sample_backward_plan`` assume
+    (``tests/test_torch_port_scatter_plan.py``)."""
+    from test_torch_port_scatter_plan import K5B_LIMITS
+
+    assert k5b_limits() == K5B_LIMITS
+
+
+@pytest.mark.parametrize("shape,grid_hw,path,mask", [
+    ((2, 128, 130, 3), (256, 256), "runs", False),
+    ((2, 128, 130, 3), (256, 256), "runs", True),
+    ((3, 9, 13, 1), (35, 7), "runs", True),   # P % 4 != 0: scalar loads
+    ((1, 16, 16, 2), (64, 64), "runs", False),
+    ((2, 40, 40, 4), (100, 128), "runs", False),
+    ((2, 64, 66, 3), (40, 300), "runs", False),
+    ((2, 256, 258, 3), (128, 128), "runs", False),  # 792,576 bytes
+    ((2, 256, 258, 3), (128, 128), "runs", True),
+    ((2, 16, 16, 5), (32, 32), "generic", False),   # C > 4
+    ((2, 16, 16, 5), (32, 32), "generic", True),
+])
+def test_k5_backward_paths(dev, shape, grid_hw, path, mask):
+    """d img and d grid of both kernels against autograd of the plain
+    gather, the kernel the plan's; under a 0/1 upstream the texels with
+    d img > 0 exactly the plain version's."""
+    gen = torch.Generator(dev).manual_seed(4)
+    B, H, W, C = shape
+    img = torch.rand(shape, device=dev, generator=gen)
+    grid = torch.rand((B, *grid_hw, 2), device=dev, generator=gen) * 2.2 - 1.1
+    if mask:
+        dout = (torch.rand((B, *grid_hw, 1), device=dev, generator=gen) > 0.5
+                ).float().expand(-1, -1, -1, C).contiguous()
+    else:
+        dout = torch.randn((B, *grid_hw, C), device=dev, generator=gen)
+    plan = grid_sample_backward_plan(B, H, W, C, grid_hw[0] * grid_hw[1],
+                                     True, k5b_limits())
+    assert plan["path"] == path
+    ref = grid_sample_bilinear_backward_torch(img, grid, dout)
+    got = grid_sample_bilinear_backward_kernel(img, grid, dout)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.isfinite(a).all()
+        assert _rel_l2(a, b) <= 1e-5, _rel_l2(a, b)
+    if mask:
+        assert torch.equal(got[0] > 0, ref[0] > 0)
+    # d grid has no atomics: bit-equal between launches, and d img alone
+    # gives the same d img
+    again = grid_sample_bilinear_backward_kernel(img, grid, dout)
+    assert torch.equal(again[1], got[1])
+    only = grid_sample_bilinear_backward_kernel(img, grid, dout,
+                                                need_grid=False)
+    assert only[1] is None and _rel_l2(only[0], ref[0]) <= 1e-5
+
+
+def test_k5_backward_unaligned_grid(dev):
+    """A grid and upstream 8 bytes past an aligned start: the shared path's
+    scalar loads."""
+    gen = torch.Generator(dev).manual_seed(5)
+    img = torch.rand((2, 32, 34, 3), device=dev, generator=gen)
+    grid = torch.rand((2, 64, 64, 2), device=dev, generator=gen) * 2 - 1
+    dout = torch.randn((2, 64, 64, 3), device=dev, generator=gen)
+    flat = torch.empty(grid.numel() + 2, device=dev)
+    shifted = flat[2:].view(grid.shape)
+    shifted.copy_(grid)
+    assert shifted.data_ptr() % 16 == 8
+    ref = grid_sample_bilinear_backward_torch(img, grid, dout)
+    got = grid_sample_bilinear_backward_kernel(img, shifted, dout)
+    for a, b in zip(got, ref):
+        assert _rel_l2(a, b) <= 1e-5
+
+
 def _k4_grad_check(got, ref):
     for g, r, k in zip(got, ref, (1e-3, 1e-4)):
         scale = max(float(r.abs().max()), 1.0)
@@ -1054,6 +1132,45 @@ def test_k6_matches_plain(dev, S):
         assert _rel_l2(d, r) <= 1e-4, (_rel_l2(d, r), float((d - r).abs().max()))
     assert (splat_kernel.launches, splat_backward_kernel.launches) == (
         n0 + 1, b0 + 1)
+
+
+def test_k6_limits_are_the_plans(dev):
+    """The kernel library's constants are those that the CPU tests of
+    ``splat_plan`` assume (``tests/test_torch_port_scatter_plan.py``), and
+    the 3D IoU's 32³ grid fits the card's shared memory a block."""
+    from test_torch_port_scatter_plan import SPLAT_H100
+
+    lim = splat_limits(dev)
+    assert lim._replace(sms=0, smem_optin=0) == SPLAT_H100._replace(
+        sms=0, smem_optin=0)
+    assert splat_plan(24, 32, lim)["path"] == "shared"
+    assert splat_plan(480, 64, lim)["path"] == "generic"
+
+
+@pytest.mark.parametrize("B,n,S,path", [
+    (24, 8000, 32, "shared"),   # the eval CLI's 3D IoU, 4 CTAs a cloud
+    (1, 3000, 38, "shared"),    # 8 CTAs
+    (200, 500, 32, "shared"),   # 1 CTA a cloud, two waves
+    (3, 2000, 13, "shared"),    # S^3 % 4 != 0: scalar stores
+    (2, 0, 16, "shared"),       # no points
+    (2, 4000, 39, "generic"), (4, 4000, 64, "generic"),
+])
+def test_k6_paths(dev, B, n, S, path):
+    """K6 forward on both paths against the plain splat, weights of either
+    sign (the clamp to [0, 1] binds at both ends)."""
+    gen = torch.Generator(dev).manual_seed(S)
+    pts = torch.rand((B, n, 3), device=dev, generator=gen) * 0.9 - 0.45
+    w = torch.rand((B, n), device=dev, generator=gen) * 3.0 - 0.5
+    gz, gy, gx, c = _prep_splat(pts, S, w, 1e-6)
+    assert splat_plan(B, S, splat_limits(dev))["path"] == path
+    n0 = splat_kernel.launches
+    got = splat_kernel(gz, gy, gx, c, S)
+    ref = splat_grid_torch(gz, gy, gx, c, S)
+    torch.cuda.synchronize()
+    assert splat_kernel.launches == n0 + 1
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    if n:
+        assert float(ref.max()) == 1.0 and float(ref.min()) == 0.0
 
 
 @pytest.mark.parametrize("S,ks,sigma", [(16, 9, 0.8), (64, 21, 3.0),

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Times of K9 (folded affine + leaky ReLU + 3 × 3 conv), K5 forward
-(texture sampler), K8 forward and dW (the GAN head conv and its weight
-gradient), K4 forward and backward (the rasterizer and its gradient) and
-K1 and K2 (the projection forward and backward) on one GPU, for the port
+"""Times of K9 (folded affine + leaky ReLU + 3 × 3 conv), K5 forward and
+backward (texture sampler and its gradient), K8 forward and dW (the GAN
+head conv and its weight gradient), K4 forward and backward (the
+rasterizer and its gradient), K1 and K2 (the projection forward and
+backward) and K6 forward (the standalone splat) on one GPU, for the port
 found under ``--root``.
 
 ``--root`` (default: this checkout) is put first on ``sys.path``, so the
@@ -70,15 +71,28 @@ upstream of ``chip_smoke.py`` phase 19: event and device time, cuDNN's pad
 + weight gradient on the bf16-rounded upstream (event time), the bytes
 bound and a hash of dW.
 
+K5 backward (``k5b``) at ``chip_smoke.py`` phase 12's train shape (50 ×
+256² rendered UVs, a random upstream times the hard mask, d texture and d
+grid) and visibility shape (50 × 1024², the hard mask on every channel, d
+texture only): the wrapper's event and device time (10 calls, the d
+texture memset included), ``grid_sampler_2d_backward`` on NCHW copies
+(event time), the bytes bound, hashes of d texture's > 0 mask and of d
+grid, whether 3 launches are bit-equal, and the root's plan.
+
+K6 forward (``k6``) at the eval CLI's 3D IoU shape ((24, 8000) at 32³) and
+the candidate sweep's (480 × 8000 at 64³, keep-prob 0.07): event and
+device time, the bytes bound, a hash of the grid and the root's plan.
+
 The timing helpers are ``tools/gpu_timing.py``'s, from this checkout
 whatever the root.  Prints one JSON line ``{"root": ..., "gpu": ...,
 "k9": [...], "k5": {...}, "k8": {...}, "k4b": {...}, "k1": {...},
 "k2": {...}, "k4f": {...}, "k8dw": {...}, "k1s32": {...},
-"k2s32": {...}}`` (the ones run) as its last line.
+"k2s32": {...}, "k5b": {...}, "k6": {...}}`` (the ones run) as its last
+line.
 
 Usage (from the repository root, on a machine with a CUDA device):
     python3 tools/kernel_times.py [--root DIR]
-        [--only k9 k5 k8 k4b k1 k2 k4f k8dw k1s32 k2s32]
+        [--only k9 k5 k8 k4b k1 k2 k4f k8dw k1s32 k2s32 k5b k6]
 """
 
 from __future__ import annotations
@@ -414,6 +428,132 @@ def _k5_grids() -> dict:
     }
 
 
+def _k5b_operands() -> dict:
+    """K5 backward's operands at ``chip_smoke.py`` phase 12's two shapes on
+    its ``_cub_scene``: (texture, grid, upstream, need_grid) for ``train``
+    (50 × 256² rendered UVs, a random upstream times the hard mask, as the
+    recon train step gives it) and ``visibility`` (50 × 1024² rendered
+    UVs, the hard mask on every channel, d texture only)."""
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
+    from im23d_tpu_torch.render.rasterizer import rasterize
+
+    dev = torch.device("cuda")
+    verts, faces, attrs, tex = cs._cub_scene(
+        MeshTemplate(segments=32, rings=16), dev)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {}
+    for name, res in (("train", cs.RES), ("visibility", 1024)):
+        with torch.no_grad():
+            feat = rasterize(verts, faces, attrs, res, res, cs.SIGMA)[0]
+        grid = ((feat[..., :2] * 2 - 1) * feat.new_tensor([1.0, -1.0])
+                ).contiguous()
+        hard = feat[..., 2:3]
+        if name == "train":
+            dout = (torch.randn(grid.shape[:3] + tex.shape[3:], device=dev,
+                                generator=gen) * hard).contiguous()
+        else:
+            dout = hard.expand(-1, -1, -1, tex.shape[-1]).contiguous()
+        del feat
+        out[name] = (tex, grid, dout, name == "train")
+    return out
+
+
+def time_k5b(repeats: int) -> dict:
+    """K5 backward at both shapes: event and device time, the bytes bound,
+    ``grid_sampler_2d_backward`` on NCHW copies (event time), hashes of d
+    texture's > 0 mask and of d grid, whether 3 launches are bit-equal, and
+    which plan the root's wrapper takes (where it has one)."""
+    import torch
+
+    from im23d_tpu_torch.ops import sampling
+    from im23d_tpu_torch.ops.sampling import (
+        grid_sample_bilinear_backward_kernel as k5b,
+    )
+
+    res = {}
+    for name, (img, grid, dout, need_grid) in _k5b_operands().items():
+        def call():
+            return k5b(img, grid, dout, True, need_grid)
+
+        r = _timed(call, repeats, 10)
+        nchw, dnchw = (t.permute(0, 3, 1, 2).contiguous() for t in (img, dout))
+        r["library_event_ms"] = spread([events_ms(
+            lambda: torch.ops.aten.grid_sampler_2d_backward(
+                dnchw, nchw, grid, 0, 0, True, [True, need_grid]), 10)
+            for _ in range(repeats)])
+        del nchw, dnchw
+        # reads the grid and upstream (and the texture for d grid), writes
+        # d texture (and d grid)
+        nbytes = (grid.numel() + dout.numel() + img.numel()
+                  + (img.numel() + grid.numel() if need_grid else 0)) * 4
+        outs = [call() for _ in range(3)]
+        r.update(bound_ms=nbytes / PEAK_BYTES * 1e3,
+                 bit_equal_launches=all(
+                     torch.equal(o[0], outs[0][0]) for o in outs),
+                 mask_digest=_digest(outs[0][0] > 0),
+                 dgrid_digest=_digest(outs[0][1]) if need_grid else None)
+        if hasattr(sampling, "grid_sample_backward_plan"):
+            r["plan"] = sampling.grid_sample_backward_plan(
+                *img.shape, grid[0, ..., 0].numel(), True,
+                sampling.k5b_limits())
+        del outs
+        res[name] = r
+        for k in ("event_ms", "device_ms", "library_event_ms"):
+            v = r[k]
+            print(f"[K5 bwd] {name} {k}: min {v['min']:.4f} / median "
+                  f"{v['median']:.4f} / max {v['max']:.4f}", flush=True)
+        print(f"[K5 bwd] {name}: bound {r['bound_ms']:.4f} ms (bytes); 3 "
+              f"launches bit-equal {r['bit_equal_launches']}; > 0 mask "
+              f"{r['mask_digest']}; d grid {r['dgrid_digest']}; plan "
+              f"{r.get('plan')}", flush=True)
+    return res
+
+
+def time_k6(repeats: int) -> dict:
+    """K6 forward at the eval CLI's 3D IoU shape ((24, 8000) at 32³, the
+    clouds of ``chip_smoke.py`` phase 24) and at the candidate sweep's
+    (480 × 8000 at 64³, keep-prob 0.07): event and device time, the bytes
+    bound, a hash of the grid, and the root's plan (where it has one)."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.ops import splat
+    from im23d_tpu_torch.ops.pointcloud import keep_mask
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    res = {}
+    for name, pts, size, p in (
+            ("iou", cs._clouds(np.random.RandomState(7), cs.B, cs.N, dev),
+             cs.IOU_S, None),
+            ("sweep", cs._sweep_points(6, cs.B * cs.V * cs.K, dev), cs.S,
+             0.07)):
+        w = None if p is None else keep_mask(gen, pts.shape[0], cs.N, p)
+        ops = splat._prep_splat(pts, size, w, 1e-6)
+
+        def call():
+            return splat.splat_kernel(*ops, size)
+
+        r = _timed(call, repeats)
+        nbytes = sum(t.numel() for t in ops) * 4 + pts.shape[0] * size ** 3 * 4
+        r.update(bound_ms=nbytes / PEAK_BYTES * 1e3, digest=_digest(call()))
+        if hasattr(splat, "splat_plan"):
+            r["plan"] = splat.splat_plan(pts.shape[0], size,
+                                         splat.splat_limits(dev))
+        res[name] = r
+        for k in ("event_ms", "device_ms"):
+            v = r[k]
+            print(f"[K6] {name} {k}: min {v['min']:.4f} / median "
+                  f"{v['median']:.4f} / max {v['max']:.4f}", flush=True)
+        print(f"[K6] {name}: bound {r['bound_ms']:.4f} ms (bytes); hash "
+              f"{r['digest']}; plan {r.get('plan')}", flush=True)
+    return res
+
+
 def time_k5(repeats: int) -> dict:
     import torch.nn.functional as F
 
@@ -459,7 +599,7 @@ def main(argv=None) -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--only", nargs="+",
                     choices=("k9", "k5", "k8", "k4b", "k1", "k2", "k4f",
-                             "k8dw", "k1s32", "k2s32"))
+                             "k8dw", "k1s32", "k2s32", "k5b", "k6"))
     ap.add_argument("--k9_reps", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
@@ -503,6 +643,10 @@ def main(argv=None) -> int:
         res["k1s32"] = time_projection(False, args.repeats, S32)
     if args.only is None or "k2s32" in args.only:
         res["k2s32"] = time_projection(True, args.repeats, S32)
+    if args.only is None or "k5b" in args.only:
+        res["k5b"] = time_k5b(args.repeats)
+    if args.only is None or "k6" in args.only:
+        res["k6"] = time_k6(args.repeats)
     print(json.dumps(res))
     return 0
 

@@ -69,6 +69,21 @@ K8 dW (``--only k8dw``) for a root with the tensor-core dW
 (``k8dw_variants``) at the head's shape, the upstream of ``chip_smoke.py``
 phase 19.
 
+K5 backward (``--only k5b``) for a root with the atomic kernel of commit
+731de95 (``k5b_variants``: ``full``, ``no_atomics``, ``reads_only``,
+``launch_only``, each part's cost the difference of two) or with the
+register-window kernel (``k5b_run_variants``: ``full``, ``no_window``,
+``no_atomics``, ``lb3``, ``spt8``, ``threads128``, each at runs of 8, 16,
+32 and 64 samples) at
+phase 12's
+visibility shape (50 × 1024² rendered UVs into 128 × 130 × 3 textures, the
+hard mask as the upstream, d texture only) and train shape (50 × 256², a
+random upstream times the hard mask, d grid too), and the memset of d
+texture that its wrapper makes.  K6 forward (``--only k6``) for a root
+with the shared path (``k6_shared_variants``: ``full``, ``int_atomics``,
+``no_splat``, ``no_reduce``): at the 3D IoU's shape at clusters of 1, 2,
+4 and 8 CTAs a cloud, device time by CUDA graph.
+
 Each variant keeps a value that depends on the removed work's inputs, so
 the compiler keeps the rest.  Times: CUDA events over ``--reps``
 back-to-back launches of the entry point alone (no zeroing, no
@@ -76,7 +91,7 @@ allocation), median of 3.  Prints one JSON line as its last line.
 
 Usage (from the repository root, on a machine with a CUDA device):
     python3 tools/time_split.py --root build/parent
-        [--only k4k8|k4f|k8dw|projection]
+        [--only k4k8|k4f|k8dw|projection|k5b|k6]
 """
 
 from __future__ import annotations
@@ -616,11 +631,173 @@ def time_k4f(root: str, csrc: str, nvcc: str, tmp: str, reps: int) -> dict:
     return res
 
 
+def k5b_variants(src: str) -> dict:
+    """The atomic K5 backward's strip-down (``grid_sample_bwd_kernel``):
+    ``full``; ``no_atomics`` (each d img atomicAdd replaced by a store that
+    a product never takes); ``reads_only`` (also no corner arithmetic: the
+    grid and upstream read and summed into a sink); ``launch_only`` (also
+    no reads: the same grid of blocks, each thread storing nothing)."""
+    no_atomics = _edit(src, "if (v != 0.f) atomicAdd(d + c, v);",
+                       "if (v == 1.2345e-30f) d[c] = v;")
+    body = "  const int b = static_cast<int>(i / P);\n  const Bilinear t"
+    reads = _cut(src, body, "}\n\n}  // namespace",
+                 "  float s = grid[2 * i] + grid[2 * i + 1];\n"
+                 "  for (int c = 0; c < C; ++c) s += dout[i * C + c];\n"
+                 "  if (s == 1.2345e-30f) dimg[0] = s;\n")
+    launch = _cut(src, body, "}\n\n}  // namespace",
+                  "  if (i == -1) dimg[0] = 0.f;\n")
+    return {"full": src, "no_atomics": no_atomics, "reads_only": reads,
+            "launch_only": launch}
+
+
+def k5b_run_variants(src: str) -> dict:
+    """The register-window K5 backward's variants (``grid_sample_bwd_run_
+    kernel``): ``full``; ``no_window`` (every change of corner cell adds
+    all four texels, none kept); ``no_atomics`` (the adds replaced by a
+    store that a sum never takes); ``lb3`` (at most 85 registers a
+    thread, three blocks a multiprocessor); ``spt8`` (8 samples read at
+    once instead of 4); ``threads128`` (blocks of 128 threads instead of
+    256)."""
+    return {
+        "full": src,
+        "no_window": _edit(_edit(
+            src, "  const bool right = ny == cy && nx == __fadd_rn(cx, 1.f);",
+            "  const bool right = false, left = false, down = false, up = "
+            "false;\n  if (false) {"),
+            "  const bool up = nx == cx && ny == __fsub_rn(cy, 1.f);\n",
+            "  }\n"),
+        "no_atomics": _edit(
+            src, "    if (a[c] != 0.f) atomicAdd(d + c, a[c]);",
+            "    if (a[c] == 1.2345e-30f) d[c] = a[c];"),
+        "lb3": _edit(src, "__global__ void __launch_bounds__(kRunThreads)\n"
+                     "    grid_sample_bwd_run_kernel",
+                     "__global__ void __launch_bounds__(kRunThreads, 3)\n"
+                     "    grid_sample_bwd_run_kernel"),
+        "spt8": _edit(src, "constexpr int kRunSpt = 4; ",
+                      "constexpr int kRunSpt = 8; "),
+        "threads128": _edit(src, "constexpr int kRunThreads = 256; ",
+                            "constexpr int kRunThreads = 128; "),
+    }
+
+
+def time_k5b(root: str, csrc: str, nvcc: str, tmp: str, reps: int) -> dict:
+    """The K5 backward's variants at both of ``chip_smoke.py`` phase 12's
+    shapes (``kernel_times._k5b_operands``): the atomic kernel's
+    (``k5b_variants``) and the memset of d img that its wrapper makes, or
+    the register-window kernel's (``k5b_run_variants``)."""
+    import torch
+
+    from kernel_times import _k5b_operands
+
+    with open(os.path.join(csrc, "grid_sample.cu")) as fh:
+        src = fh.read()
+    runs = "grid_sample_bwd_run_kernel" in src
+    variants = k5b_run_variants(src) if runs else k5b_variants(src)
+    libs = build({f"k5b_{k}": v for k, v in variants.items()}, tmp, nvcc,
+                 csrc)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = P(torch.cuda.current_stream().cuda_stream)
+    res = {}
+    for shape, (img, grid, dout, need_grid) in _k5b_operands().items():
+        dimg = torch.zeros_like(img)
+        dgrid = torch.empty_like(grid) if need_grid else None
+        ptrs = [img.data_ptr(), grid.data_ptr(), dout.data_ptr(),
+                dimg.data_ptr(), dgrid.data_ptr() if need_grid else None]
+        ints = [*img.shape, grid[0, ..., 0].numel()]
+        r = {"memset": sorted(events_ms(dimg.zero_, reps)
+                              for _ in range(3))[1]}
+        for name, lib in libs.items():
+            fn = lib.im23d_grid_sample_bwd
+            fn.argtypes = [P] * 5 + [I] * (len(ints) + runs) + [P]
+            for run in (8, 16, 32, 64) if runs else (None,):
+                tail = [run] if runs else []
+
+                def call(fn=fn, name=name, tail=tail):
+                    rc = fn(*ptrs, *ints, *tail, stream)
+                    if rc:
+                        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+                tag = name[4:] + (f"_run{run}" if runs else "")
+                r[tag] = sorted(events_ms(call, reps) for _ in range(3))[1]
+        res[shape] = r
+        for k, ms in r.items():
+            print(f"[K5 bwd] {shape} {k}: {ms:.4f} ms", flush=True)
+    return res
+
+
+def k6_shared_variants(src: str) -> dict:
+    """The shared K6 forward's variants: ``full``; ``int_atomics`` (the
+    adds as integer atomicAdds on the same bits: wrong sums, the cost of a
+    native shared atomic against the float add's compare-and-swap loop);
+    ``no_splat`` (the points read, none added); ``no_reduce`` (also no sum
+    over the copies: the cluster barriers, the zeroed copies and the
+    launch)."""
+    add = "      if (v[q] != 0.f) atomicAdd(g + idx[q], v[q]);"
+    no_splat = _edit(src, add, "      if (v[q] == 1.2345e-30f) g[idx[q]] = "
+                     "v[q];")
+    return {
+        "full": src,
+        "int_atomics": _edit(src, add, "      if (v[q] != 0.f)\n"
+                             "        atomicAdd(reinterpret_cast<unsigned*>("
+                             "g + idx[q]), __float_as_uint(v[q]));"),
+        "no_splat": no_splat,
+        "no_reduce": _cut(no_splat,
+                          "  float* o = out + static_cast<size_t>(b) * n;",
+                          "  cluster.sync();  // no CTA leaves",
+                          "  if (threadIdx.x == 0 && g[0] == 1.2345e-30f) "
+                          "out[0] = g[0];\n"),
+    }
+
+
+def time_k6(root: str, csrc: str, nvcc: str, tmp: str, reps: int) -> dict:
+    """K6 forward's shared path and its variants (``k6_shared_variants``)
+    at the 3D IoU's shape ((24, 8000) at 32³, ``chip_smoke.py`` phase 24's
+    clouds) at clusters of 1, 2, 4 and 8 CTAs a cloud: device time (a CUDA
+    graph of ``reps`` launches) and, for ``full``, event time."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from gpu_timing import graph_ms
+    from im23d_tpu_torch.ops.splat import _prep_splat
+
+    with open(os.path.join(csrc, "splat.cu")) as fh:
+        src = fh.read()
+    libs = build({f"k6_{k}": v for k, v in k6_shared_variants(src).items()},
+                 tmp, nvcc, csrc)
+    dev = torch.device("cuda")
+    pts = cs._clouds(np.random.RandomState(7), cs.B, cs.N, dev)
+    S = cs.IOU_S
+    ops = _prep_splat(pts, S, None, 1e-6)
+    ptrs = [t.data_ptr() for t in ops]
+    out = torch.empty((cs.B, S, S, S), device=dev)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    res = {}
+    for name, lib in libs.items():
+        fn = lib.im23d_splat_fwd
+        fn.argtypes = [P] * 5 + [I] * 4 + [L, P]
+        for k in (1, 2, 4, 8):
+            def call(fn=fn, k=k):
+                rc = fn(*ptrs, out.data_ptr(), cs.B, cs.N, S, k, S ** 3 * 4,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"K6 at cluster {k}: CUDA error {rc}")
+
+            tag = f"{name[3:]}_cluster{k}"
+            res[tag] = sorted(graph_ms(call, reps) for _ in range(3))[1]
+            if name == "k6_full":
+                res[tag + "_events"] = sorted(events_ms(call, reps)
+                                              for _ in range(3))[1]
+            print(f"[K6] iou {tag}: {res[tag]:.4f} ms device", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", choices=("k4k8", "k4f", "k8dw", "projection"))
+    ap.add_argument("--only", choices=("k4k8", "k4f", "k8dw", "projection",
+                                       "k5b", "k6"))
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -645,6 +822,10 @@ def main(argv=None) -> int:
         if args.only in (None, "projection"):
             res["projection"] = time_projection(root, csrc, nvcc, tmp,
                                                 args.reps)
+        if args.only in (None, "k5b"):
+            res["k5b"] = time_k5b(root, csrc, nvcc, tmp, args.reps)
+        if args.only == "k6":
+            res["k6"] = time_k6(root, csrc, nvcc, tmp, args.reps)
     print(json.dumps(res))
     return 0
 
