@@ -21,8 +21,9 @@ Phases:
      over 3 launches and one call's peak memory at the first; then the
      cases of phase 2;
   4. K3 (Chamfer nearest neighbour) against the plain ``nn_dist2_torch`` at
-     (24, 8000) <-> (24, 2048) and (24, 8000) <-> (24, 512), both
-     directions;
+     (24, 8000) <-> (24, 2048) and (24, 8000) <-> (24, 512): the pair mode
+     (``chamfer_distance``: both directions from one launch, 3 launches
+     bit-equal) and the rows-only mode in both roles, each with its plan;
   5. the chairs training slice through the port's training CLI
      (``cli/training_test_shape_net.main --synthetic --steps 20``) from a
      fresh workdir; launch counts of the kernels in that run; finite losses;
@@ -116,9 +117,13 @@ Phases:
      at 32^3: the shared path, a cluster of CTAs a cloud), each with its
      plan and timed; K6
      backward against autograd of the plain splat at 120 x 8000 at 64^3;
- 25. (after phase 24) K7 (splat, clamp, Y/X blur) forward and backward
-     against the plain versions at 480 x 8000 at 64^3 at sigma 3.0 and 0.2,
-     and at the meshing shapes (1, 8000) at 96^3 and 128^3;
+ 25. (after phase 24) K7 (splat, clamp, Y/X blur; a CTA a slab of
+     z-planes, each with its plan) forward and backward against the plain
+     versions at 480 x 8000 at 64^3 at sigma 3.0 and 0.2, and at the
+     meshing shapes (1, 8000) at 96^3 and 128^3, forward also at 170^3;
+     then clouds with weights of either sign (uniform in (-1.5, 1.5): the
+     clamp binds at 0 and 1): K7 forward at the sweep's, 96^3, 128^3 and
+     170^3 shapes, and K6 and K7 backward at S = 16, 40 and 96;
  26. (in phase 6) the eval CLI's launch counts include K6, and its 3D IoU
      is held against the plain splat on the same clouds;
  27. (after phase 6) the meshing CLI (``cli/pointcloud_to_mesh.main
@@ -195,8 +200,12 @@ from im23d_tpu_torch.losses.effective import (
     unsupervised_loss,
 )
 from im23d_tpu_torch.metrics.chamfer import (
+    chamfer_kernel,
+    chamfer_limits,
+    chamfer_plan,
     nn_dist2,
     nn_dist2_kernel,
+    nn_dist2_pair_torch,
     nn_dist2_torch,
 )
 from im23d_tpu_torch.metrics.iou import iou_3d
@@ -238,6 +247,8 @@ from im23d_tpu_torch.ops.splat import (
     splat_blur_backward_torch,
     splat_blur_grid_torch,
     splat_blur_kernel,
+    splat_blur_limits,
+    splat_blur_plan,
     splat_blur_torch,
     splat_grid_torch,
     splat_kernel,
@@ -711,32 +722,57 @@ def phase_k2(gpu: str) -> dict:
     return dict(max_abs_err=err, max_rel_l2=rel, peak_mib=peak, **timed[0])
 
 
+def _k3_check(tag: str, got, ref) -> float:
+    e = float((got - ref).abs().max())
+    print(f"[K3] {tag}: max |kernel - plain| {e:.3e}")
+    if not torch.allclose(got, ref, rtol=K3_RTOL, atol=K3_ATOL):
+        raise AssertionError(f"K3 disagrees with plain ({tag}): {e}")
+    return e
+
+
 def phase_k3(gpu: str) -> dict:
     """K3 vs plain at the eval CLI's shape (GT_POINTS_CLI ground-truth
-    points, the one the JSON line times) and at GT_POINTS."""
+    points, whose pair the JSON line times) and at GT_POINTS: the pair
+    mode (both directions from one launch; 3 launches bit-equal) and the
+    rows-only mode in both roles."""
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(1)
     x = _clouds(rng, B, N, dev)
+    lim = chamfer_limits(dev)
     err, timed = 0.0, {}
     for m in (GT_POINTS, GT_POINTS_CLI):
         y = _clouds(rng, B, m, dev)
-        for name, a, b in (("pred->gt", x, y), ("gt->pred", y, x)):
+        for role, (n1, n2) in (("pair, pred->gt rows", (N, m)),
+                               ("gt->pred rows", (m, N))):
+            print(f"[K3] ({B}, {n1}) x ({B}, {n2}) {role}: plan "
+                  f"{chamfer_plan(B, n1, n2, lim)}")
+        ref = nn_dist2_pair_torch(x, y)
+        pairs = [chamfer_kernel(x, y) for _ in range(3)]
+        torch.cuda.synchronize()
+        for name, got, r in zip(("pred->gt", "gt->pred"), pairs[0], ref):
+            err = max(err, _k3_check(f"pair {name} ({B}, {N}) <-> ({B}, "
+                                     f"{m})", got, r))
+        same = all(torch.equal(a, b) for p in pairs[1:]
+                   for a, b in zip(p, pairs[0]))
+        print(f"[K3] pair at M={m}: 3 launches bit-equal {same}")
+        if not same:
+            raise AssertionError("K3's pair launches differ")
+        for name, a, b, r in (("pred->gt", x, y, ref[0]),
+                              ("gt->pred", y, x, ref[1])):
             got = nn_dist2(a, b)
-            ref = nn_dist2_torch(a, b)
-            torch.cuda.synchronize()
-            e = float((got - ref).abs().max())
-            print(f"[K3] {name} {tuple(a.shape)} vs {tuple(b.shape)}: max "
-                  f"|kernel - plain| {e:.3e}")
-            if not torch.allclose(got, ref, rtol=K3_RTOL, atol=K3_ATOL):
-                raise AssertionError(f"K3 disagrees with plain ({name}): {e}")
-            err = max(err, e)
-        ms = _time_ms(lambda: nn_dist2(x, y), 50)
-        plain_ms = _time_ms(lambda: nn_dist2_torch(x, y), 5)
-        print(f"[K3] ({B}, {N}) vs ({B}, {m}): kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms per call [{gpu}]")
-        # 3 differences, 3 products, 2 sums and a min per point pair
-        timed = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **_bound(
-            _nbytes(x, y) + B * N * 4, 9 * B * N * m))
+            err = max(err, _k3_check(f"rows {name} {tuple(a.shape)} vs "
+                                     f"{tuple(b.shape)}", got, r))
+        ms = _time_ms(lambda: chamfer_kernel(x, y), 50)
+        plain_ms = _time_ms(lambda: nn_dist2_pair_torch(x, y), 3)
+        rows_ms = [_time_ms(lambda a=a, b=b: nn_dist2(a, b), 50)
+                   for a, b in ((x, y), (y, x))]
+        # reads both clouds, writes both outputs; per pair 3 differences,
+        # 3 products, 2 sums and the row's and the column's min
+        bound = _bound(_nbytes(x, y) + B * (N + m) * 4, 10 * B * N * m)
+        print(f"[K3] ({B}, {N}) <-> ({B}, {m}): pair kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms; rows only pred->gt {rows_ms[0]:.4f}"
+              f", gt->pred {rows_ms[1]:.4f}; bound {bound} [{gpu}]")
+        timed = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **bound)
     return dict(max_abs_err=err, **timed)
 
 
@@ -853,11 +889,43 @@ def _k7_bound(gz, c, taps, size: int, backward: bool) -> dict:
     return _bound(nbytes, ops)
 
 
+def _signed_clouds(seed: int, clouds: int, n: int, size: int, dev):
+    """Grid-coordinate planes of random points in [-0.45, 0.45] with
+    weights uniform in (-1.5, 1.5): the splat's clamp binds at 0 and 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pts = torch.rand((clouds, n, 3), device=dev, generator=gen) * 0.9 - 0.45
+    w = torch.rand((clouds, n), device=dev, generator=gen) * 3.0 - 1.5
+    return _prep_splat(pts, size, w, 1e-6)
+
+
+def _k7_taps(sigma: float, clouds: int, dev) -> torch.Tensor:
+    taps, _ = _taps_and_scale(torch.tensor(sigma, device=dev), 1.0, 21,
+                              clouds, dev)
+    return taps.contiguous()
+
+
+def _k7_forward_check(tag: str, ops, taps, size: int) -> float:
+    plan = splat_blur_plan(ops[0].shape[0], size, taps.numel(),
+                           splat_blur_limits(ops[0].device))
+    got = splat_blur_kernel(*ops, taps, size)
+    ref = splat_blur_grid_torch(*ops, taps, size)
+    torch.cuda.synchronize()
+    e = float((got - ref).abs().max())
+    print(f"[K7] {tag} {tuple(ops[0].shape)} at {size}^3: plan {plan}; max "
+          f"|kernel - plain| {e:.3e} (atol {K7_ATOL}); max "
+          f"{float(ref.max()):.4f}")
+    if not (torch.isfinite(got).all() and e <= K7_ATOL):
+        raise AssertionError(f"K7 disagrees with plain ({tag}): {e}")
+    return e
+
+
 def phase_k7(gpu: str) -> tuple[dict, dict]:
     """K7 forward and backward against the plain splat + clamp + Y/X blur
     at the candidate sweep's shape (480 x 8000 at 64^3, keep-prob 0.07) at
     the sigma schedule's ends, and at the meshing shapes ((1, 8000) at 96^3,
-    the CLI's default, which the JSON line times, and at 128^3)."""
+    the CLI's default, which the JSON line times, and at 128^3), forward
+    also at 170^3; then with weights of either sign: K7 forward at those
+    grids, and K6 and K7 backward at S = 16, 40 and 96."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(7)
     sweep = _sweep_points(9, B * V * K, dev)
@@ -870,20 +938,11 @@ def phase_k7(gpu: str) -> tuple[dict, dict]:
             ("mesh", cloud, None, MESH_S, MESH_SIGMA),
             ("mesh", cloud, None, 128, MESH_SIGMA)):
         gz, gy, gx, c = _prep_splat(pts, size, w, 1e-6)
-        taps, _ = _taps_and_scale(torch.tensor(sigma, device=dev), 1.0, 21,
-                                  pts.shape[0], dev)
-        taps = taps.contiguous()
-        got = splat_blur_kernel(gz, gy, gx, c, taps, size)
-        ref = splat_blur_grid_torch(gz, gy, gx, c, taps, size)
-        torch.cuda.synchronize()
-        e = float((got - ref).abs().max())
-        print(f"[K7] {tag} {tuple(pts.shape)} at {size}^3, sigma {sigma}: "
-              f"max |kernel - plain| {e:.3e} (atol {K7_ATOL}); max "
-              f"{float(ref.max()):.4f}")
-        if not (torch.isfinite(got).all() and e <= K7_ATOL):
-            raise AssertionError(f"K7 disagrees with plain ({tag}): {e}")
-        g = torch.randn(got.shape, device=dev, generator=gen)
-        del got, ref
+        taps = _k7_taps(sigma, pts.shape[0], dev)
+        e = _k7_forward_check(f"{tag} sigma {sigma}", (gz, gy, gx, c), taps,
+                              size)
+        g = torch.randn((pts.shape[0], size, size, size), device=dev,
+                        generator=gen)
         grads = splat_blur_backward_kernel(gz, gy, gx, c, taps, g)
         ref = splat_blur_backward_torch(gz, gy, gx, c, taps, g)
         torch.cuda.synchronize()
@@ -909,9 +968,38 @@ def phase_k7(gpu: str) -> tuple[dict, dict]:
                   f"call; bound {bound} [{gpu}]")
             row.append(dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                             **bound))
+        if tag == "mesh":
+            dev_ms = _graph_ms(lambda: splat_blur_kernel(gz, gy, gx, c, taps,
+                                                         size), reps)
+            print(f"[K7] mesh at {size}^3: kernel {dev_ms:.4f} ms "
+                  f"device-only (CUDA graph) [{gpu}]")
         timed.setdefault((tag, size), row)
         del g
         torch.cuda.empty_cache()
+    ops = _prep_splat(cloud, 170, None, 1e-6)
+    errs.append((_k7_forward_check("mesh", ops, _k7_taps(MESH_SIGMA, 1, dev),
+                                   170), 0.0))
+    # weights of either sign: the clamp binds at both ends
+    for seed, clouds, size, sigma in ((11, B * V * K, S, 3.0),
+                                      (12, 1, MESH_S, MESH_SIGMA),
+                                      (13, 1, 128, MESH_SIGMA),
+                                      (14, 1, 170, MESH_SIGMA)):
+        ops = _signed_clouds(seed, clouds, N, size, dev)
+        errs.append((_k7_forward_check("signed", ops, _k7_taps(
+            sigma, clouds, dev), size), 0.0))
+    for size in (16, 40, MESH_S):
+        gz, gy, gx, c = _signed_clouds(20 + size, 2, 3000, size, dev)
+        taps = _k7_taps(MESH_SIGMA, 2, dev)
+        g = torch.randn((2, size, size, size), device=dev, generator=gen)
+        for name, got, ref in (
+                ("K7 bwd", splat_blur_backward_kernel(gz, gy, gx, c, taps, g),
+                 splat_blur_backward_torch(gz, gy, gx, c, taps, g)),
+                ("K6 bwd", splat_backward_kernel(gz, gy, gx, c, g),
+                 splat_backward_torch(gz, gy, gx, c, g))):
+            e_b, rel = _check_grads(f"{name} signed {size}", got, ref,
+                                    K7B_REL_L2)
+            errs.append((0.0, e_b))
+            rels.append(rel)
     fwd, bwd = timed[("mesh", MESH_S)]
     return (dict(max_abs_err=max(e for e, _ in errs), **fwd),
             dict(max_abs_err=max(e for _, e in errs), max_rel_l2=max(rels),
@@ -919,7 +1007,7 @@ def phase_k7(gpu: str) -> tuple[dict, dict]:
 
 
 _KERNELS = dict(k1=projection_kernel, k2=projection_backward_kernel,
-                k3=nn_dist2_kernel, k4=rasterize_kernel,
+                k3=chamfer_kernel, k3r=nn_dist2_kernel, k4=rasterize_kernel,
                 k4b=rasterize_backward_kernel, k5=grid_sample_bilinear_kernel,
                 k5b=grid_sample_bilinear_backward_kernel,
                 k6=splat_kernel, k6b=splat_backward_kernel,
@@ -1004,6 +1092,9 @@ def phase_slice(gpu: str, workdir: str) -> dict:
             f"candidate grid {metrics['candidate_projection_shape']}")
     if min(launches[k] for k in ("k1", "k3", "k6")) < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if (launches["k3"], launches["k3r"]) != (1, 0):
+        raise AssertionError("the eval CLI's Chamfer is not one pair launch: "
+                             f"{launches}")
     learner = ShapeNetLearner(cfg, device=DEVICE)
     learner.restore(workdir)
 
@@ -2710,7 +2801,7 @@ def main() -> int:
              source="im23d_tpu_torch/csrc/projection.cu",
              replaces="im23d_tpu/ops/splat_pallas.py:1124",
              launches=train["k2"], **k2),
-        dict(name="K3 nearest-neighbour dist2", route="cuda",
+        dict(name="K3 Chamfer nearest-neighbour pair", route="cuda",
              source="im23d_tpu_torch/csrc/nn_dist2.cu",
              replaces="im23d_tpu/metrics/chamfer.py:56",
              launches=evals["k3"], **k3),

@@ -1,19 +1,20 @@
 // Device code shared by the splat-family kernels K6 and K7 (splat.cu):
-//   splat_corners:     one point's 8 trilinear corners: flat indices into
-//                      an (S, S, S) grid and weights;
+//   splat_axes:        one point's clamped corner indices along z, y and x
+//                      and its 8 trilinear weights;
+//   splat_corners:     the same as flat indices into an (S, S, S) grid;
 //   splat_kernel:      one thread per point, its 8 corners added by
 //                      atomicAdd into a zeroed (B, S, S, S) grid in device
 //                      memory;
-//   blur_yx_kernel:    one block per (cloud, z-plane), the plane clamped
-//                      and blurred along Y then X in shared memory, or the
-//                      transpose of that with the clamp's mask;
+//   blur_yx_t_kernel:  one block per (cloud, z-plane), the transpose of the
+//                      Y/X blur times the clamp's mask;
 //   splat_grad_kernel: the splat's transpose as a gather, one thread per
 //                      point reading its 8 corners (no atomics), returning
 //                      d(gz, gy, gx) and, where asked, d c.
 // Corner indices are clamped to the grid, as the plain version
 // (ops/voxel.py:splat_grid) clamps them; for a point inside the grid that
-// changes nothing.  Each file that includes this header gets its own copy
-// (anonymous namespace).
+// changes nothing.  The clamp's mask is 0 <= raw <= 1 (torch.clamp's VJP:
+// ties pass), for weights of either sign.  Each file that includes this
+// header gets its own copy (anonymous namespace).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,11 +32,12 @@ __device__ __forceinline__ int clamp_index(int i, int S) {
   return min(max(i, 0), S - 1);
 }
 
-// point (pz, py, px) of weight w: its 8 corners' flat indices into an S^3
-// grid and trilinear weights times w, in (dz, dy, dx) order
-__device__ __forceinline__ void splat_corners(float pz, float py, float px,
-                                              float w, int S, int (&idx)[8],
-                                              float (&v)[8]) {
+// point (pz, py, px) of weight w: its clamped corner indices along z, y
+// and x and its 8 trilinear weights times w, in (dz, dy, dx) order
+__device__ __forceinline__ void splat_axes(float pz, float py, float px,
+                                           float w, int S, int (&z)[2],
+                                           int (&y)[2], int (&x)[2],
+                                           float (&v)[8]) {
   const float fz = floorf(pz), fy = floorf(py), fx = floorf(px);
   const int iz = static_cast<int>(fz), iy = static_cast<int>(fy),
             ix = static_cast<int>(fx);
@@ -44,19 +46,37 @@ __device__ __forceinline__ void splat_corners(float pz, float py, float px,
   const float wy[2] = {1.f - ty, ty};
   const float wx[2] = {1.f - tx, tx};
 #pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    z[d] = clamp_index(iz + d, S);
+    y[d] = clamp_index(iy + d, S);
+    x[d] = clamp_index(ix + d, S);
+  }
+#pragma unroll
   for (int dz = 0; dz < 2; ++dz) {
-    const int z = clamp_index(iz + dz, S);
 #pragma unroll
     for (int dy = 0; dy < 2; ++dy) {
-      const int y = clamp_index(iy + dy, S);
       const float wzy = w * wz[dz] * wy[dy];
 #pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        idx[4 * dz + 2 * dy + dx] = (z * S + y) * S + clamp_index(ix + dx, S);
-        v[4 * dz + 2 * dy + dx] = wzy * wx[dx];
-      }
+      for (int dx = 0; dx < 2; ++dx) v[4 * dz + 2 * dy + dx] = wzy * wx[dx];
     }
   }
+}
+
+// the same corners as flat indices into an S^3 grid
+__device__ __forceinline__ void splat_corners(float pz, float py, float px,
+                                              float w, int S, int (&idx)[8],
+                                              float (&v)[8]) {
+  int z[2], y[2], x[2];
+  splat_axes(pz, py, px, w, S, z, y, x, v);
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    idx[q] = (z[q >> 2] * S + y[(q >> 1) & 1]) * S + x[q & 1];
+}
+
+// the clamp's mask on a raw splat sum: torch.clamp(raw, 0, 1)'s gradient
+// passes where 0 <= raw <= 1, ties included
+__device__ __forceinline__ bool clamp_passes(float raw) {
+  return raw >= 0.f && raw <= 1.f;
 }
 
 __global__ void splat_kernel(const float* __restrict__ gz,
@@ -91,36 +111,28 @@ int splat_launch(const float* gz, const float* gy, const float* gx,
   return cudaGetLastError();
 }
 
-// Zero-padded 'same' correlation of one strided line with the taps at
-// position i: sum_t k[t] * line[i + t - half] (forward), or its transpose
-// sum_t k[t] * line[i - t + half].  The band of taps is not assumed
-// symmetric.
-template <bool kTranspose>
-__device__ __forceinline__ float correlate(const float* line, int stride,
-                                           int i, const float* k, int K,
-                                           int S) {
+// The transpose of the zero-padded 'same' correlation with the taps, on
+// one strided line at position i: sum_t k[t] * line[i - t + half] (the
+// forward is sum_t k[t] * line[i + t - half]).  The band of taps is not
+// assumed symmetric.
+__device__ __forceinline__ float correlate_t(const float* line, int stride,
+                                             int i, const float* k, int K,
+                                             int S) {
   const int half = K / 2;
+  const int t0 = max(0, i + half - S + 1), t1 = min(K, i + half + 1);
   float acc = 0.f;
-  if (!kTranspose) {
-    const int t0 = max(0, half - i), t1 = min(K, S + half - i);
-    for (int t = t0; t < t1; ++t) acc += k[t] * line[(i + t - half) * stride];
-  } else {
-    const int t0 = max(0, i + half - S + 1), t1 = min(K, i + half + 1);
-    for (int t = t0; t < t1; ++t) acc += k[t] * line[(i - t + half) * stride];
-  }
+  for (int t = t0; t < t1; ++t) acc += k[t] * line[(i - t + half) * stride];
   return acc;
 }
 
 // grid: blockIdx.x = z-plane, blockIdx.y = cloud; 2 S^2 floats of dynamic
 // shared memory.  The block reads its whole plane before it writes, so src
-// may alias dst.
-//   forward:   dst = blur_x(blur_y(min(src, 1)))
-//   transpose: dst = blur_y^T(blur_x^T(src)) * (keep <= 1), keep = the raw
-//              splat (the min's gradient passes on ties, like torch.clamp)
-template <bool kTranspose>
-__global__ void blur_yx_kernel(const float* src, float* dst,
-                               const float* __restrict__ keep,
-                               const float* __restrict__ taps, int K, int S) {
+// may alias dst.  dst = blur_y^T(blur_x^T(src)) where keep (the raw splat)
+// passes the clamp (clamp_passes).
+__global__ void blur_yx_t_kernel(const float* src, float* dst,
+                                 const float* __restrict__ keep,
+                                 const float* __restrict__ taps, int K,
+                                 int S) {
   extern __shared__ float planes[];  // [2][S][S]
   __shared__ float k[kMaxTaps];
   float* plane = planes;
@@ -128,19 +140,17 @@ __global__ void blur_yx_kernel(const float* src, float* dst,
   const int SS = S * S;
   const size_t off = (static_cast<size_t>(blockIdx.y) * S + blockIdx.x) * SS;
   for (int t = threadIdx.x; t < K; t += blockDim.x) k[t] = taps[t];
-  for (int i = threadIdx.x; i < SS; i += blockDim.x)
-    // splat sums are >= 0: only the top of the clamp binds
-    plane[i] = kTranspose ? src[off + i] : fminf(src[off + i], 1.f);
+  for (int i = threadIdx.x; i < SS; i += blockDim.x) plane[i] = src[off + i];
   __syncthreads();
   for (int i = threadIdx.x; i < SS; i += blockDim.x) {
     const int y = i / S, x = i - y * S;
-    tmp[i] = correlate<kTranspose>(plane + x, S, y, k, K, S);
+    tmp[i] = correlate_t(plane + x, S, y, k, K, S);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < SS; i += blockDim.x) {
     const int y = i / S, x = i - y * S;
-    const float v = correlate<kTranspose>(tmp + y * S, 1, x, k, K, S);
-    dst[off + i] = kTranspose ? (keep[off + i] <= 1.f ? v : 0.f) : v;
+    const float v = correlate_t(tmp + y * S, 1, x, k, K, S);
+    dst[off + i] = clamp_passes(keep[off + i]) ? v : 0.f;
   }
 }
 
@@ -148,18 +158,18 @@ size_t blur_yx_smem(int S) {
   return 2 * static_cast<size_t>(S) * S * sizeof(float);
 }
 
-template <bool kTranspose>
-int blur_yx_launch(const float* src, float* dst, const float* keep,
-                   const float* taps, int K, int B, int S, cudaStream_t st) {
+int blur_yx_t_launch(const float* src, float* dst, const float* keep,
+                     const float* taps, int K, int B, int S,
+                     cudaStream_t st) {
   const size_t smem = blur_yx_smem(S);
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(&blur_yx_kernel<kTranspose>),
+        reinterpret_cast<const void*>(&blur_yx_t_kernel),
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  blur_yx_kernel<kTranspose><<<dim3(S, B), kBlurThreads, smem, st>>>(
-      src, dst, keep, taps, K, S);
+  blur_yx_t_kernel<<<dim3(S, B), kBlurThreads, smem, st>>>(src, dst, keep,
+                                                           taps, K, S);
   return cudaGetLastError();
 }
 
@@ -167,8 +177,8 @@ int blur_yx_launch(const float* src, float* dst, const float* keep,
 // dvox * the derivative of the trilinear weight (d tz / d gz = 1; the floor
 // has no gradient, as in the plain chain), and, with dc given, dc = sum of
 // dvox * the trilinear weight at the point's own corners, for every point
-// (a zero-weight point too).  With keep given, dvox counts only where
-// keep <= 1 (the clamp's mask on the raw splat).  Without dc, zero-weight
+// (a zero-weight point too).  With keep given, dvox counts only where keep
+// (the raw splat) passes the clamp (clamp_passes).  Without dc, zero-weight
 // points skip the reads (their coordinate gradients are 0).
 __global__ void splat_grad_kernel(const float* __restrict__ gz,
                                   const float* __restrict__ gy,
@@ -209,7 +219,7 @@ __global__ void splat_grad_kernel(const float* __restrict__ gz,
           const int x = clamp_index(ix + dx, S);
           const size_t at = base + (z * S + y) * S + x;
           float v = dvox[at];
-          if (keep != nullptr && !(keep[at] <= 1.f)) v = 0.f;
+          if (keep != nullptr && !clamp_passes(keep[at])) v = 0.f;
           sz += v * dw[dz] * wy[dy] * wx[dx];
           sy += v * wz[dz] * dw[dy] * wx[dx];
           sx += v * wz[dz] * wy[dy] * dw[dx];

@@ -46,8 +46,10 @@ _SIGNATURES = {
     "im23d_projection_limits": [_I, _P],
     # S, K, cluster, planes, stage, bwd, smem, out
     "im23d_projection_occupancy": [_I, _I, _I, _I, _I, _I, _L, _P],
-    # x, y, out, B, N, M, stream
-    "im23d_nn_dist2": [_P, _P, _P, _I, _I, _I, _P],
+    # x, y, rows, cols, B, N, M, ny, stream
+    "im23d_chamfer": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dev, out
+    "im23d_chamfer_limits": [_I, _P],
     # fv, attrs, feat, soft, win, wz, recs, bins, B, F, A, H, W, tile_w,
     # tile_h, sx, sy, sigma, margin, cull, stream
     "im23d_rasterize_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -79,8 +81,11 @@ _SIGNATURES = {
     # gz, gy, gx, c, g, raw, dgz, dgy, dgx, dc, B, N, S, stream
     "im23d_splat_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _P],
-    # gz, gy, gx, c, taps, K, out, B, N, S, stream
-    "im23d_splat_blur_fwd": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P],
+    # gz, gy, gx, c, taps, K, out, B, N, S, planes, stride, smem, stream
+    "im23d_splat_blur_fwd": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                             _L, _P],
+    # dev, out
+    "im23d_splat_blur_limits": [_I, _P],
     # gz, gy, gx, c, taps, K, g, raw, work, dgz, dgy, dgx, dc, B, N, S,
     # stream
     "im23d_splat_blur_bwd": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,

@@ -12,7 +12,9 @@ forward takes one of two kernel paths, chosen by shape alone
 (``splat_plan``): a cluster of CTAs a cloud, each with a copy of the grid
 in shared memory, or, for a grid too large for that, atomics into device
 memory; ``splat_grid_shared_torch`` is the plain twin of the first's order
-of sums.  Both are
+of sums.  K7's forward is one launch of a CTA a slab of z-planes
+(``splat_blur_plan``), each CTA splatting the corners that land in its slab
+(``splat_blur_slabs_torch`` is the plain twin of that partition).  Both are
 differentiable in the points and the weights; ``splat_blur`` in ``scale``
 too (its Z blur, scale and last clip run in plain PyTorch, as the JAX
 package runs them outside its kernel, and autograd gives their gradient).
@@ -24,14 +26,20 @@ Two choices differ from the JAX wrappers, which are the reference:
   ``:538-539``), so their weight gradient is read there and not at the
   point; the port's is the gradient at the point, as the XLA splat
   (``im23d_tpu/ops/voxel.py:trilinear_splat``) gives it.
-* The clamp's gradient passes on ties (``torch.clamp``'s rule: raw <= 1 on
-  the splat, which is never < 0); ``jnp.clip``'s VJP passes half at a tie.
-  A point with weight > 0 never sits on a voxel whose raw value is 0.
+* The clamp's gradient passes on ties (``torch.clamp``'s rule: where
+  0 <= raw <= 1 on the splat); ``jnp.clip``'s VJP passes half at a tie.  A
+  point with weight > 0 never sits on a voxel whose raw value is 0.
+
+The clamp is to [0, 1] for weights of either sign, as in the XLA splat
+(``im23d_tpu/ops/voxel.py:trilinear_splat``); the JAX Pallas kernels clamp
+only the top (``splat_pallas.py:230``, ``:248``: they assume a splat
+>= 0), so they differ from it, and from the port, for negative weights.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -43,8 +51,8 @@ from im23d_tpu_torch.ops.voxel import blur_3d, splat_grid, splat_sum
 # ``_prep_splat``, then ``splat_grid``
 from im23d_tpu_torch.ops.voxel import trilinear_splat as trilinear_splat_torch
 
-# K6's grid side; K7's two (S, S) float32 planes in a block's shared memory
-# (227 KB on an H100) bound its side at 170
+# K6's grid side; K7's plane and temporary, (S, S) float32 each, in a
+# block's shared memory (227 KB on an H100) bound its side at 170
 SPLAT_MAX_SIZE, SPLAT_BLUR_MAX_SIZE = 1024, 170
 
 
@@ -74,8 +82,8 @@ def splat_grid_torch(gz, gy, gx, c, size: int) -> torch.Tensor:
 
 
 def splat_blur_grid_torch(gz, gy, gx, c, taps, size: int) -> torch.Tensor:
-    """Plain PyTorch version of K7: ``splat_grid_torch``, then the Y and X
-    blur by ``taps`` (band matmuls)."""
+    """Plain PyTorch version of K7: ``splat_grid_torch`` (clamped to
+    [0, 1]), then the X and Y blur by ``taps`` (band matmuls)."""
     return blur_3d(splat_grid_torch(gz, gy, gx, c, size), taps, axes=(3, 2))
 
 
@@ -148,7 +156,10 @@ def _empty_planes(B: int, N: int, dev):
 
 
 def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The raw handle of ``dev``'s current stream (``torch.cuda.
+    current_stream(dev).cuda_stream`` builds a Stream object on the way,
+    several microseconds of a wrapper's host time)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 class SplatLimits(NamedTuple):
@@ -211,6 +222,93 @@ def splat_grid_shared_torch(gz, gy, gx, c, size: int, plan: dict,
     return total.clamp(0.0, 1.0)
 
 
+class SplatBlurLimits(NamedTuple):
+    """What ``splat_blur_plan`` reads from the kernel library
+    (``im23d_splat_blur_limits``): the card's opt-in shared memory a block
+    (bytes) and its multiprocessors, then the least entries of K7
+    forward's point list."""
+    smem_optin: int
+    sms: int
+    list_min: int
+
+
+def splat_blur_plan(B: int, size: int, K: int, lim: SplatBlurLimits) -> dict:
+    """K7 forward's split of B clouds' S z-planes into slabs, a CTA a slab.
+
+    A CTA holds ``planes`` planes of S rows of ``stride`` floats in
+    shared memory: S | 1 (odd, so that a warp reading a column of rows
+    hits 32 banks), or S where two such planes would not fit (S = 170);
+    then a temporary plane, or ``lim.list_min`` floats if more, which
+    first holds the splat's list of points.  ``planes`` is as many as
+    leave room for two CTAs a multiprocessor, but no more than spreads
+    the B·S planes over 4 CTAs a multiprocessor (so 1 at the meshing
+    shapes), then evened out over the slabs; slab j is
+    [j·planes, min((j+1)·planes, S)).  ``note`` says why a plan has fewer
+    CTAs than multiprocessors."""
+    S = int(size)
+    if not 1 <= K <= 64:
+        raise ValueError(f"splat_blur_plan takes 1 <= K <= 64 (K={K})")
+    stride = S | 1
+    if 2 * S * stride * 4 > lim.smem_optin:
+        stride = S
+    plane = S * stride * 4
+    tail = max(plane, 4 * lim.list_min)
+    if plane + tail > lim.smem_optin:
+        raise ValueError(f"a {S}^2 plane and its temporary do not fit "
+                         f"{lim.smem_optin} bytes of shared memory")
+    most = max(1, (lim.smem_optin // 2 - tail) // plane)
+    planes = max(1, min(most, S, B * S // (4 * lim.sms)))
+    slabs = -(-S // planes)
+    planes = -(-S // slabs)
+    plan = dict(planes=planes, slabs=slabs, ctas=B * slabs, stride=stride,
+                smem=planes * plane + tail)
+    if B * slabs < lim.sms:
+        plan["note"] = (f"{B} x {S} z-planes, one a CTA: fewer than "
+                        f"{lim.sms} multiprocessors")
+    return plan
+
+
+_SPLAT_BLUR_LIMITS: dict = {}
+# the wrapper's plans, kept for the shapes seen (a few a process)
+_blur_plan = functools.lru_cache(maxsize=64)(splat_blur_plan)
+
+
+def splat_blur_limits(dev: torch.device) -> SplatBlurLimits:
+    """``SplatBlurLimits`` of CUDA device ``dev``, read from the library
+    once."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _SPLAT_BLUR_LIMITS:
+        lib = _build.load_kernels()
+        out = (ctypes.c_int * len(SplatBlurLimits._fields))()
+        _build.check(lib, lib.im23d_splat_blur_limits(key, out),
+                     "splat + blur limits")
+        _SPLAT_BLUR_LIMITS[key] = SplatBlurLimits(*out)
+    return _SPLAT_BLUR_LIMITS[key]
+
+
+def splat_blur_slabs_torch(gz, gy, gx, c, taps, size: int,
+                           plan: dict) -> torch.Tensor:
+    """Plain twin of K7 forward's partition: each slab of ``plan`` is
+    splatted from the corners whose clamped z index lies in it (a point
+    on a slab's edge gives its two z corners to two slabs; one past the
+    grid's edge clamps both into the edge plane's slab), then the slabs
+    are joined, clamped to [0, 1] and blurred along X and Y.  Equal to
+    ``splat_blur_grid_torch`` up to the order of the sums."""
+    S = int(size)
+    coords = torch.stack((gz, gy, gx), dim=-1)
+    iz = torch.floor(gz).to(torch.int64)
+    corner_z = torch.stack(((iz).clamp(0, S - 1), (iz + 1).clamp(0, S - 1)),
+                           dim=-1)  # (B, N, 2): dz = 0, 1
+    step = plan["planes"]
+    parts = []
+    for j in range(plan["slabs"]):
+        lo, hi = j * step, min(S, (j + 1) * step)
+        keep = ((corner_z >= lo) & (corner_z < hi)).to(c.dtype)
+        parts.append(splat_sum(coords, c, S, z_keep=keep)[:, lo:hi])
+    grid = torch.cat(parts, dim=1).clamp(0.0, 1.0)
+    return blur_3d(grid, taps, axes=(3, 2))
+
+
 def splat_kernel(gz, gy, gx, c, size: int) -> torch.Tensor:
     """Launch K6 on (B, N) grid-coordinate planes and weights ``c`` (all
     float32, contiguous, on one CUDA device); returns the clamped
@@ -252,11 +350,11 @@ def splat_backward_kernel(gz, gy, gx, c, g):
     Replaces the Pallas kernel ``_bwd_kernel``
     (``im23d_tpu/ops/splat_pallas.py:93``) with the clamp's VJP in front of
     it.  It splats again into a zeroed (B, S, S, S) scratch grid for the
-    clamp's mask (raw <= 1), then gathers ``g`` at each point's 8 corners,
-    one thread per point, without atomics; ``dc`` is the gradient at the
-    point's own corners for every point.  The recomputed splat adds in
-    another order than the plain version's, so a voxel within rounding of
-    1 can flip its mask.
+    clamp's mask (0 <= raw <= 1), then gathers ``g`` at each point's 8
+    corners, one thread per point, without atomics; ``dc`` is the gradient
+    at the point's own corners for every point.  The recomputed splat adds
+    in another order than the plain version's, so a voxel within rounding
+    of 0 or 1 can flip its mask.
     """
     S = g.shape[-1]
     dev, B, N = _check_points("splat_backward_kernel", gz, gy, gx, c, S,
@@ -279,26 +377,32 @@ splat_backward_kernel.launches = 0
 
 def splat_blur_kernel(gz, gy, gx, c, taps, size: int) -> torch.Tensor:
     """Launch K7 on (B, N) grid-coordinate planes, weights ``c`` and the
-    (K,) Gaussian taps; returns the (B, S, S, S) splat, clamped to 1 and
-    blurred along Y and X.  S <= SPLAT_BLUR_MAX_SIZE, else ``ValueError``.
+    (K,) Gaussian taps; returns the (B, S, S, S) splat, clamped to [0, 1]
+    and blurred along X and Y.  S <= SPLAT_BLUR_MAX_SIZE, else
+    ``ValueError``.
 
     Replaces the Pallas kernel ``_fused_fwd_kernel``
-    (``im23d_tpu/ops/splat_pallas.py:224``).  K6's atomic splat into the
-    zeroed output, then one block per (cloud, z-plane) clamps and blurs its
-    plane in dynamic shared memory and writes it back; bound by the grid's
-    bytes.  Atomic order varies: agrees with ``splat_blur_grid_torch`` to
+    (``im23d_tpu/ops/splat_pallas.py:224``).  One launch and no memset: a
+    CTA a slab of a cloud's z-planes (``splat_blur_plan``) splats the
+    corners that land in its slab into shared memory, clamps and blurs
+    each plane there and writes each voxel once (``torch.empty``
+    output).  Bound by the grid's bytes.  Shared-memory float atomics add
+    in an order that varies: agrees with ``splat_blur_grid_torch`` to
     float rounding.
     """
     S = int(size)
     dev, B, N = _check_points("splat_blur_kernel", gz, gy, gx, c, S,
                               SPLAT_BLUR_MAX_SIZE)
     _check_taps("splat_blur_kernel", taps, dev)
+    K = taps.numel()
+    plan = _blur_plan(B, S, K, splat_blur_limits(dev))
     lib = _build.load_kernels()
-    out = _zeros(B, S, dev)
+    out = torch.empty((B, S, S, S), dtype=torch.float32, device=dev)
     rc = lib.im23d_splat_blur_fwd(gz.data_ptr(), gy.data_ptr(),
                                   gx.data_ptr(), c.data_ptr(),
-                                  taps.data_ptr(), taps.numel(),
-                                  out.data_ptr(), B, N, S, _stream(dev))
+                                  taps.data_ptr(), K, out.data_ptr(), B, N,
+                                  S, plan["planes"], plan["stride"],
+                                  plan["smem"], _stream(dev))
     _build.check(lib, rc, "splat + blur kernel (K7)")
     splat_blur_kernel.launches += 1
     return out
@@ -314,9 +418,10 @@ def splat_blur_backward_kernel(gz, gy, gx, c, taps, g):
     Replaces the Pallas kernel ``_fused_bwd_kernel``
     (``im23d_tpu/ops/splat_pallas.py:234``).  It splats again into a zeroed
     scratch grid, applies the Y/X blur's transpose to ``g`` times the
-    clamp's mask (raw <= 1, the JAX kernel's own tie rule) into a second
+    clamp's mask (0 <= raw <= 1, ties passing) into a second
     one, then gathers per point as K6's backward does.  Scratch: two
-    (B, S, S, S) float32 grids.
+    (B, S, S, S) float32 grids.  The mask is 0 <= raw <= 1, which for
+    weights >= 0 is the raw <= 1 of the JAX kernel.
     """
     S = g.shape[-1]
     dev, B, N = _check_points("splat_blur_backward_kernel", gz, gy, gx, c, S,

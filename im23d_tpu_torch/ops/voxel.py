@@ -22,12 +22,13 @@ def _corner_offsets(device) -> torch.Tensor:
     )
 
 
-def splat_sum(coords: torch.Tensor, weights: torch.Tensor,
-              size: int) -> torch.Tensor:
+def splat_sum(coords: torch.Tensor, weights: torch.Tensor, size: int,
+              z_keep: torch.Tensor | None = None) -> torch.Tensor:
     """Scatter (B, N, 3) grid coordinates (z, y, x) in [0, S-1] into a
     (B, S, S, S) grid by trilinear weights times ``weights`` (B, N), not
     clamped.  Corner indices are clamped to the grid: zero-weight points
-    may lie anywhere."""
+    may lie anywhere.  ``z_keep`` (B, N, 2), where given, also multiplies
+    each point's corners at z offset 0 and 1."""
     B = coords.shape[0]
     S = int(size)
     base = torch.floor(coords)
@@ -39,6 +40,8 @@ def splat_sum(coords: torch.Tensor, weights: torch.Tensor,
     f = frac[:, :, None, :]
     cw = torch.prod(f * offs_f + (1.0 - f) * (1.0 - offs_f), dim=-1)
     cw = cw * weights[:, :, None]  # (B, N, 8)
+    if z_keep is not None:
+        cw = cw * z_keep[:, :, offs[:, 0]]
 
     idx = (base_i[:, :, None, :] + offs).clamp(0, S - 1)
     flat = (idx[..., 0] * S + idx[..., 1]) * S + idx[..., 2]

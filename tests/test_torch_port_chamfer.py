@@ -58,3 +58,21 @@ def test_iou_3d_matches_jax():
     ref = j_iou(jnp.asarray(x), jnp.asarray(y), voxel_size=16)
     np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=1e-6)
     assert float(port[1]) == 1.0
+
+
+@pytest.mark.parametrize("sqrt", [False, True])
+@pytest.mark.parametrize("n,m", [(200, 120), (64, 300)])
+def test_chamfer_distance_sqrt_flag_matches_jax(n, m, sqrt):
+    """``sqrt`` takes sqrt(max(d², 1e-12)) per direction before the means,
+    as the JAX function (``im23d_tpu/metrics/chamfer.py:116-124``); one
+    pair of identical points checks the floor.  Tolerances as
+    ``test_chamfer_distance_matches_jax`` (read ~4e-7 relative with the
+    square root)."""
+    x, y = _clouds(4, 2, n, m)
+    y[0, 0] = x[0, 0]
+    port = chamfer_distance(torch.from_numpy(x), torch.from_numpy(y),
+                            sqrt=sqrt)
+    ref = j_chamfer(jnp.asarray(x), jnp.asarray(y), sqrt=sqrt)
+    for a, b in zip(port, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5,
+                                   rtol=1e-4)

@@ -18,7 +18,9 @@ value.  Both add the splat with integer atomics, so their launches are
 bit-equal; the edge cases of their cluster layout (points on the planes
 between two CTAs' slabs, at z = S - 1, dropped, culled or absent clouds)
 come from ``chip_smoke.py``'s ``_edge_operands``; K3 computes the plain formula, up to
-FMA contraction, rtol 1e-5; K4 computes the plain rasterizer's
+FMA contraction, rtol 1e-5, in both of its modes (rows only, and the
+pair, both directions from one launch), its minima exact, so launches are
+bit-equal and the pair's outputs are the rows-only mode's bits; K4 computes the plain rasterizer's
 arithmetic with FMA contraction ruled out: feat by the 0.999 quantile of
 |kernel - plain| <= 1e-5 (an edge function rounded to the other side would
 move a boundary pixel to the other face), soft atol 1e-5 (its log1p terms
@@ -43,11 +45,12 @@ launches are bit-equal.
 
 K6 (the standalone splat: a cluster of CTAs a cloud with a copy of the
 grid each in shared memory, or atomics into device memory for a grid too
-large) and K7 (splat, clamp, Y/X blur) add with atomicAdd (order changes
-between runs) and K7 blurs in another order than the plain band matmul:
-values atol 1e-5.  Their backward kernels recompute
-the splat for the clamp's mask, so a voxel within rounding of 1 can flip
-it: relative L2 per output <= 1e-4, as K2.
+large) and K7 (splat, clamp, Y/X blur: a CTA a slab of z-planes) add with
+atomicAdd (order changes between runs) and K7 blurs in another order than
+the plain band matmul: values atol 1e-5.  Their backward kernels recompute
+the splat for the clamp's mask (0 <= raw <= 1), so a voxel within
+rounding of 0 or 1 can flip it: relative L2 per output <= 1e-4, as K2;
+weights of either sign bind the clamp at both ends.
 
 K8 (the GAN head conv) sums 25·C products per output in another order than
 cuDNN (in bfloat16 on the tensor cores): forward atol 1e-5 in float32 and
@@ -76,8 +79,13 @@ import pytest
 import torch
 
 from im23d_tpu_torch.metrics.chamfer import (
+    chamfer_distance,
+    chamfer_kernel,
+    chamfer_limits,
+    chamfer_plan,
     nn_dist2,
     nn_dist2_kernel,
+    nn_dist2_pair_torch,
     nn_dist2_torch,
 )
 from im23d_tpu_torch.ops.conv import (
@@ -125,10 +133,13 @@ from im23d_tpu_torch.ops.splat import (
     splat_blur_backward_torch,
     splat_blur_grid_torch,
     splat_blur_kernel,
+    splat_blur_limits,
+    splat_blur_plan,
     splat_grid_torch,
     splat_kernel,
     trilinear_splat,
 )
+from im23d_tpu_torch.ops.voxel import splat_sum
 from im23d_tpu_torch.render.rasterizer import (
     _gather_corners,
     _launch_forward,
@@ -387,8 +398,12 @@ def test_k1_k2_launches_are_bit_equal(dev):
 
 
 @pytest.mark.parametrize("n,m", [(1, 1), (255, 257), (1000, 256),
-                                 (8000, 2048)])
+                                 (8000, 512), (8000, 2048)])
 def test_k3_matches_plain(dev, n, m):
+    """Both modes: rows only (``nn_dist2``) and the pair
+    (``chamfer_distance``: one launch for both directions, held to the
+    plain version in both; its outputs the rows-only mode's bits, 3
+    launches bit-equal)."""
     x = _points(3, 2, n, 0.8, dev)[0]
     y = _points(4, 2, m, 0.8, dev)[0]
     n0 = nn_dist2_kernel.launches
@@ -397,6 +412,33 @@ def test_k3_matches_plain(dev, n, m):
     assert nn_dist2_kernel.launches == n0 + 1
     torch.testing.assert_close(got, nn_dist2_torch(x, y), rtol=1e-5,
                                atol=1e-7)
+    p0, r0 = chamfer_kernel.launches, nn_dist2_kernel.launches
+    total, t1, t2 = chamfer_distance(x, y)
+    torch.cuda.synchronize()
+    assert (chamfer_kernel.launches, nn_dist2_kernel.launches) == (p0 + 1,
+                                                                  r0)
+    ref = nn_dist2_pair_torch(x, y)
+    pairs = [chamfer_kernel(x, y) for _ in range(3)]
+    for d, r in zip(pairs[0], ref):
+        torch.testing.assert_close(d, r, rtol=1e-5, atol=1e-7)
+    assert all(torch.equal(a, b) for p in pairs[1:]
+               for a, b in zip(p, pairs[0]))
+    assert torch.equal(pairs[0][0], got)
+    assert torch.equal(pairs[0][1], nn_dist2(y, x))
+    torch.testing.assert_close(t1, ref[0].mean(-1), rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(t2, ref[1].mean(-1), rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(total, t1 + t2)
+
+
+def test_k3_limits_are_the_plans(dev):
+    """The kernel library's constants are those that the CPU tests of
+    ``chamfer_plan`` assume (``tests/test_torch_port_k3_k7_plan.py``), and
+    the eval CLI's pair fills the card."""
+    from test_torch_port_k3_k7_plan import CHAMFER_H100
+
+    lim = chamfer_limits(dev)
+    assert lim._replace(sms=0) == CHAMFER_H100._replace(sms=0)
+    assert chamfer_plan(24, 8000, 512, lim)["ctas"] >= lim.sms
 
 
 def _scene(seed, dev, B=2, V=40, F=60, A=3, spread=0.9):
@@ -1173,14 +1215,23 @@ def test_k6_paths(dev, B, n, S, path):
         assert float(ref.max()) == 1.0 and float(ref.min()) == 0.0
 
 
-@pytest.mark.parametrize("S,ks,sigma", [(16, 9, 0.8), (64, 21, 3.0),
-                                        (96, 21, 1.5), (170, 21, 0.2)])
-def test_k7_matches_plain(dev, S, ks, sigma):
-    gz, gy, gx, c, taps, g = _splat_operands(dev, S, ks, sigma, n=4000)
+@pytest.mark.parametrize("S,ks,sigma,b,n", [
+    (16, 9, 0.8, 3, 4000), (64, 21, 3.0, 3, 4000), (96, 21, 1.5, 3, 4000),
+    (170, 21, 0.2, 3, 4000),
+    (96, 21, 1.5, 1, 8000),    # the meshing CLI's shape: a plane a CTA
+    (128, 21, 1.5, 1, 8000),
+    (96, 21, 1.5, 0, 8000),    # no cloud
+    (64, 21, 3.0, 24, 4000),   # slabs of several planes
+])
+def test_k7_matches_plain(dev, S, ks, sigma, b, n):
+    """K7 forward (one launch, the output written whole: no memset) and
+    backward against the plain versions."""
+    gz, gy, gx, c, taps, g = _splat_operands(dev, S, ks, sigma, b=b, n=n)
     n0, b0 = splat_blur_kernel.launches, splat_blur_backward_kernel.launches
     got = splat_blur_kernel(gz, gy, gx, c, taps, S)
     ref = splat_blur_grid_torch(gz, gy, gx, c, taps, S)
     torch.cuda.synchronize()
+    assert got.shape == (b, S, S, S)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
     for d, r in zip(splat_blur_backward_kernel(gz, gy, gx, c, taps, g),
                     splat_blur_backward_torch(gz, gy, gx, c, taps, g)):
@@ -1188,6 +1239,48 @@ def test_k7_matches_plain(dev, S, ks, sigma):
         assert _rel_l2(d, r) <= 1e-4, (_rel_l2(d, r), float((d - r).abs().max()))
     assert (splat_blur_kernel.launches,
             splat_blur_backward_kernel.launches) == (n0 + 1, b0 + 1)
+
+
+def test_k7_limits_are_the_plans(dev):
+    """The kernel library's constants are those that the CPU tests of
+    ``splat_blur_plan`` assume (``tests/test_torch_port_k3_k7_plan.py``),
+    and every plan up to SPLAT_BLUR_MAX_SIZE fits the card."""
+    from test_torch_port_k3_k7_plan import BLUR_H100
+
+    lim = splat_blur_limits(dev)
+    assert lim._replace(sms=0, smem_optin=0) == BLUR_H100._replace(
+        sms=0, smem_optin=0)
+    for S in (1, 96, 128, 169, 170):
+        assert splat_blur_plan(1, S, 64, lim)["smem"] <= lim.smem_optin
+
+
+@pytest.mark.parametrize("S", [16, 40, 96])
+def test_k6_k7_mixed_sign_weights(dev, S):
+    """Weights uniform in (-1.5, 1.5): the splat's clamp binds at both 0
+    and 1.  K7 forward against the plain version, K6 and K7 backward
+    against autograd of the plain versions (the clamp's mask
+    0 <= raw <= 1)."""
+    gen = torch.Generator(dev).manual_seed(100 + S)
+    pts = torch.rand((2, 3000, 3), device=dev, generator=gen) * 0.9 - 0.45
+    w = torch.rand((2, 3000), device=dev, generator=gen) * 3.0 - 1.5
+    gz, gy, gx, c = _prep_splat(pts, S, w, 1e-6)
+    taps, _ = _taps_and_scale(torch.tensor(1.5, device=dev), 1.0, 21, 2, dev)
+    taps = taps.contiguous()
+    g = torch.randn((2, S, S, S), device=dev, generator=gen)
+    raw = splat_sum(torch.stack((gz, gy, gx), -1), c, S)
+    assert float(raw.min()) < 0.0 < 1.0 < float(raw.max())
+    got = splat_blur_kernel(gz, gy, gx, c, taps, S)
+    ref = splat_blur_grid_torch(gz, gy, gx, c, taps, S)
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
+    for kernel, plain in (
+            (splat_blur_backward_kernel(gz, gy, gx, c, taps, g),
+             splat_blur_backward_torch(gz, gy, gx, c, taps, g)),
+            (splat_backward_kernel(gz, gy, gx, c, g),
+             splat_backward_torch(gz, gy, gx, c, g))):
+        for d, r in zip(kernel, plain):
+            assert torch.isfinite(d).all()
+            assert _rel_l2(d, r) <= 1e-4, (_rel_l2(d, r),
+                                           float((d - r).abs().max()))
 
 
 def test_splat_autograd_runs_k6_and_k7(dev):

@@ -83,16 +83,33 @@ K6 forward (``k6``) at the eval CLI's 3D IoU shape ((24, 8000) at 32³) and
 the candidate sweep's (480 × 8000 at 64³, keep-prob 0.07): event and
 device time, the bytes bound, a hash of the grid and the root's plan.
 
+K3 (``k3``) at ``chip_smoke.py`` phase 4's clouds, (24, 8000) against
+(24, 512) (the eval CLI's) and (24, 2048) (the real-data eval's): the
+Chamfer pair (both directions: one pair-mode launch where the root has
+``chamfer_kernel``, else one ``nn_dist2`` launch each way) and the
+rows-only ``nn_dist2`` in both roles: event and device time, hashes of
+the outputs, whether 3 launches are bit-equal, and the root's plans.
+
+K7 forward (``k7``) at phase 25's meshing shapes ((1, 8000) at 96³ and
+128³, sigma 1.5) and the sweep's (480 × 8000 at 64³, keep-prob 0.07,
+sigma 3.0): event and device time, the wrapper's host time, the bound
+and the root's plan.  K6 and K7 backward (``k6b``, ``k7b``) at phase
+24's and 25's shapes with non-negative weights: event time, the hashes of
+3 launches' outputs, and the voxels whose raw splat lies within 1e-6 of 1
+(where the clamp's mask can flip between launches of a float atomic
+splat).
+
 The timing helpers are ``tools/gpu_timing.py``'s, from this checkout
 whatever the root.  Prints one JSON line ``{"root": ..., "gpu": ...,
 "k9": [...], "k5": {...}, "k8": {...}, "k4b": {...}, "k1": {...},
 "k2": {...}, "k4f": {...}, "k8dw": {...}, "k1s32": {...},
-"k2s32": {...}, "k5b": {...}, "k6": {...}}`` (the ones run) as its last
-line.
+"k2s32": {...}, "k5b": {...}, "k6": {...}, "k3": {...}, "k7": {...},
+"k6b": {...}, "k7b": {...}}`` (the ones run) as its last line.
 
 Usage (from the repository root, on a machine with a CUDA device):
     python3 tools/kernel_times.py [--root DIR]
-        [--only k9 k5 k8 k4b k1 k2 k4f k8dw k1s32 k2s32 k5b k6]
+        [--only k9 k5 k8 k4b k1 k2 k4f k8dw k1s32 k2s32 k5b k6 k3 k7 k6b
+         k7b]
 """
 
 from __future__ import annotations
@@ -554,6 +571,128 @@ def time_k6(repeats: int) -> dict:
     return res
 
 
+def time_k3(repeats: int) -> dict:
+    """K3 at phase 4's clouds: the Chamfer pair and the rows-only mode in
+    both roles (see the module's docstring)."""
+    import torch
+
+    from im23d_tpu_torch.metrics import chamfer
+    from time_split import _k3_clouds
+
+    pair_kernel = getattr(chamfer, "chamfer_kernel", None)
+    res = {}
+    for m, (x, y) in _k3_clouds().items():
+        if pair_kernel is not None:
+            def pair():
+                return pair_kernel(x, y)
+        else:
+            def pair():
+                return (chamfer.nn_dist2_kernel(x, y),
+                        chamfer.nn_dist2_kernel(y, x))
+        cases = (("pair", pair),
+                 ("pred_gt", lambda: (chamfer.nn_dist2_kernel(x, y),)),
+                 ("gt_pred", lambda: (chamfer.nn_dist2_kernel(y, x),)))
+        r = {}
+        for tag, fn in cases:
+            t = _timed(fn, repeats)
+            outs = [fn() for _ in range(3)]
+            t["digests"] = [_digest(o) for o in outs[0]]
+            t["bit_equal_launches"] = all(
+                torch.equal(a, b) for o in outs[1:] for a, b in zip(o, outs[0]))
+            r[tag] = t
+            print(f"[K3] m={m} {tag}: event {t['event_ms']} device "
+                  f"{t['device_ms']}; hashes {t['digests']}; 3 launches "
+                  f"bit-equal {t['bit_equal_launches']}", flush=True)
+        if hasattr(chamfer, "chamfer_plan"):
+            lim = chamfer.chamfer_limits(x.device)
+            r["plans"] = {k: chamfer.chamfer_plan(x.shape[0], n1, n2, lim)
+                          for k, (n1, n2) in (("pair", (x.shape[1], m)),
+                                              ("gt_pred", (m, x.shape[1])))}
+            print(f"[K3] m={m} plans {r['plans']}", flush=True)
+        res[f"m{m}"] = r
+    return res
+
+
+def time_k7(repeats: int) -> dict:
+    """K7 forward at phase 25's shapes (see the module's docstring)."""
+    from im23d_tpu_torch.ops import splat
+    from time_split import _k7_cases
+
+    res = {}
+    for tag, (gz, gy, gx, c), taps, S in _k7_cases():
+        def call(gz=gz, gy=gy, gx=gx, c=c, taps=taps, S=S):
+            return splat.splat_blur_kernel(gz, gy, gx, c, taps, S)
+
+        r = _timed(call, repeats)
+        r["host_ms"] = spread([host_ms(call, 50) for _ in range(repeats)])
+        B = gz.shape[0]
+        r["bound_ms"] = (4 * (4 * gz.numel() + taps.numel())
+                         + 4 * B * S ** 3) / PEAK_BYTES * 1e3
+        if hasattr(splat, "splat_blur_plan"):
+            r["plan"] = splat.splat_blur_plan(
+                B, S, taps.numel(), splat.splat_blur_limits(gz.device))
+        res[tag] = r
+        for k in ("event_ms", "device_ms", "host_ms"):
+            v = r[k]
+            print(f"[K7] {tag} {k}: min {v['min']:.4f} / median "
+                  f"{v['median']:.4f} / max {v['max']:.4f}", flush=True)
+        print(f"[K7] {tag}: bytes bound {r['bound_ms']:.4f} ms; plan "
+              f"{r.get('plan')}", flush=True)
+    return res
+
+
+def time_backward(which: str, repeats: int) -> dict:
+    """K6 (``k6b``) or K7 (``k7b``) backward with non-negative weights:
+    event time, the hashes of 3 launches, the voxels within 1e-6 of 1."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.ops import splat
+    from im23d_tpu_torch.ops.pointcloud import keep_mask
+    from im23d_tpu_torch.ops.voxel import splat_sum
+    from time_split import _k7_cases
+
+    dev = torch.device("cuda")
+    if which == "k6b":
+        gen = torch.Generator(device=dev).manual_seed(6)
+        pts = cs._sweep_points(8, cs.B * cs.V, dev)
+        w = keep_mask(gen, cs.B * cs.V, cs.N, 0.07)
+        gz, gy, gx, c = splat._prep_splat(pts, cs.S, w, 1e-6)
+        g = torch.randn((cs.B * cs.V, cs.S, cs.S, cs.S), device=dev,
+                        generator=gen)
+        cases = [("sweep", (gz, gy, gx, c), None, cs.S, g)]
+    else:
+        gen = torch.Generator(device=dev).manual_seed(17)
+        cases = []
+        for tag, ops, taps, S in _k7_cases():
+            g = torch.randn((ops[0].shape[0], S, S, S), device=dev,
+                            generator=gen)
+            cases.append((tag, ops, taps, S, g))
+    res = {}
+    for tag, (gz, gy, gx, c), taps, S, g in cases:
+        if taps is None:
+            def call():
+                return splat.splat_backward_kernel(gz, gy, gx, c, g)
+        else:
+            def call():
+                return splat.splat_blur_backward_kernel(gz, gy, gx, c, taps,
+                                                        g)
+        raw = splat_sum(torch.stack((gz, gy, gx), -1), c, S)
+        r = {"event_ms": spread([events_ms(call, 10)
+                                 for _ in range(repeats)]),
+             "digests": [[_digest(t) for t in call()] for _ in range(3)],
+             "near_one": int(((raw - 1).abs() <= 1e-6).sum()),
+             "negative": int((raw < 0).sum())}
+        res[tag] = r
+        print(f"[{which}] {tag}: event {r['event_ms']}; hashes "
+              f"{r['digests']}; voxels within 1e-6 of 1: {r['near_one']}, "
+              f"below 0: {r['negative']}", flush=True)
+        del raw
+        torch.cuda.empty_cache()
+    return res
+
+
 def time_k5(repeats: int) -> dict:
     import torch.nn.functional as F
 
@@ -599,7 +738,8 @@ def main(argv=None) -> int:
         os.path.abspath(__file__))))
     ap.add_argument("--only", nargs="+",
                     choices=("k9", "k5", "k8", "k4b", "k1", "k2", "k4f",
-                             "k8dw", "k1s32", "k2s32", "k5b", "k6"))
+                             "k8dw", "k1s32", "k2s32", "k5b", "k6", "k3",
+                             "k7", "k6b", "k7b"))
     ap.add_argument("--k9_reps", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
@@ -647,6 +787,13 @@ def main(argv=None) -> int:
         res["k5b"] = time_k5b(args.repeats)
     if args.only is None or "k6" in args.only:
         res["k6"] = time_k6(args.repeats)
+    if args.only is None or "k3" in args.only:
+        res["k3"] = time_k3(args.repeats)
+    if args.only is None or "k7" in args.only:
+        res["k7"] = time_k7(args.repeats)
+    for which in ("k6b", "k7b"):
+        if args.only is None or which in args.only:
+            res[which] = time_backward(which, args.repeats)
     print(json.dumps(res))
     return 0
 

@@ -84,6 +84,29 @@ with the shared path (``k6_shared_variants``: ``full``, ``int_atomics``,
 ``no_splat``, ``no_reduce``): at the 3D IoU's shape at clusters of 1, 2,
 4 and 8 CTAs a cloud, device time by CUDA graph.
 
+K3 (``--only k3``) at ``chip_smoke.py`` phase 4's clouds, (24, 8000)
+against (24, 512) and (24, 2048), in both roles: for a root with the
+one-thread-a-point kernel of commit 063ad04 (``k3_variants``: ``full``,
+``no_loads`` (the y point made from the loop index in registers: the
+arithmetic alone), ``loads_only`` (the three shared loads a pair and
+three mins)) each role's launch, its blocks and pairs a second, and a
+launch at one pair; for a root with the pair kernel (``k3_pair_variants``:
+``full``, ``no_rotate`` (the column minima not passed on: the
+shuffles' cost), ``lb2``) the pair mode at the root's plan and with one
+group of every y block a warp (``pair_one_group``: the fill of a layout
+with a cluster a cloud that reduces the columns over distributed shared
+memory), the rows-only mode in both roles, and the memset that the pair
+mode's atomics need.  K7 forward
+(``--only k7``) at phase 25's meshing shapes ((1, 8000) at 96³ and 128³,
+sigma 1.5) and the chairs sweep's (480 × 8000 at 64³, keep-prob 0.07,
+sigma 3.0): for a root with the atomic splat and plane blur of commit
+063ad04 (``k7_variants``: ``full``, ``splat_only``, ``blur_only``), each
+with and without the wrapper's memset of the grid, the memset alone and
+the root's wrapper (events, device by CUDA graph, host); for a root with
+the slab kernel (``k7_slab_variants``: ``full``, ``scan_only``,
+``no_scan``, ``launch_only``, ``no_blur``, ``threads256``, ``run8``,
+``list_unroll1``) the same shapes at the root's plan, and its wrapper.
+
 Each variant keeps a value that depends on the removed work's inputs, so
 the compiler keeps the rest.  Times: CUDA events over ``--reps``
 back-to-back launches of the entry point alone (no zeroing, no
@@ -91,7 +114,7 @@ allocation), median of 3.  Prints one JSON line as its last line.
 
 Usage (from the repository root, on a machine with a CUDA device):
     python3 tools/time_split.py --root build/parent
-        [--only k4k8|k4f|k8dw|projection|k5b|k6]
+        [--only k4k8|k4f|k8dw|projection|k5b|k6|k3|k7]
 """
 
 from __future__ import annotations
@@ -210,6 +233,12 @@ def k8_tc_variants(src: str) -> dict:
     ring = "constexpr int TC_NBUF = 3;"
     return {"tc": src, "tc_loads_only": _edit(src, call, ""),
             "tc_two_boxes": _edit(src, ring, "constexpr int TC_NBUF = 2;")}
+
+
+def _edit_all(src: str, old: str, new: str) -> str:
+    if old not in src:
+        raise RuntimeError(f"anchor not found: {old!r}")
+    return src.replace(old, new)
 
 
 def _cut(src: str, start: str, end: str, new: str) -> str:
@@ -792,12 +821,287 @@ def time_k6(root: str, csrc: str, nvcc: str, tmp: str, reps: int) -> dict:
     return res
 
 
+def k3_variants(src: str) -> dict:
+    """The one-thread-a-point K3's variants: ``full``; ``no_loads`` (the y
+    point made from the loop index in registers); ``loads_only`` (the
+    three shared loads and three mins a pair)."""
+    pair = ("      const float dz = sz[j] - xz, dy = sy[j] - xy, dx = sx[j] - xx;\n"
+            "      best = fminf(best, dz * dz + dy * dy + dx * dx);")
+    return {
+        "full": src,
+        "no_loads": _edit(src, pair, (
+            "      const float fj = static_cast<float>(j);\n"
+            "      const float dz = fj - xz, dy = fj * 0.5f - xy,"
+            " dx = fj * 0.25f - xx;\n"
+            "      best = fminf(best, dz * dz + dy * dy + dx * dx);")),
+        "loads_only": _edit(src, pair, (
+            "      best = fminf(best, fminf(sz[j], fminf(sy[j], sx[j])));")),
+    }
+
+
+def k3_pair_variants(src: str) -> dict:
+    """The pair K3's variants: ``full``; ``no_rotate`` (the column minima
+    not passed on between lanes: wrong columns, the shuffles' cost);
+    ``lb2`` (launch bounds of 2 CTAs a multiprocessor: more registers)."""
+    rotate = "        acc[t] = __shfl_sync(kFull, acc[t], (lane + 1) & 31);"
+    return {"full": src,
+            "no_rotate": _edit(src, rotate, "        acc[t] = acc[t] | 1;"),
+            "lb2": _edit(src, "__launch_bounds__(32 * kWarps, 3)",
+                         "__launch_bounds__(32 * kWarps, 2)")}
+
+
+def _k3_clouds() -> dict:
+    """``chip_smoke.py`` phase 4's clouds: x (24, 8000), then y (24, 2048)
+    and (24, 512) from the same generator."""
+    import numpy as np
+
+    import chip_smoke as cs  # the root's
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(1)
+    x = cs._clouds(rng, cs.B, cs.N, dev)
+    return {m: (x, cs._clouds(rng, cs.B, m, dev)) for m in (cs.GT_POINTS,
+                                                          cs.GT_POINTS_CLI)}
+
+
+def time_k3(root: str, csrc: str, nvcc: str, tmp: str, reps: int) -> dict:
+    """K3's split (``k3_variants`` or ``k3_pair_variants``, as the root
+    has), device time by CUDA graph and event time, medians of 3."""
+    import torch
+
+    from gpu_timing import graph_ms
+
+    with open(os.path.join(csrc, "nn_dist2.cu")) as fh:
+        src = fh.read()
+    pair = "im23d_chamfer" in src
+    variants = k3_pair_variants(src) if pair else k3_variants(src)
+    libs = build({f"k3_{k}": v for k, v in variants.items()}, tmp, nvcc,
+                 csrc)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    res = {}
+
+    def med(fn, timer):
+        return sorted(timer(fn, reps) for _ in range(3))[1]
+
+    for m, (x, y) in _k3_clouds().items():
+        B, N = x.shape[:2]
+        rows = torch.empty((B, N), device=x.device)
+        cols = torch.empty((B, m), device=x.device)
+        r = {}
+        for name, lib in libs.items():
+            if pair:
+                from im23d_tpu_torch.metrics.chamfer import (chamfer_limits,
+                                                             chamfer_plan)
+
+                fn = lib.im23d_chamfer
+                fn.argtypes = [P] * 4 + [I] * 4 + [P]
+                lim = chamfer_limits(x.device)
+                cases = []
+                for tag, a, b, out2 in (("pair", x, y, cols),
+                                        ("rows_pred_gt", x, y, None),
+                                        ("rows_gt_pred", y, x, None)):
+                    plan = chamfer_plan(B, a.shape[1], b.shape[1], lim)
+                    out1 = torch.empty((B, a.shape[1]), device=x.device)
+                    cases.append((tag, a, b, out1, out2, plan))
+                    r[f"{tag}_plan"] = plan
+                # the pair as one group of every y block a warp: the fill
+                # of a cluster a (cloud, all columns) layout
+                one = dict(cases[0][5], ny=-(-m // lim.cols))
+                cases.append(("pair_one_group", x, y, cases[0][3], cols,
+                              one))
+            else:
+                fn = lib.im23d_nn_dist2
+                fn.argtypes = [P] * 3 + [I] * 3 + [P]
+                cases = [("pred_gt", x, y, rows, None, None),
+                         ("gt_pred", y, x, cols, None, None)]
+                r["pred_gt_blocks"] = -(-N // 256) * B
+                r["gt_pred_blocks"] = -(-m // 256) * B
+            for tag, a, b, out1, out2, plan in cases:
+                def call(fn=fn, a=a, b=b, out1=out1, out2=out2, plan=plan):
+                    args = [a.data_ptr(), b.data_ptr(), out1.data_ptr()]
+                    if pair:
+                        args += [None if out2 is None else out2.data_ptr(),
+                                 B, a.shape[1], b.shape[1], plan["ny"]]
+                    else:
+                        args += [B, a.shape[1], b.shape[1]]
+                    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+                    if rc:
+                        raise RuntimeError(f"K3 {tag}: CUDA error {rc}")
+
+                key = f"{name[3:]}_{tag}"
+                r[key] = med(call, graph_ms)
+                r[key + "_events"] = med(call, events_ms)
+                r[key + "_gpairs_per_s"] = B * a.shape[1] * b.shape[1] / (
+                    r[key] * 1e6)
+        if pair:
+            both = torch.empty(B * (N + m), device=x.device)
+            r["memset"] = med(lambda: both.fill_(float("nan")), graph_ms)
+        else:
+            one = libs["k3_full"].im23d_nn_dist2
+            ones = [torch.zeros((1, 1, 3), device=x.device) for _ in range(3)]
+
+            def tiny():
+                one(ones[0].data_ptr(), ones[1].data_ptr(),
+                    ones[2].data_ptr(), 1, 1, 1,
+                    torch.cuda.current_stream().cuda_stream)
+
+            r["launch_one_pair"] = med(tiny, graph_ms)
+        res[f"m{m}"] = r
+        for k, v in r.items():
+            print(f"[K3] m={m} {k}: {v}", flush=True)
+    return res
+
+
+def k7_variants(src: str) -> dict:
+    """The atomic splat + plane blur K7 forward's variants: ``full``;
+    ``splat_only`` (the blur launch removed); ``blur_only`` (the splat
+    launch removed)."""
+    splat = ("  const int err = splat_launch(static_cast<const float*>(gz),\n"
+             "                               static_cast<const float*>(gy),\n"
+             "                               static_cast<const float*>(gx),\n"
+             "                               static_cast<const float*>(c), o,"
+             " B, N, S, st);\n")
+    blur = ("  return blur_yx_launch<false>(o, o, nullptr, "
+            "static_cast<const float*>(taps),\n"
+            "                               K, B, S, st);\n")
+    return {"full": src,
+            "splat_only": _edit(src, blur, "  return cudaSuccess;\n"),
+            "blur_only": _edit(src, splat,
+                               "  const int err = cudaSuccess;\n")}
+
+
+def k7_slab_variants(src: str) -> dict:
+    """The slab K7 forward's variants: ``full``; ``scan_only`` (the
+    points read, tested and listed, no adds); ``no_scan`` (no points: the
+    zeroed planes blurred and written); ``launch_only`` (the planes zeroed,
+    nothing written); ``no_blur`` (the windows read, each output one value
+    of its window, no taps); ``threads256``, ``run8`` and
+    ``list_unroll1`` (256 threads a CTA; 8 outputs a window; one listed
+    point a thread at once)."""
+    add = ("        if (zl < static_cast<unsigned>(np) && v[q] != 0.f)\n")
+    scan = _edit(src, add, "        if (zl < static_cast<unsigned>(np) && "
+                 "v[q] == 1.2345e-30f)\n")
+    taps = "      if (j - r >= 0 && j - r < KT) acc[r] += k[j - r] * v;\n"
+    zeroed = "  __syncthreads();  // the planes zeroed\n"
+    return {"full": src, "scan_only": scan,
+            "no_scan": _edit(src, "for (int c0 = 0; c0 < N; c0 += chunk)",
+                             "for (int c0 = 0; c0 < N - N; c0 += chunk)"),
+            "launch_only": _edit(src, zeroed, zeroed + "  if (N >= 0) "
+                                 "return;\n"),
+            "no_blur": _edit(src, taps, "      if (j == r) acc[r] += v;\n"),
+            "threads256": _edit(src, "constexpr int kSlabThreads = 512;",
+                                "constexpr int kSlabThreads = 256;"),
+            "run8": _edit(src, "constexpr int kRun = 16;",
+                          "constexpr int kRun = 8;"),
+            "list_unroll1": _edit(src, "constexpr int kListUnroll = 4;",
+                                  "constexpr int kListUnroll = 1;")}
+
+
+def _k7_cases() -> list:
+    """(tag, grid-coordinate planes and weights, taps, S) of phase 25's
+    meshing shapes and the sweep at sigma 3.0."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.ops.pointcloud import keep_mask
+    from im23d_tpu_torch.ops.projection import _taps_and_scale
+    from im23d_tpu_torch.ops.splat import _prep_splat
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sweep = cs._sweep_points(9, cs.B * cs.V * cs.K, dev)
+    sweep_w = keep_mask(gen, cs.B * cs.V * cs.K, cs.N, 0.07)
+    cloud = cs._clouds(np.random.RandomState(10), 1, cs.N, dev)
+    cases = []
+    for tag, pts, w, size, sigma in (
+            ("mesh96", cloud, None, cs.MESH_S, cs.MESH_SIGMA),
+            ("mesh128", cloud, None, 128, cs.MESH_SIGMA),
+            ("sweep", sweep, sweep_w, cs.S, 3.0)):
+        ops = _prep_splat(pts, size, w, 1e-6)
+        taps, _ = _taps_and_scale(torch.tensor(sigma, device=dev), 1.0, 21,
+                                  pts.shape[0], dev)
+        cases.append((tag, ops, taps.contiguous(), size))
+    return cases
+
+
+def time_k7(root: str, csrc: str, nvcc: str, tmp: str, reps: int) -> dict:
+    """K7 forward's split (``k7_variants`` or ``k7_slab_variants``, as the
+    root has) and the root's wrapper: device time by CUDA graph, event
+    time and the wrapper's host time, medians of 3."""
+    import torch
+
+    from gpu_timing import graph_ms, host_ms
+    from im23d_tpu_torch.ops import splat
+
+    with open(os.path.join(csrc, "splat.cu")) as fh:
+        src = fh.read()
+    slab = "splat_blur_slab_kernel" in src
+    variants = k7_slab_variants(src) if slab else k7_variants(src)
+    libs = build({f"k7_{k}": v for k, v in variants.items()}, tmp, nvcc,
+                 csrc)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    res = {}
+
+    def med(fn, timer):
+        return sorted(timer(fn, reps) for _ in range(3))[1]
+
+    for tag, (gz, gy, gx, c), taps, S in _k7_cases():
+        B, N = gz.shape
+        out = torch.empty((B, S, S, S), device=gz.device)
+        ptrs = [t.data_ptr() for t in (gz, gy, gx, c, taps)]
+        r = {"memset": med(out.zero_, graph_ms)}
+        if slab:
+            plan = splat.splat_blur_plan(B, S, taps.numel(),
+                                         splat.splat_blur_limits(gz.device))
+            r["plan"] = plan
+        for name, lib in libs.items():
+            fn = lib.im23d_splat_blur_fwd
+            if slab:
+                fn.argtypes = [P] * 5 + [I, P] + [I] * 5 + [L, P]
+                tail = [plan["planes"], plan["stride"], plan["smem"]]
+            else:
+                fn.argtypes = [P] * 5 + [I, P] + [I] * 3 + [P]
+                tail = []
+
+            def call(fn=fn, tail=tail, name=name):
+                rc = fn(*ptrs, taps.numel(), out.data_ptr(), B, N, S, *tail,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"K7 {name}: CUDA error {rc}")
+
+            def zeroed(call=call):
+                out.zero_()
+                call()
+
+            key = name[3:]
+            r[key] = med(call, graph_ms)
+            r[key + "_events"] = med(call, events_ms)
+            if not slab:
+                r[key + "_memset"] = med(zeroed, graph_ms)
+                r[key + "_memset_events"] = med(zeroed, events_ms)
+
+        def wrapper():
+            return splat.splat_blur_kernel(gz, gy, gx, c, taps, S)
+
+        r["wrapper"] = med(wrapper, graph_ms)
+        r["wrapper_events"] = med(wrapper, events_ms)
+        r["wrapper_host"] = med(wrapper, host_ms)
+        res[tag] = r
+        for k, v in r.items():
+            print(f"[K7] {tag} {k}: {v}", flush=True)
+        del out
+        torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", choices=("k4k8", "k4f", "k8dw", "projection",
-                                       "k5b", "k6"))
+                                       "k5b", "k6", "k3", "k7"))
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -826,6 +1130,10 @@ def main(argv=None) -> int:
             res["k5b"] = time_k5b(root, csrc, nvcc, tmp, args.reps)
         if args.only == "k6":
             res["k6"] = time_k6(root, csrc, nvcc, tmp, args.reps)
+        if args.only == "k3":
+            res["k3"] = time_k3(root, csrc, nvcc, tmp, args.reps)
+        if args.only == "k7":
+            res["k7"] = time_k7(root, csrc, nvcc, tmp, args.reps)
     print(json.dumps(res))
     return 0
 
