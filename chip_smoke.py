@@ -115,15 +115,22 @@ Phases:
      version at the candidate sweep's shape (480 x 8000 at 64^3, keep-prob
      0.07: the generic path) and at the eval CLI's IoU shape ((24, 8000)
      at 32^3: the shared path, a cluster of CTAs a cloud), each with its
-     plan and timed; K6
-     backward against autograd of the plain splat at 120 x 8000 at 64^3;
+     plan and timed; K6 backward (one launch of tiles of z-planes, each
+     with its plan) against autograd of the plain splat at 120 x 8000 at
+     64^3, keep-prob 0.07, and at the IoU's shape: 3 launches' hashes
+     (equal: the integer splat), the outputs without dc (the other three
+     bit for bit), event and device-only (CUDA graph) times with and
+     without dc, and the bound of what the data needs (the cotangent's
+     32-byte sectors at the gathered points' corners);
  25. (after phase 24) K7 (splat, clamp, Y/X blur; a CTA a slab of
      z-planes, each with its plan) forward and backward against the plain
      versions at 480 x 8000 at 64^3 at sigma 3.0 and 0.2, and at the
      meshing shapes (1, 8000) at 96^3 and 128^3, forward also at 170^3;
-     then clouds with weights of either sign (uniform in (-1.5, 1.5): the
-     clamp binds at 0 and 1): K7 forward at the sweep's, 96^3, 128^3 and
-     170^3 shapes, and K6 and K7 backward at S = 16, 40 and 96;
+     the backward as K6's in phase 24 (its bound reads the cotangent's
+     planes that hold a corner); then clouds with weights of either sign
+     (uniform in (-1.5, 1.5): the clamp binds at 0 and 1): K7 forward at
+     the sweep's, 96^3, 128^3 and 170^3 shapes, and K6 and K7 backward at
+     S = 16, 40 and 96 (K7's at K = 21, 8 and 16), with and without dc;
  26. (in phase 6) the eval CLI's launch counts include K6, and its 3D IoU
      is held against the plain splat on the same clouds;
  27. (after phase 6) the meshing CLI (``cli/pointcloud_to_mesh.main
@@ -166,6 +173,7 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import hashlib
 import io
 import json
 import math
@@ -250,6 +258,7 @@ from im23d_tpu_torch.ops.splat import (
     splat_blur_limits,
     splat_blur_plan,
     splat_blur_torch,
+    splat_backward_plan,
     splat_grid_torch,
     splat_kernel,
     splat_limits,
@@ -294,6 +303,7 @@ from tools.gpu_timing import gpu_line as _gpu_line
 from tools.gpu_timing import graph_ms as _graph_ms
 from tools.gpu_timing import host_ms as _host_ms
 from tools.gpu_timing import peak_mib as _peak_mib
+from tools.gpu_timing import GATHER_OPS, SPLAT_OPS, splat_backward_work
 from tools.gpu_timing import spread as _spread
 
 # chairs config: bs 24, 5 views, 4 pose candidates, 8000 points, 64^3 grid
@@ -786,12 +796,6 @@ def _sweep_points(seed: int, clouds: int, dev) -> torch.Tensor:
     return torch.stack(world_to_camera_zyx(cloud, quats), dim=-1)
 
 
-# float32 operations: per splatted point 8 corners x 4 (weights, multiply,
-# add); per gathered point 8 corners x 14 (three derivative products, one
-# weight product, their sums, the mask)
-SPLAT_OPS, GATHER_OPS = 32, 112
-
-
 def _splat_ops(c: torch.Tensor) -> int:
     """Splat operations this run's data needs: zero-weight points add
     nothing."""
@@ -801,6 +805,8 @@ def _splat_ops(c: torch.Tensor) -> int:
 def _check_grads(tag: str, got, ref, limit: float) -> tuple[float, float]:
     err = rel = 0.0
     for name, g, r in zip(("dgz", "dgy", "dgx", "dc"), got, ref):
+        if g is None:  # dc not asked for
+            continue
         e, rl = float((g - r).abs().max()), _rel_l2(g, r)
         print(f"[{tag}] {name}: rel L2 {rl:.3e} (limit {limit}), max "
               f"|kernel - plain| {e:.3e}, max |plain| "
@@ -815,8 +821,9 @@ def phase_k6(gpu: str) -> tuple[dict, dict]:
     """K6 forward against ``splat_grid_torch`` at the candidate sweep's
     shape (480 x 8000 at 64^3, keep-prob 0.07) and at the eval CLI's IoU
     shape ((24, 8000) at 32^3, the one the JSON line times); K6 backward
-    against autograd of the plain splat at the winners' shape (120 x 8000
-    at 64^3, keep-prob 0.07), timed there."""
+    (``_backward_check``) against autograd of the plain splat at the
+    winners' shape (120 x 8000 at 64^3, keep-prob 0.07, which the JSON
+    line times) and the IoU's, each with its plan."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(6)
     err, timed = 0.0, None
@@ -852,40 +859,80 @@ def phase_k6(gpu: str) -> tuple[dict, dict]:
         timed = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **bound)
     fwd = dict(max_abs_err=err, **timed)
 
-    pts = _sweep_points(8, B * V, dev)
-    w = keep_mask(gen, B * V, N, 0.07)
-    gz, gy, gx, c = _prep_splat(pts, S, w, 1e-6)
-    g = torch.randn((B * V, S, S, S), device=dev, generator=gen)
-    got = splat_backward_kernel(gz, gy, gx, c, g)
-    ref = splat_backward_torch(gz, gy, gx, c, g)
-    torch.cuda.synchronize()
-    err, rel = _check_grads("K6 bwd", got, ref, K6B_REL_L2)
-    del got, ref
-    ms = _time_ms(lambda: splat_backward_kernel(gz, gy, gx, c, g), 20)
-    plain_ms = _time_ms(lambda: splat_backward_torch(gz, gy, gx, c, g), 3)
-    # reads the planes, weights and cotangent, writes four planes; the
-    # recomputed splat for the mask and the gather of every point
-    bound = _bound(_nbytes(gz, gy, gx, c, g) + 4 * B * V * N * 4,
-                   _splat_ops(c) + GATHER_OPS * B * V * N)
-    print(f"[K6 bwd] {tuple(pts.shape)} at {S}^3, p 0.07: kernel {ms:.3f} "
-          f"ms, plain {plain_ms:.3f} ms per call; bound {bound} [{gpu}]")
-    bwd = dict(max_abs_err=err, max_rel_l2=rel, ms=ms, plain_ms=plain_ms,
-               library_ms=None, **bound)
+    errs, bwd = [], None
+    for tag, pts, size, p in (
+            ("winners", _sweep_points(8, B * V, dev), S, 0.07),
+            ("iou", _clouds(np.random.RandomState(7), B, N, dev), IOU_S,
+             None)):
+        w = None if p is None else keep_mask(gen, pts.shape[0], N, p)
+        gz, gy, gx, c = _prep_splat(pts, size, w, 1e-6)
+        g = torch.randn((pts.shape[0], size, size, size), device=dev,
+                        generator=gen)
+        plan = splat_backward_plan(pts.shape[0], size, 0,
+                                   splat_blur_limits(dev))
+        print(f"[K6 bwd] {tag} {tuple(pts.shape)} at {size}^3: plan {plan}")
+        timed = _backward_check(
+            f"K6 bwd {tag}",
+            lambda dc=True: splat_backward_kernel(gz, gy, gx, c, g,
+                                                  need_dc=dc),
+            lambda: splat_backward_torch(gz, gy, gx, c, g), K6B_REL_L2,
+            splat_backward_work(gz, gy, gx, c, size, 0), gpu)
+        errs.append(timed)
+        bwd = bwd or timed
+    bwd = dict(bwd, max_abs_err=max(t["max_abs_err"] for t in errs),
+               max_rel_l2=max(t["max_rel_l2"] for t in errs))
     return fwd, bwd
 
 
-def _k7_bound(gz, c, taps, size: int, backward: bool) -> dict:
-    """Reads the planes, weights and taps (and the cotangent), writes the
-    grid (or four planes); per voxel 2 K operations along each of Y and X
-    and the clamp or mask; the splat, and in the backward the gather."""
+def _digest(t: torch.Tensor) -> str:
+    raw = t.detach().contiguous().view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()[:16]
+
+
+def _backward_check(tag: str, kernel, plain, limit: float, work,
+                    gpu: str, reps: int = 20) -> dict:
+    """K6 or K7 backward (``kernel(dc)``) against autograd of its plain
+    version (relative L2 per output <= ``limit``); 3 launches' hashes,
+    which must be equal (weights >= 0: the integer splat); without dc,
+    dc None and the other three outputs bit for bit; event and
+    device-only (CUDA graph) times with and without dc, the plain
+    version's, and the bound of ``work`` (bytes, operations) with dc."""
+    got = kernel()
+    ref = plain()
+    torch.cuda.synchronize()
+    err, rel = _check_grads(tag, got, ref, limit)
+    del ref
+    digests = [[_digest(t) for t in got]] + [
+        [_digest(t) for t in kernel()] for _ in range(2)]
+    print(f"[{tag}] 3 launches' hashes {digests}")
+    if any(d != digests[0] for d in digests[1:]):
+        raise AssertionError(f"{tag}: launches differ")
+    part = kernel(False)
+    if part[3] is not None or not all(
+            torch.equal(a, b) for a, b in zip(part[:3], got[:3])):
+        raise AssertionError(f"{tag}: need_dc=False changed the gradients")
+    del got, part
+    ms, dev_ms = _time_ms(kernel, reps), _graph_ms(kernel, reps)
+    no_dc_ms = _time_ms(lambda: kernel(False), reps)
+    no_dc_dev_ms = _graph_ms(lambda: kernel(False), reps)
+    plain_ms = _time_ms(plain, 3)
+    bound = _bound(*work)
+    print(f"[{tag}] kernel {ms:.4f} ms by events, {dev_ms:.4f} device-only "
+          f"(CUDA graph); without dc {no_dc_ms:.4f} / {no_dc_dev_ms:.4f}; "
+          f"plain {plain_ms:.3f} ms per call; bound {bound} [{gpu}]")
+    return dict(max_abs_err=err, max_rel_l2=rel, ms=ms, device_ms=dev_ms,
+                no_dc_ms=no_dc_ms, no_dc_device_ms=no_dc_dev_ms,
+                plain_ms=plain_ms, library_ms=None, **bound)
+
+
+def _k7_bound(gz, c, taps, size: int) -> dict:
+    """K7 forward: reads the planes, weights and taps, writes the grid;
+    per voxel 2 K operations along each of Y and X and the clamp; the
+    splat.  (Its backward's: ``splat_backward_work``.)"""
     clouds, n = gz.shape
     voxels = clouds * size ** 3
     nbytes = 4 * (4 * clouds * n + taps.numel()) + 4 * voxels
-    if backward:
-        nbytes += 4 * 4 * clouds * n
     ops = (4 * taps.numel() + 1) * voxels + _splat_ops(c)
-    if backward:
-        ops += GATHER_OPS * clouds * n
     return _bound(nbytes, ops)
 
 
@@ -924,8 +971,10 @@ def phase_k7(gpu: str) -> tuple[dict, dict]:
     at the candidate sweep's shape (480 x 8000 at 64^3, keep-prob 0.07) at
     the sigma schedule's ends, and at the meshing shapes ((1, 8000) at 96^3,
     the CLI's default, which the JSON line times, and at 128^3), forward
-    also at 170^3; then with weights of either sign: K7 forward at those
-    grids, and K6 and K7 backward at S = 16, 40 and 96."""
+    also at 170^3; the backward by ``_backward_check`` with its plan; then
+    with weights of either sign: K7 forward at those grids, and K6 and K7
+    backward at S = 16, 40 and 96, K7's at K = 21, 8 and 16, with and
+    without dc."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(7)
     sweep = _sweep_points(9, B * V * K, dev)
@@ -943,37 +992,33 @@ def phase_k7(gpu: str) -> tuple[dict, dict]:
                               size)
         g = torch.randn((pts.shape[0], size, size, size), device=dev,
                         generator=gen)
-        grads = splat_blur_backward_kernel(gz, gy, gx, c, taps, g)
-        ref = splat_blur_backward_torch(gz, gy, gx, c, taps, g)
-        torch.cuda.synchronize()
-        e_b, rel = _check_grads(f"K7 bwd {tag} {size} {sigma}", grads, ref,
-                                K7B_REL_L2)
-        errs.append((e, e_b))
-        rels.append(rel)
-        del grads, ref
         reps = 20 if tag == "sweep" else 50
-        row = []
-        for kernel, plain, backward in (
-                (lambda: splat_blur_kernel(gz, gy, gx, c, taps, size),
-                 lambda: splat_blur_grid_torch(gz, gy, gx, c, taps, size),
-                 False),
-                (lambda: splat_blur_backward_kernel(gz, gy, gx, c, taps, g),
-                 lambda: splat_blur_backward_torch(gz, gy, gx, c, taps, g),
-                 True)):
-            ms = _time_ms(kernel, reps)
-            plain_ms = _time_ms(plain, 3)
-            bound = _k7_bound(gz, c, taps, size, backward)
-            print(f"[K7{' bwd' if backward else ''}] {tag} at {size}^3, sigma "
-                  f"{sigma}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per "
-                  f"call; bound {bound} [{gpu}]")
-            row.append(dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                            **bound))
+        ms = _time_ms(lambda: splat_blur_kernel(gz, gy, gx, c, taps, size),
+                      reps)
+        plain_ms = _time_ms(
+            lambda: splat_blur_grid_torch(gz, gy, gx, c, taps, size), 3)
+        bound = _k7_bound(gz, c, taps, size)
+        print(f"[K7] {tag} at {size}^3, sigma {sigma}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms per call; bound {bound} [{gpu}]")
+        fwd = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **bound)
         if tag == "mesh":
             dev_ms = _graph_ms(lambda: splat_blur_kernel(gz, gy, gx, c, taps,
                                                          size), reps)
             print(f"[K7] mesh at {size}^3: kernel {dev_ms:.4f} ms "
                   f"device-only (CUDA graph) [{gpu}]")
-        timed.setdefault((tag, size), row)
+        plan = splat_backward_plan(pts.shape[0], size, taps.numel(),
+                                   splat_blur_limits(dev))
+        print(f"[K7 bwd] {tag} at {size}^3: plan {plan}")
+        bwd = _backward_check(
+            f"K7 bwd {tag} {size} {sigma}",
+            lambda dc=True: splat_blur_backward_kernel(gz, gy, gx, c, taps, g,
+                                                       need_dc=dc),
+            lambda: splat_blur_backward_torch(gz, gy, gx, c, taps, g),
+            K7B_REL_L2, splat_backward_work(gz, gy, gx, c, size,
+                                            taps.numel()), gpu, reps)
+        errs.append((e, bwd["max_abs_err"]))
+        rels.append(bwd["max_rel_l2"])
+        timed.setdefault((tag, size), (fwd, bwd))
         del g
         torch.cuda.empty_cache()
     ops = _prep_splat(cloud, 170, None, 1e-6)
@@ -989,21 +1034,34 @@ def phase_k7(gpu: str) -> tuple[dict, dict]:
             sigma, clouds, dev), size), 0.0))
     for size in (16, 40, MESH_S):
         gz, gy, gx, c = _signed_clouds(20 + size, 2, 3000, size, dev)
-        taps = _k7_taps(MESH_SIGMA, 2, dev)
         g = torch.randn((2, size, size, size), device=dev, generator=gen)
-        for name, got, ref in (
-                ("K7 bwd", splat_blur_backward_kernel(gz, gy, gx, c, taps, g),
-                 splat_blur_backward_torch(gz, gy, gx, c, taps, g)),
-                ("K6 bwd", splat_backward_kernel(gz, gy, gx, c, g),
-                 splat_backward_torch(gz, gy, gx, c, g))):
-            e_b, rel = _check_grads(f"{name} signed {size}", got, ref,
-                                    K7B_REL_L2)
-            errs.append((0.0, e_b))
-            rels.append(rel)
+        cases = [("K6 bwd", lambda dc: splat_backward_kernel(
+                      gz, gy, gx, c, g, need_dc=dc),
+                  lambda: splat_backward_torch(gz, gy, gx, c, g))]
+        for ks in (21, 8, 16):
+            taps, _ = _taps_and_scale(torch.tensor(MESH_SIGMA, device=dev),
+                                      1.0, ks, 2, dev)
+            taps = taps.contiguous()
+            cases.append((f"K7 bwd K={ks}", lambda dc, taps=taps:
+                          splat_blur_backward_kernel(gz, gy, gx, c, taps, g,
+                                                     need_dc=dc),
+                          lambda taps=taps: splat_blur_backward_torch(
+                              gz, gy, gx, c, taps, g)))
+        for name, kernel, plain in cases:
+            ref = plain()
+            for dc in (True, False):
+                got = kernel(dc)
+                if dc == (got[3] is None):
+                    raise AssertionError(f"{name}: dc {got[3] is not None}")
+                e_b, rel = _check_grads(
+                    f"{name} signed {size}{'' if dc else ' without dc'}",
+                    got, ref, K7B_REL_L2)
+                errs.append((0.0, e_b))
+                rels.append(rel)
     fwd, bwd = timed[("mesh", MESH_S)]
-    return (dict(max_abs_err=max(e for e, _ in errs), **fwd),
-            dict(max_abs_err=max(e for _, e in errs), max_rel_l2=max(rels),
-                 **bwd))
+    return (dict(fwd, max_abs_err=max(e for e, _ in errs)),
+            dict(bwd, max_abs_err=max(e for _, e in errs),
+                 max_rel_l2=max(rels)))
 
 
 _KERNELS = dict(k1=projection_kernel, k2=projection_backward_kernel,

@@ -29,9 +29,28 @@
 //                no memset, no global atomic, no clamp pass.  Generic
 //                (larger grids, e.g. the sweep's 64^3): splat into the
 //                zeroed output, then clamp it in place;
-//   K6 backward: splat into a zeroed scratch grid (the clamp's mask,
-//                0 <= raw <= 1, is taken per corner there), then the
-//                gather;
+//   K6 backward: one launch, no scratch grid, no memset: a CTA a tile of a
+//                cloud's z-planes (and, where a plane is too large for
+//                shared memory, a band of its rows; the host-side plan,
+//                ops/splat.py splat_backward_plan: 5 planes at the winners'
+//                120 x 64^3, 1 at the 3D IoU's 24 x 32^3).  A tile owns the
+//                points whose clamped lower corner (z, y) lies in it and
+//                rebuilds the raw splat of its planes and rows and one
+//                halo plane and row past them, so that each owned point
+//                is gathered whole by one CTA: each output is written
+//                once, with no atomics, and a point's 8-corner sum has a
+//                fixed order.  One pass over the cloud's z coordinates and
+//                weights lists the tile's points (scan_list); the listed
+//                points of weight != 0 add their corners in the tile into
+//                32-bit fixed point by native shared-memory atomics
+//                (integer sums: bit-equal launches; the range in
+//                splat_common.cuh); the owned points gather the cotangent
+//                at their corners from device memory (32-byte sectors read
+//                only there) times the clamp's mask from the tile.  Without
+//                dc (the weights a constant, as every keep mask is),
+//                zero-weight points are neither listed nor read: their
+//                owner writes their zero gradient during the scan.  A tile
+//                that owns no point leaves after its scan;
 //   K7 forward:  one launch, no memset: a CTA a slab of a cloud's z-planes
 //                (the host-side plan, ops/splat.py splat_blur_plan: one
 //                plane a CTA at the meshing shapes, slabs of up to 5 planes
@@ -56,17 +75,32 @@
 //                shared loads per output.  X before Y, as the plain version
 //                (ops/voxel.py blur_3d, axes (3, 2)); the order of the two
 //                passes changes only the rounding;
-//   K7 backward: splat into a zeroed scratch grid, the Y/X blur's
-//                transpose of the cotangent times the clamp's mask into a
-//                second one, then the gather.
+//   K7 backward: one launch, no scratch grid, no memset: the tiles and
+//                first pass of K6 backward (the plan: one plane and its halo
+//                a CTA at the meshing shapes, 4 planes at the sweep's 480 x
+//                64^3, bands of 85 rows at 170^3), then per plane of the
+//                tile the transpose of the Y blur, then of the X blur (the
+//                reverse of the forward's X then Y): Y^T reads the plane of
+//                the cotangent from device memory once, lanes along x
+//                (coalesced), into a temporary of the tile's rows; X^T reads
+//                it, lanes along y (odd stride), and writes dvox = the
+//                result where the raw splat passes the clamp (0 <= raw <=
+//                1) over the raw word it has just read.  Both from K7
+//                forward's register windows (run_taps) with the taps
+//                reversed, at the offset K - 1 - K / 2 (the forward's is
+//                K / 2; they differ for even K).  Then the owned points
+//                gather dvox from shared memory;
 // The gather returns d c at each point's own corners for every point, a
 // zero-weight one too (the JAX wrappers pin zero-weight points to voxel 0
 // before the kernel, splat_pallas.py:487-488 and :538-539; the port does
 // not).  The clamp is to [0, 1] and its mask 0 <= raw <= 1 for weights of
 // either sign; the JAX Pallas kernels assume a splat >= 0 and clamp only
-// the top (splat_pallas.py:230, :248).  Float atomics add in an order that
-// varies between runs, so results agree with the plain versions to float
-// rounding, not bit for bit.
+// the top (splat_pallas.py:230, :248).  The forwards' float atomics add
+// in an order that varies between runs, so they agree with the plain
+// versions to float rounding, not bit for bit; the backwards' integer sums
+// do not depend on the order (bit-equal launches, in the fixed point's
+// range), and agree with the plain versions but where a raw sum within its
+// rounding of 0 or 1 flips the clamp's mask.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -214,7 +248,6 @@ __global__ void __launch_bounds__(kSlabThreads)
   extern __shared__ float4 smem4[];
   __shared__ int count;
   float* buf = reinterpret_cast<float*>(smem4);
-  const int lane = threadIdx.x & 31;
   const int b = static_cast<int>(blockIdx.x) / slabs;
   const int z0 = (static_cast<int>(blockIdx.x) - b * slabs) * P;
   const int np = min(P, S - z0);
@@ -231,80 +264,47 @@ __global__ void __launch_bounds__(kSlabThreads)
   for (int t = 0; t < KT; ++t) k[t] = t < K ? taps[t] : 0.f;
   __syncthreads();  // the planes zeroed
 
-  // the splat, a chunk of points at a time: (1) every thread reads z and
-  // the weight of kScanUnroll points at once and lists those with a
-  // weight and a clamped z corner in the slab (a warp-aggregated count);
-  // (2) the listed points, spread evenly over the threads (kListUnroll a
-  // thread at once, their loads issued together), add their corners in
-  // the slab.  So a point outside the slab costs two coalesced loads, and
-  // no warp waits on a few lanes' dependent loads and adds: a slab can
-  // hold far more points than the mean (a chair's seat).
+  // the splat, a chunk of points at a time: (1) scan_list reads z and the
+  // weight of kScanUnroll points a thread at once and lists those with a
+  // weight and a clamped z corner in the slab; (2) for_listed spreads the
+  // listed points evenly over the threads, kListUnroll a thread at once,
+  // and they add their corners in the slab.  So a point outside the slab
+  // costs two coalesced loads, and no warp waits on a few lanes' dependent
+  // loads and adds: a slab can hold far more points than the mean (a
+  // chair's seat).
   const size_t off = static_cast<size_t>(b) * N;
   const int chunk = slab_tail(plane) / kScanStep * kScanStep;
   for (int c0 = 0; c0 < N; c0 += chunk) {
     const int c1 = min(N, c0 + chunk);
     if (threadIdx.x == 0) count = 0;
     __syncthreads();  // the last chunk's list consumed
-    for (int base = c0; base < c1; base += kScanStep) {
-      float pz[kScanUnroll], w[kScanUnroll];
-#pragma unroll
-      for (int u = 0; u < kScanUnroll; ++u) {
-        const int i = base + u * kSlabThreads + static_cast<int>(threadIdx.x);
-        pz[u] = i < c1 ? gz[off + i] : 0.f;
-        w[u] = i < c1 ? c[off + i] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < kScanUnroll; ++u) {
-        const int i = base + u * kSlabThreads + static_cast<int>(threadIdx.x);
-        const int iz = static_cast<int>(floorf(pz[u]));
-        const unsigned za = clamp_index(iz, S) - z0;
-        const unsigned zb = clamp_index(iz + 1, S) - z0;
-        // w == 0: a culled or dropped point
-        const bool hit = i < c1 && w[u] != 0.f &&
-                         (za < static_cast<unsigned>(np) ||
-                          zb < static_cast<unsigned>(np));
-        const unsigned m = __ballot_sync(0xffffffffu, hit);
-        if (m != 0u) {
-          int at = 0;
-          if (lane == 0) at = atomicAdd(&count, __popc(m));
-          at = __shfl_sync(0xffffffffu, at, 0);
-          if (hit) list[at + __popc(m & ((1u << lane) - 1u))] = i;
-        }
-      }
-    }
+    scan_list<kSlabThreads, kScanUnroll>(
+        gz, gy, c, off, c0, c1, false, list, chunk, &count,
+        [&](int i, float pz, float, float w) {
+          const int iz = static_cast<int>(floorf(pz));
+          const unsigned za = clamp_index(iz, S) - z0;
+          const unsigned zb = clamp_index(iz + 1, S) - z0;
+          // w == 0: a culled or dropped point
+          return w != 0.f && (za < static_cast<unsigned>(np) ||
+                              zb < static_cast<unsigned>(np))
+                     ? i
+                     : -1;
+        });
     __syncthreads();
-    const int listed = count;
-    for (int e0 = threadIdx.x; e0 < listed; e0 += kListUnroll * kSlabThreads) {
-      int at[kListUnroll];
-      float p[kListUnroll][4];  // z, y, x, weight
+    for_listed<kSlabThreads, kListUnroll>(
+        list, count, gz, gy, gx, c, off,
+        [&](int, float pz, float py, float px, float w) {
+          int z[2], y[2], x[2];
+          float v[8];
+          splat_axes(pz, py, px, w, S, z, y, x, v);
 #pragma unroll
-      for (int u = 0; u < kListUnroll; ++u) {
-        const int e = e0 + u * kSlabThreads;
-        at[u] = e < listed ? list[e] : -1;
-      }
-#pragma unroll
-      for (int u = 0; u < kListUnroll; ++u) {
-        const size_t i = off + (at[u] < 0 ? 0 : at[u]);
-        p[u][0] = gz[i];
-        p[u][1] = gy[i];
-        p[u][2] = gx[i];
-        p[u][3] = c[i];
-      }
-#pragma unroll
-      for (int u = 0; u < kListUnroll; ++u) {
-        if (at[u] < 0) continue;
-        int z[2], y[2], x[2];
-        float v[8];
-        splat_axes(p[u][0], p[u][1], p[u][2], p[u][3], S, z, y, x, v);
-#pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const unsigned zl = z[q >> 2] - z0;
-          if (zl < static_cast<unsigned>(np) && v[q] != 0.f)
-            atomicAdd(buf + zl * plane + y[(q >> 1) & 1] * stride + x[q & 1],
-                      v[q]);
-        }
-      }
-    }
+          for (int q = 0; q < 8; ++q) {
+            const unsigned zl = z[q >> 2] - z0;
+            if (zl < static_cast<unsigned>(np) && v[q] != 0.f)
+              atomicAdd(buf + zl * plane + y[(q >> 1) & 1] * stride + x[q & 1],
+                        v[q]);
+          }
+        });
     __syncthreads();  // the splat's adds done, the list read
   }
 
@@ -350,34 +350,546 @@ __global__ void __launch_bounds__(kSlabThreads)
   }
 }
 
-constexpr int kMaxDevices = 64;
-
-// The dynamic shared memory an instance may take on a device is raised
-// only when a launch needs more than it was set to, not on every launch
-// (cudaFuncSetAttribute is a few microseconds of the wrapper's host
-// time).
 template <int KT>
 int slab_launch(const float* gz, const float* gy, const float* gx,
                 const float* c, const float* taps, int K, float* out, int B,
                 int N, int S, int P, int slabs, int stride, size_t smem,
                 cudaStream_t st) {
-  static std::atomic<size_t> opted[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static std::atomic<int> opted[kMaxDevices];
+  const int err = opt_in_smem(
+      reinterpret_cast<const void*>(&splat_blur_slab_kernel<KT>), opted,
+      smem);
   if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem > kDefaultSmem && smem > opted[dev].load()) {
-    err = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(&splat_blur_slab_kernel<KT>),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    size_t seen = opted[dev].load();
-    while (smem > seen && !opted[dev].compare_exchange_weak(seen, smem)) {
-    }
-  }
   splat_blur_slab_kernel<KT><<<B * slabs, kSlabThreads, smem, st>>>(
       gz, gy, gx, c, taps, K, out, N, S, P, slabs, stride);
   return cudaGetLastError();
+}
+
+// A backward CTA's tile (ops/splat.py splat_backward_plan): cloud b, the
+// owned planes [z0, z0 + nz) and rows [y0, y0 + ny), and the planes and
+// rows held in shared memory with their halo, [z0, z0 + hz) and
+// [y0, y0 + hy).  blockIdx.x = (b slabs + slab) bands + band.
+struct BwdTile {
+  int b, z0, nz, hz, y0, ny, hy;
+  __device__ BwdTile(int S, int P, int R, int slabs, int bands) {
+    const int t = static_cast<int>(blockIdx.x);
+    const int band = t % bands, slab = t / bands % slabs;
+    b = t / bands / slabs;
+    z0 = slab * P;
+    nz = min(P, S - z0);
+    hz = min(P + 1, S - z0);
+    y0 = band * R;
+    ny = min(R, S - y0);
+    hy = min(R + 1, S - y0);
+  }
+};
+
+// the first pass's counts, reduced over the CTA, and the fixed point's
+// fraction bits they give
+struct BwdCounts {
+  int count;      // the scan's hits (above kListMin: the list overflowed)
+  int splats;     // points of weight != 0 the tile splats
+  unsigned most;  // the largest |weight| among them, as float bits
+  int owned;      // points the tile gathers
+  int signed_w;   // one of them has a negative weight
+  int frac;       // fixed_frac_bits of the above
+};
+
+// Words of a backward CTA's dynamic shared memory: its planes and rows
+// with the halo, stride words a row; a temporary of those rows for K7
+// (K >= 1); the point list.  ops/splat.py _backward_smem is its twin.
+__host__ __device__ __forceinline__ long long bwd_words(int P, int R, int S,
+                                                        int stride, int K) {
+  const long long rows = static_cast<long long>(R + 1 < S ? R + 1 : S);
+  const long long planes = P + 1 < S ? P + 1 : S;
+  return planes * rows * stride + (K > 0 ? rows * stride : 0) + kListMin;
+}
+
+// The backward's first pass over the cloud's points, a block of kThreads.
+// Lists the points the tile splats (weight != 0, a corner in its planes
+// and rows with the halo) or gathers (its own: clamped lower z and y
+// corner in its owned planes and rows; a zero-weight one only with dc),
+// counts them, and writes the zero gradients of the zero-weight points it
+// owns and does not gather.  rows: the plan has bands of rows (y read and
+// tested).
+template <int kThreads>
+__device__ __forceinline__ void bwd_scan(
+    const BwdTile& t, const float* __restrict__ gz,
+    const float* __restrict__ gy, const float* __restrict__ c, size_t off,
+    int N, int S, bool rows, bool dc, int* list, BwdCounts& sh,
+    float* __restrict__ dgz, float* __restrict__ dgy,
+    float* __restrict__ dgx) {
+  int splats = 0, owned = 0, negative = 0;
+  unsigned most = 0u;
+  scan_list<kThreads, kScanUnroll>(
+      gz, gy, c, off, 0, N, rows, list, kListMin, &sh.count,
+      [&](int i, float pz, float py, float w) {
+        const int iz = static_cast<int>(floorf(pz));
+        const unsigned za = clamp_index(iz, S) - t.z0;
+        const unsigned zb = clamp_index(iz + 1, S) - t.z0;
+        bool own = za < static_cast<unsigned>(t.nz);
+        bool in = za < static_cast<unsigned>(t.hz) ||
+                  zb < static_cast<unsigned>(t.hz);
+        if (rows) {
+          const int iy = static_cast<int>(floorf(py));
+          const unsigned ya = clamp_index(iy, S) - t.y0;
+          const unsigned yb = clamp_index(iy + 1, S) - t.y0;
+          own = own && ya < static_cast<unsigned>(t.ny);
+          in = in && (ya < static_cast<unsigned>(t.hy) ||
+                      yb < static_cast<unsigned>(t.hy));
+        }
+        const bool splat = w != 0.f && in;
+        if (splat) {
+          ++splats;
+          most = max(most, __float_as_uint(fabsf(w)));
+          negative |= w < 0.f;
+        }
+        if (own && (w != 0.f || dc)) {
+          ++owned;
+        } else if (own) {  // a culled or dropped point: no gradient
+          dgz[off + i] = 0.f;
+          dgy[off + i] = 0.f;
+          dgx[off + i] = 0.f;
+        }
+        return splat || (own && dc) ? i : -1;
+      });
+  splats = __reduce_add_sync(0xffffffffu, splats);
+  owned = __reduce_add_sync(0xffffffffu, owned);
+  most = __reduce_max_sync(0xffffffffu, most);
+  negative = __reduce_or_sync(0xffffffffu, negative);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&sh.splats, splats);
+    atomicAdd(&sh.owned, owned);
+    atomicMax(&sh.most, most);
+    if (negative) sh.signed_w = 1;
+  }
+}
+
+// The raw splat of the tile's planes and rows with the halo into region
+// (zeroed; plane words a plane, stride a row): fixed point at frac
+// fraction bits, or floats where frac < 0 (fixed_frac_bits).  From the
+// first pass's list (mark(z, y, w) sees each listed point), or where it
+// overflowed (listed > kListMin) by chunks of kListMin points, each
+// scanned and listed again (mark sees none).
+template <int kThreads, typename Mark>
+__device__ __forceinline__ void bwd_splat(
+    const BwdTile& t, const float* __restrict__ gz,
+    const float* __restrict__ gy, const float* __restrict__ gx,
+    const float* __restrict__ c, size_t off, int N, int S, bool rows,
+    int listed, int frac, int* region, int plane, int stride, int* list,
+    int* count, Mark mark) {
+  constexpr int kUnroll = kListMin / kThreads;  // a chunk a step
+  const float scale = frac >= 0 ? ldexpf(1.f, frac) : 0.f;
+  auto add = [&](int, float pz, float py, float px, float w) {
+    mark(pz, py, w);
+    if (w == 0.f) return;
+    int z[2], y[2], x[2];
+    float v[8];
+    splat_axes(pz, py, px, w, S, z, y, x, v);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const unsigned zl = z[q >> 2] - t.z0;
+      const unsigned yl = y[(q >> 1) & 1] - t.y0;
+      if (zl < static_cast<unsigned>(t.hz) &&
+          yl < static_cast<unsigned>(t.hy)) {
+        int* at = region + zl * plane + yl * stride + x[q & 1];
+        if (frac >= 0) {
+          const int f = fixed_units(v[q], scale);
+          if (f != 0) atomicAdd(at, f);
+        } else if (v[q] != 0.f) {
+          atomicAdd(reinterpret_cast<float*>(at), v[q]);
+        }
+      }
+    }
+  };
+  if (listed <= kListMin) {
+    for_listed<kThreads, kListUnroll>(list, listed, gz, gy, gx, c, off, add);
+    return;
+  }
+  for (int c0 = 0; c0 < N; c0 += kListMin) {
+    if (threadIdx.x == 0) *count = 0;
+    __syncthreads();  // the last chunk's list consumed
+    scan_list<kThreads, kUnroll>(
+        gz, gy, c, off, c0, min(N, c0 + kListMin), rows, list, kListMin,
+        count, [&](int i, float pz, float py, float w) {
+          const int iz = static_cast<int>(floorf(pz));
+          const unsigned za = clamp_index(iz, S) - t.z0;
+          const unsigned zb = clamp_index(iz + 1, S) - t.z0;
+          bool in = za < static_cast<unsigned>(t.hz) ||
+                    zb < static_cast<unsigned>(t.hz);
+          if (rows) {
+            const int iy = static_cast<int>(floorf(py));
+            const unsigned ya = clamp_index(iy, S) - t.y0;
+            const unsigned yb = clamp_index(iy + 1, S) - t.y0;
+            in = in && (ya < static_cast<unsigned>(t.hy) ||
+                        yb < static_cast<unsigned>(t.hy));
+          }
+          return w != 0.f && in ? i : -1;
+        });
+    __syncthreads();
+    for_listed<kThreads, kListUnroll>(list, *count, gz, gy, gx, c, off, add);
+    __syncthreads();  // the chunk's adds done, its list read
+  }
+}
+
+// The splat's transpose as a gather of the tile's own points: for each,
+// d(gz, gy, gx) = w * the sum over its 8 corners, in (dz, dy, dx) order,
+// of dvox * the derivative of the trilinear weight (d tz / d gz = 1; the
+// floor has no gradient, as in the plain chain) and, with dc, dc = the
+// sum of dvox * the trilinear weight, a zero-weight point's too.  corner(
+// zl, yl, z, y, x) gives dvox at the corner (zl, yl: within the tile).
+// From the first pass's list, or by chunks where it overflowed.
+template <int kThreads, typename Corner>
+__device__ __forceinline__ void bwd_gather(
+    const BwdTile& t, const float* __restrict__ gz,
+    const float* __restrict__ gy, const float* __restrict__ gx,
+    const float* __restrict__ c, size_t off, int N, int S, bool rows,
+    int listed, int* list, int* count, float* __restrict__ dgz,
+    float* __restrict__ dgy, float* __restrict__ dgx, float* __restrict__ dc,
+    Corner corner) {
+  constexpr int kUnroll = kListMin / kThreads;
+  auto gather = [&](int i, float pz, float py, float px, float w) {
+    const float fz = floorf(pz), fy = floorf(py), fx = floorf(px);
+    const int iz = static_cast<int>(fz), iy = static_cast<int>(fy),
+              ix = static_cast<int>(fx);
+    const unsigned za = clamp_index(iz, S) - t.z0;
+    const unsigned ya = clamp_index(iy, S) - t.y0;
+    if (za >= static_cast<unsigned>(t.nz) ||
+        ya >= static_cast<unsigned>(t.ny) || (w == 0.f && dc == nullptr))
+      return;  // another tile's point, or one that needs no gathering
+    const float tz = pz - fz, ty = py - fy, tx = px - fx;
+    const float wz[2] = {1.f - tz, tz};
+    const float wy[2] = {1.f - ty, ty};
+    const float wx[2] = {1.f - tx, tx};
+    const float dw[2] = {-1.f, 1.f};
+    float v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int z = clamp_index(iz + (q >> 2), S);
+      const int y = clamp_index(iy + ((q >> 1) & 1), S);
+      v[q] = corner(z - t.z0, y - t.y0, z, y, clamp_index(ix + (q & 1), S));
+    }
+    float sz = 0.f, sy = 0.f, sx = 0.f, sc = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int dz = q >> 2, dy = (q >> 1) & 1, dx = q & 1;
+      sz += v[q] * dw[dz] * wy[dy] * wx[dx];
+      sy += v[q] * wz[dz] * dw[dy] * wx[dx];
+      sx += v[q] * wz[dz] * wy[dy] * dw[dx];
+      sc += v[q] * wz[dz] * wy[dy] * wx[dx];
+    }
+    dgz[off + i] = w * sz;
+    dgy[off + i] = w * sy;
+    dgx[off + i] = w * sx;
+    if (dc != nullptr) dc[off + i] = sc;
+  };
+  if (listed <= kListMin) {
+    for_listed<kThreads, kListUnroll>(list, listed, gz, gy, gx, c, off,
+                                      gather);
+    return;
+  }
+  for (int c0 = 0; c0 < N; c0 += kListMin) {
+    if (threadIdx.x == 0) *count = 0;
+    __syncthreads();  // the last chunk's list consumed
+    scan_list<kThreads, kUnroll>(
+        gz, gy, c, off, c0, min(N, c0 + kListMin), rows, list, kListMin,
+        count, [&](int i, float pz, float py, float w) {
+          const unsigned za =
+              clamp_index(static_cast<int>(floorf(pz)), S) - t.z0;
+          const unsigned ya =
+              clamp_index(static_cast<int>(floorf(py)), S) - t.y0;
+          const bool own = za < static_cast<unsigned>(t.nz) &&
+                           (!rows || ya < static_cast<unsigned>(t.ny));
+          return own && (w != 0.f || dc != nullptr) ? i : -1;
+        });
+    __syncthreads();
+    for_listed<kThreads, kListUnroll>(list, *count, gz, gy, gx, c, off,
+                                      gather);
+    __syncthreads();  // the chunk's gathers done, its list read
+  }
+}
+
+// The start both backward kernels share: the first pass, then (the CTA
+// leaving where it owns no point to gather) the zeroed tile and its raw
+// splat.  Returns the fixed point's fraction bits (-1: floats), or
+// kNoPoints for a CTA with nothing to gather; *listed: the first pass's
+// list count.
+constexpr int kNoPoints = -2;
+
+template <int kThreads, typename Mark>
+__device__ __forceinline__ int bwd_start(
+    const BwdTile& t, const float* __restrict__ gz,
+    const float* __restrict__ gy, const float* __restrict__ gx,
+    const float* __restrict__ c, size_t off, int N, int S, bool rows,
+    bool dc, int* region, long long region_words, int plane, int stride,
+    int* list, BwdCounts& sh, float* __restrict__ dgz,
+    float* __restrict__ dgy, float* __restrict__ dgx, int* listed,
+    Mark mark) {
+  if (threadIdx.x == 0) sh = BwdCounts{0, 0, 0u, 0, 0, 0};
+  __syncthreads();
+  bwd_scan<kThreads>(t, gz, gy, c, off, N, S, rows, dc, list, sh, dgz, dgy,
+                     dgx);
+  __syncthreads();  // the list and the counts complete
+  *listed = sh.count;
+  if (sh.owned == 0) return kNoPoints;  // reads no cotangent
+  if (threadIdx.x == 0)
+    sh.frac = fixed_frac_bits(sh.splats, __uint_as_float(sh.most),
+                              sh.signed_w != 0);
+  float4* r4 = reinterpret_cast<float4*>(region);
+  for (long long i = threadIdx.x; i < region_words / 4; i += kThreads)
+    r4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (long long i = region_words / 4 * 4 + threadIdx.x; i < region_words;
+       i += kThreads)
+    region[i] = 0;
+  __syncthreads();  // the tile zeroed, frac set, the counts read
+  const int frac = sh.frac;
+  bwd_splat<kThreads>(t, gz, gy, gx, c, off, N, S, rows, *listed, frac,
+                      region, plane, stride, list, &sh.count, mark);
+  __syncthreads();  // the raw splat complete
+  return frac;
+}
+
+// K6 backward: 1,024 threads a CTA (its CTAs are few and do no blur: the
+// first pass, the splat and the gather spread over twice K7's threads).
+constexpr int kK6Threads = 1024;
+
+// grid: B slabs bands CTAs (BwdTile); dynamic shared memory:
+// bwd_words(P, R, S, stride, 0) words.  dc null: zero-weight points are
+// not gathered.
+__global__ void __launch_bounds__(kK6Threads)
+    splat_bwd_slab_kernel(const float* __restrict__ gz,
+                          const float* __restrict__ gy,
+                          const float* __restrict__ gx,
+                          const float* __restrict__ c,
+                          const float* __restrict__ g,
+                          float* __restrict__ dgz, float* __restrict__ dgy,
+                          float* __restrict__ dgx, float* __restrict__ dc,
+                          int N, int S, int P, int R, int slabs, int bands,
+                          int stride) {
+  extern __shared__ float4 smem4[];
+  __shared__ BwdCounts sh;
+  const BwdTile t(S, P, R, slabs, bands);
+  int* region = reinterpret_cast<int*>(smem4);
+  const int plane = min(R + 1, S) * stride;
+  const long long words = static_cast<long long>(min(P + 1, S)) * plane;
+  int* list = region + words;
+  const size_t off = static_cast<size_t>(t.b) * N;
+  const bool rows = bands > 1;
+  int listed = 0;
+  const int frac = bwd_start<kK6Threads>(
+      t, gz, gy, gx, c, off, N, S, rows, dc != nullptr, region, words, plane,
+      stride, list, sh, dgz, dgy, dgx, &listed, [](float, float, float) {});
+  if (frac == kNoPoints) return;
+  // g read at the corners of the owned points only, the mask from the tile
+  const float* gb = g + static_cast<size_t>(t.b) * S * S * S;
+  bwd_gather<kK6Threads>(
+      t, gz, gy, gx, c, off, N, S, rows, listed, list, &sh.count, dgz, dgy,
+      dgx, dc, [&](int zl, int yl, int z, int y, int x) {
+        const float v = __ldg(gb + (static_cast<size_t>(z) * S + y) * S + x);
+        return fixed_passes(region[zl * plane + yl * stride + x], frac) ? v
+                                                                      : 0.f;
+      });
+}
+
+// K7 backward's row mask: up to kMaxSplatS + 1 rows of a tile
+constexpr int kRowWords = (kMaxSplatS + 1 + 31) / 32;
+
+// whether run r of kRun rows holds a needed row
+__device__ __forceinline__ bool run_needed(const unsigned* need, int r) {
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < kRun; ++i) {
+    const int row = r * kRun + i;
+    any |= (need[row >> 5] >> (row & 31)) & 1u;
+  }
+  return any;
+}
+
+// the k-th needed row of a tile (k below their count)
+__device__ __forceinline__ int nth_row(const unsigned* need, int words,
+                                       int k) {
+  for (int i = 0; i < words; ++i) {
+    unsigned m = need[i];
+    const int n = __popc(m);
+    if (k < n) {
+      for (; k > 0; --k) m &= m - 1u;
+      return i * 32 + __ffs(m) - 1;
+    }
+    k -= n;
+  }
+  return 0;
+}
+
+// the k-th run of kRun rows that holds a needed row (k below their count)
+__device__ __forceinline__ int nth_run(const unsigned* need, int runs,
+                                       int k) {
+  for (int r = 0; r < runs; ++r)
+    if (run_needed(need, r) && k-- == 0) return r;
+  return 0;
+}
+
+// K7 backward.  grid: B slabs bands CTAs (BwdTile); dynamic shared
+// memory: bwd_words(P, R, S, stride, K) words.  KT >= K taps, zero past K.
+// Two CTAs a multiprocessor (64 registers a thread): the plan sizes the
+// sweep's tiles for two, and one ran it 1.6x slower.
+template <int KT>
+__global__ void __launch_bounds__(kSlabThreads, 2)
+    splat_blur_bwd_slab_kernel(const float* __restrict__ gz,
+                               const float* __restrict__ gy,
+                               const float* __restrict__ gx,
+                               const float* __restrict__ c,
+                               const float* __restrict__ taps, int K,
+                               const float* __restrict__ g,
+                               float* __restrict__ dgz,
+                               float* __restrict__ dgy,
+                               float* __restrict__ dgx,
+                               float* __restrict__ dc, int N, int S, int P,
+                               int R, int slabs, int bands, int stride) {
+  extern __shared__ float4 smem4[];
+  __shared__ BwdCounts sh;
+  // the tile's rows that its own points' corners reach: the transposes
+  // run over those rows alone
+  __shared__ unsigned need[kRowWords];
+  const BwdTile t(S, P, R, slabs, bands);
+  int* region = reinterpret_cast<int*>(smem4);
+  const int plane = min(R + 1, S) * stride;
+  const long long words = static_cast<long long>(min(P + 1, S)) * plane;
+  float* tmp = reinterpret_cast<float*>(region + words);
+  int* list = region + words + plane;
+  const size_t off = static_cast<size_t>(t.b) * N;
+  const bool rows = bands > 1;
+  const int row_words = (t.hy + 31) / 32;
+  for (int i = threadIdx.x; i < kRowWords; i += kSlabThreads) need[i] = 0u;
+  int listed = 0;
+  const int frac = bwd_start<kSlabThreads>(
+      t, gz, gy, gx, c, off, N, S, rows, dc != nullptr, region, words, plane,
+      stride, list, sh, dgz, dgy, dgx, &listed,
+      [&](float pz, float py, float w) {
+        const unsigned za =
+            clamp_index(static_cast<int>(floorf(pz)), S) - t.z0;
+        const int iy = static_cast<int>(floorf(py));
+        const unsigned ya = clamp_index(iy, S) - t.y0;
+        if (za < static_cast<unsigned>(t.nz) &&
+            ya < static_cast<unsigned>(t.ny) && (w != 0.f || dc != nullptr)) {
+          const int yb = clamp_index(iy + 1, S) - t.y0;
+          atomicOr(&need[ya >> 5], 1u << (ya & 31));
+          atomicOr(&need[yb >> 5], 1u << (yb & 31));
+        }
+      });
+  if (frac == kNoPoints) return;
+  if (listed > kListMin) {  // the overflowed splat marked no rows: all
+    for (int i = threadIdx.x; i < row_words; i += kSlabThreads)
+      need[i] = i < t.hy / 32 ? ~0u : (1u << (t.hy % 32)) - 1u;
+    __syncthreads();
+  }
+  // the needed rows and runs of kRun rows, counted; an item finds its own
+  // by select (needed_row)
+  int n_rows = 0, n_runs = 0;
+  for (int i = 0; i < row_words; ++i) n_rows += __popc(need[i]);
+  const int runs_all = (t.hy + kRun - 1) / kRun;
+  for (int r = 0; r < runs_all; ++r) n_runs += run_needed(need, r);
+
+  // the taps reversed: the transpose of the 'same' correlation is the
+  // correlation with the reversed band at offset K - 1 - K / 2 (the
+  // forward's is K / 2)
+  float k[KT];
+#pragma unroll
+  for (int u = 0; u < KT; ++u) k[u] = u < K ? taps[K - 1 - u] : 0.f;
+  const int shift = K - 1 - K / 2;
+  float* dv = reinterpret_cast<float*>(region);
+  for (int p = 0; p < t.hz; ++p) {
+    // Y^T: lanes along x, each plane of g read once from device memory
+    // (coalesced; the windows' overlap from L1) into the temporary, the
+    // runs of rows that hold a needed row
+    const float* gp = g + (static_cast<size_t>(t.b) * S + t.z0 + p) * S * S;
+    for (int it = threadIdx.x; it < S * n_runs; it += kSlabThreads) {
+      const int xx = it % S, r0 = nth_run(need, runs_all, it / S) * kRun;
+      const int y0 = t.y0 + r0 - shift;
+      float acc[kRun];
+      run_taps<KT>(
+          k,
+          [&](int j) {
+            const int yi = y0 + j;
+            return yi >= 0 && yi < S ? __ldg(gp + yi * S + xx) : 0.f;
+          },
+          acc);
+#pragma unroll
+      for (int r = 0; r < kRun; ++r)
+        if (r0 + r < t.hy) tmp[(r0 + r) * stride + xx] = acc[r];
+    }
+    __syncthreads();
+    // X^T: lanes along y (odd stride: no bank conflicts), times the
+    // clamp's mask, written over the raw splat each thread has just read
+    const int runs_x = (S + kRun - 1) / kRun;
+    for (int it = threadIdx.x; it < n_rows * runs_x; it += kSlabThreads) {
+      const int rr = nth_row(need, row_words, it % n_rows),
+                x0 = it / n_rows * kRun;
+      const float* line = tmp + rr * stride;
+      float acc[kRun];
+      run_taps<KT>(
+          k,
+          [&](int j) {
+            const int xi = x0 - shift + j;
+            return xi >= 0 && xi < S ? line[xi] : 0.f;
+          },
+          acc);
+      float* out = dv + p * plane + rr * stride + x0;
+#pragma unroll
+      for (int r = 0; r < kRun; ++r)
+        if (x0 + r < S)
+          out[r] = fixed_passes(__float_as_int(out[r]), frac) ? acc[r] : 0.f;
+    }
+    __syncthreads();  // the temporary is the next plane's
+  }
+  bwd_gather<kSlabThreads>(
+      t, gz, gy, gx, c, off, N, S, rows, listed, list, &sh.count, dgz, dgy,
+      dgx, dc, [&](int zl, int yl, int, int, int x) {
+        return dv[zl * plane + yl * stride + x];
+      });
+}
+
+// ctas CTAs of threads, after raising the kernel's dynamic shared memory
+// limit once a device
+template <typename Kernel, typename... Args>
+int bwd_launch(Kernel* kernel, std::atomic<int>* opted, int ctas, int threads,
+               size_t smem, cudaStream_t st, Args... args) {
+  const int err = opt_in_smem(reinterpret_cast<const void*>(kernel), opted,
+                              smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<ctas, threads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+// A backward plan this file can run (ops/splat.py splat_backward_plan);
+// its CTAs in *ctas.
+bool bad_bwd_plan(int B, int N, int S, int K, int P, int R, int stride,
+                  long long smem, int* ctas) {
+  if (S < 1 || S > kMaxSplatS || K < 0 || K > kMaxTaps || B < 0 || N < 0 ||
+      P < 1 || P > S || R < 1 || R > S || stride != (S | 1) ||
+      smem != bwd_words(P, R, S, stride, K) * 4)
+    return true;
+  const long long n =
+      static_cast<long long>(B) * ((S + P - 1) / P) * ((S + R - 1) / R);
+  *ctas = static_cast<int>(n);
+  return n > 0x7fffffffLL;
+}
+
+// K7 backward's launch for KT taps, inside this file's anonymous
+// namespace as every launcher here: a function-local static of a template
+// with external linkage can be one object across the libraries loaded in
+// a process, and a second library holding this kernel then skipped raising
+// its own kernel's limit (its launches failed)
+template <int KT>
+int blur_bwd_launch(const float* gz, const float* gy, const float* gx,
+                    const float* c, const float* taps, int K, const float* g,
+                    float* dgz, float* dgy, float* dgx, float* dc, int N,
+                    int S, int P, int R, int stride, int ctas, size_t smem,
+                    cudaStream_t st) {
+  static std::atomic<int> opted[kMaxDevices];
+  return bwd_launch(&splat_blur_bwd_slab_kernel<KT>, opted, ctas,
+                    kSlabThreads, smem, st, gz, gy, gx, c, taps, K, g, dgz,
+                    dgy, dgx, dc, N, S, P, R, (S + P - 1) / P,
+                    (S + R - 1) / R, stride);
 }
 
 }  // namespace
@@ -409,9 +921,10 @@ extern "C" int im23d_splat_fwd(const void* gz, const void* gy,
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const int vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(o) % 16 == 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      reinterpret_cast<const void*>(&splat_shared_kernel),
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  static std::atomic<int> opted[kMaxDevices];
+  cudaError_t err = static_cast<cudaError_t>(opt_in_smem(
+      reinterpret_cast<const void*>(&splat_shared_kernel), opted,
+      static_cast<size_t>(smem)));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(B * cluster), 1, 1);
@@ -444,24 +957,30 @@ extern "C" int im23d_splat_limits(int dev, int* out) {
   return err;
 }
 
-// raw must be zeroed.
+// K6 backward at the (B, S, S, S) cotangent g: dgz, dgy, dgx (and dc,
+// where not null) (B, N), written whole (no initial value).  planes, rows
+// and stride are the plan's (splat_backward_plan, K = 0), smem =
+// bwd_words(planes, rows, S, stride, 0) 4 bytes; a plan this file cannot
+// run is refused.
 extern "C" int im23d_splat_bwd(const void* gz, const void* gy,
                                const void* gx, const void* c, const void* g,
-                               void* raw, void* dgz, void* dgy, void* dgx,
-                               void* dc, int B, int N, int S, void* stream) {
-  if (bad_sizes(S, 1)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* pz = static_cast<const float*>(gz);
-  const float* py = static_cast<const float*>(gy);
-  const float* px = static_cast<const float*>(gx);
-  const float* w = static_cast<const float*>(c);
-  float* a = static_cast<float*>(raw);
-  const int err = splat_launch(pz, py, px, w, a, B, N, S, st);
-  if (err != cudaSuccess) return err;
-  return splat_grad_launch(pz, py, px, w, static_cast<const float*>(g), a,
-                           static_cast<float*>(dgz), static_cast<float*>(dgy),
-                           static_cast<float*>(dgx), static_cast<float*>(dc),
-                           B, N, S, st);
+                               void* dgz, void* dgy, void* dgx, void* dc,
+                               int B, int N, int S, int planes, int rows,
+                               int stride, long long smem, void* stream) {
+  int ctas = 0;
+  if (bad_bwd_plan(B, N, S, 0, planes, rows, stride, smem, &ctas))
+    return cudaErrorInvalidValue;
+  if (ctas == 0 || N == 0) return cudaSuccess;
+  static std::atomic<int> opted[kMaxDevices];
+  return bwd_launch(
+      &splat_bwd_slab_kernel, opted, ctas, kK6Threads,
+      static_cast<size_t>(smem), static_cast<cudaStream_t>(stream),
+      static_cast<const float*>(gz), static_cast<const float*>(gy),
+      static_cast<const float*>(gx), static_cast<const float*>(c),
+      static_cast<const float*>(g), static_cast<float*>(dgz),
+      static_cast<float*>(dgy), static_cast<float*>(dgx),
+      static_cast<float*>(dc), N, S, planes, rows, (S + planes - 1) / planes,
+      (S + rows - 1) / rows, stride);
 }
 
 // K7 forward: out (B, S, S, S) written whole (no initial value).  planes
@@ -513,29 +1032,43 @@ extern "C" int im23d_splat_blur_limits(int dev, int* out) {
   return err;
 }
 
-// raw must be zeroed; work needs no initial value.
+// K7 backward at the (B, S, S, S) cotangent g of the Y/X-blurred clamped
+// splat: dgz, dgy, dgx (and dc, where not null) (B, N), written whole.
+// planes, rows and stride are the plan's (splat_backward_plan, K taps),
+// smem = bwd_words(planes, rows, S, stride, K) 4 bytes; a plan this file
+// cannot run is refused.
 extern "C" int im23d_splat_blur_bwd(const void* gz, const void* gy,
                                     const void* gx, const void* c,
                                     const void* taps, int K, const void* g,
-                                    void* raw, void* work, void* dgz,
-                                    void* dgy, void* dgx, void* dc, int B,
-                                    int N, int S, void* stream) {
-  if (bad_sizes(S, K)) return cudaErrorInvalidValue;
-  if (B == 0) return cudaSuccess;
+                                    void* dgz, void* dgy, void* dgx,
+                                    void* dc, int B, int N, int S,
+                                    int planes, int rows, int stride,
+                                    long long smem, void* stream) {
+  int ctas = 0;
+  if (K < 1 ||
+      bad_bwd_plan(B, N, S, K, planes, rows, stride, smem, &ctas))
+    return cudaErrorInvalidValue;
+  if (ctas == 0 || N == 0) return cudaSuccess;
+  const auto* pz = static_cast<const float*>(gz);
+  const auto* py = static_cast<const float*>(gy);
+  const auto* px = static_cast<const float*>(gx);
+  const auto* w = static_cast<const float*>(c);
+  const auto* k = static_cast<const float*>(taps);
+  const auto* cot = static_cast<const float*>(g);
+  auto* oz = static_cast<float*>(dgz);
+  auto* oy = static_cast<float*>(dgy);
+  auto* ox = static_cast<float*>(dgx);
+  auto* oc = static_cast<float*>(dc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* pz = static_cast<const float*>(gz);
-  const float* py = static_cast<const float*>(gy);
-  const float* px = static_cast<const float*>(gx);
-  const float* w = static_cast<const float*>(c);
-  float* a = static_cast<float*>(raw);
-  float* v = static_cast<float*>(work);
-  int err = splat_launch(pz, py, px, w, a, B, N, S, st);
-  if (err != cudaSuccess) return err;
-  err = blur_yx_t_launch(static_cast<const float*>(g), v, a,
-                         static_cast<const float*>(taps), K, B, S, st);
-  if (err != cudaSuccess) return err;
-  return splat_grad_launch(pz, py, px, w, v, nullptr,
-                           static_cast<float*>(dgz), static_cast<float*>(dgy),
-                           static_cast<float*>(dgx), static_cast<float*>(dc),
-                           B, N, S, st);
+  const size_t bytes = static_cast<size_t>(smem);
+#define IM23D_BLUR_BWD(KT)                                                  \
+  return blur_bwd_launch<KT>(pz, py, px, w, k, K, cot, oz, oy, ox, oc, N, \
+                             S, planes, rows, stride, ctas, bytes, st)
+  if (K == 21) IM23D_BLUR_BWD(21);
+  if (K <= 8) IM23D_BLUR_BWD(8);
+  if (K <= 16) IM23D_BLUR_BWD(16);
+  if (K <= 24) IM23D_BLUR_BWD(24);
+  if (K <= 32) IM23D_BLUR_BWD(32);
+  IM23D_BLUR_BWD(64);
+#undef IM23D_BLUR_BWD
 }

@@ -78,18 +78,19 @@ _SIGNATURES = {
     "im23d_splat_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P],
     # dev, out
     "im23d_splat_limits": [_I, _P],
-    # gz, gy, gx, c, g, raw, dgz, dgy, dgx, dc, B, N, S, stream
-    "im23d_splat_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _P],
+    # gz, gy, gx, c, g, dgz, dgy, dgx, dc, B, N, S, planes, rows, stride,
+    # smem, stream
+    "im23d_splat_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _L, _P],
     # gz, gy, gx, c, taps, K, out, B, N, S, planes, stride, smem, stream
     "im23d_splat_blur_fwd": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                              _L, _P],
     # dev, out
     "im23d_splat_blur_limits": [_I, _P],
-    # gz, gy, gx, c, taps, K, g, raw, work, dgz, dgy, dgx, dc, B, N, S,
-    # stream
-    "im23d_splat_blur_bwd": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                             _P, _I, _I, _I, _P],
+    # gz, gy, gx, c, taps, K, g, dgz, dgy, dgx, dc, B, N, S, planes, rows,
+    # stride, smem, stream
+    "im23d_splat_blur_bwd": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _I, _I, _L, _P],
 }
 
 _lock = threading.Lock()

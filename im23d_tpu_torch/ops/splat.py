@@ -14,7 +14,11 @@ in shared memory, or, for a grid too large for that, atomics into device
 memory; ``splat_grid_shared_torch`` is the plain twin of the first's order
 of sums.  K7's forward is one launch of a CTA a slab of z-planes
 (``splat_blur_plan``), each CTA splatting the corners that land in its slab
-(``splat_blur_slabs_torch`` is the plain twin of that partition).  Both are
+(``splat_blur_slabs_torch`` is the plain twin of that partition).  K6's
+and K7's backward are one launch each of a CTA a tile of z-planes
+(``splat_backward_plan``) that rebuilds its raw splat with a halo plane and
+gathers the points it owns (``splat_backward_slabs_torch`` is the plain
+twin of that partition).  Both are
 differentiable in the points and the weights; ``splat_blur`` in ``scale``
 too (its Z blur, scale and last clip run in plain PyTorch, as the JAX
 package runs them outside its kernel, and autograd gives their gradient).
@@ -46,7 +50,8 @@ import torch
 
 from im23d_tpu_torch.ops import _build
 from im23d_tpu_torch.ops.projection import _check_operand, _taps_and_scale
-from im23d_tpu_torch.ops.voxel import blur_3d, splat_grid, splat_sum
+from im23d_tpu_torch.ops.voxel import (_band_matrix, blur_3d, splat_grid,
+                                       splat_sum)
 # the plain version of ``trilinear_splat``: the same cull and weights as
 # ``_prep_splat``, then ``splat_grid``
 from im23d_tpu_torch.ops.voxel import trilinear_splat as trilinear_splat_torch
@@ -150,9 +155,12 @@ def _zeros(B: int, S: int, dev) -> torch.Tensor:
     return torch.zeros((B, S, S, S), dtype=torch.float32, device=dev)
 
 
-def _empty_planes(B: int, N: int, dev):
-    return [torch.empty((B, N), dtype=torch.float32, device=dev)
-            for _ in range(4)]
+def _backward_outputs(B: int, N: int, dev, need_dc: bool) -> list:
+    """(dgz, dgy, dgx, dc) of a backward kernel, (B, N) float32 with no
+    initial value; dc None without ``need_dc``."""
+    outs = [torch.empty((B, N), dtype=torch.float32, device=dev)
+            for _ in range(4 if need_dc else 3)]
+    return outs if need_dc else outs + [None]
 
 
 def _stream(dev) -> int:
@@ -309,6 +317,173 @@ def splat_blur_slabs_torch(gz, gy, gx, c, taps, size: int,
     return blur_3d(grid, taps, axes=(3, 2))
 
 
+def _backward_smem(planes: int, rows: int, S: int, stride: int, K: int,
+                   lim: SplatBlurLimits) -> int:
+    """Bytes of shared memory a backward CTA of ``planes`` z-planes by
+    ``rows`` rows takes: its planes and rows and one halo of each (where
+    the grid goes on), ``stride`` words a row; for K7 (K >= 1) a
+    temporary of those rows; the point list, ``lim.list_min`` entries."""
+    region = min(planes + 1, S) * min(rows + 1, S) * stride
+    tmp = min(rows + 1, S) * stride if K else 0
+    return 4 * (region + tmp + lim.list_min)
+
+
+def _two_ctas(lim: SplatBlurLimits) -> int:
+    """Dynamic shared memory a CTA may take for two to share a
+    multiprocessor: the multiprocessor holds the opt-in limit and one
+    block's 1 KB reserve, and each block takes its reserve and its static
+    variables (K7 backward's counts and row mask, 156 bytes: 256 here)."""
+    return (lim.smem_optin - 1024) // 2 - 256
+
+
+# K6 backward's planes a tile: each tile reads its whole cloud's z and
+# weights first, so few, large tiles (tools/time_split.py --only k6b)
+K6_PLANES = 8
+
+
+def splat_backward_plan(B: int, size: int, K: int,
+                        lim: SplatBlurLimits) -> dict:
+    """K6 (``K = 0``) or K7 backward's (K taps) split of B clouds' S³
+    grids into tiles, a CTA a tile: ``planes`` z-planes by ``rows`` rows.
+
+    A tile owns the points whose clamped lower corner (z, y) lies in it
+    and rebuilds the raw splat of one halo plane and one halo row past
+    its end (where the grid goes on), so that each owned point is
+    gathered whole by one CTA and each output written once.  Rows are
+    ``stride = S | 1`` words (odd: a warp reading a column hits 32
+    banks).  ``rows`` is S (``bands`` 1) where a tile of one plane and its
+    halo fits a block's shared memory with K7's temporary and the point
+    list (``_backward_smem``); then ``planes`` is, for K7, as many as
+    leave room for two CTAs a multiprocessor, but no more than spreads the
+    B·S planes over 4 CTAs a multiprocessor, evened out over the slabs, as
+    ``splat_blur_plan`` has it; for K6, K6_PLANES or as many as fit a
+    block (every tile first reads its whole cloud, and K6 has no blur to
+    spread).  Otherwise (K7 at S >= 134, K6 at S >= 164 on an H100) a
+    tile is one plane by a band of rows, as many as fit, evened out over
+    the bands.  ``halo`` is the share of voxels the CTAs rebuild
+    beyond the grid's: (S + slabs - 1)(S + bands - 1) / S² - 1, largest
+    at one plane a slab (the meshing shapes: ~1).  ``note`` says why a
+    plan has fewer CTAs than multiprocessors."""
+    S = int(size)
+    if not 0 <= K <= 64:
+        raise ValueError(f"splat_backward_plan takes 0 <= K <= 64 (K={K})")
+    if S < 1:
+        raise ValueError(f"splat_backward_plan takes S >= 1 (S={S})")
+    stride = S | 1
+
+    def need(planes, rows):
+        return _backward_smem(planes, rows, S, stride, K, lim)
+
+    if need(1, 1) > lim.smem_optin:
+        raise ValueError(f"a tile of two rows of {S} does not fit "
+                         f"{lim.smem_optin} bytes of shared memory")
+    if need(1, S) <= lim.smem_optin:
+        rows, bands = S, 1
+        most = 1
+        if K:
+            while most < S and need(most + 1, S) <= _two_ctas(lim):
+                most += 1
+            planes = max(1, min(most, B * S // (4 * lim.sms)))
+        else:
+            while most < min(S, K6_PLANES) and need(most + 1,
+                                                    S) <= lim.smem_optin:
+                most += 1
+            planes = most
+        slabs = -(-S // planes)
+        planes = -(-S // slabs)
+        slabs = -(-S // planes)
+    else:
+        rows = 1
+        while need(1, rows + 1) <= lim.smem_optin:
+            rows += 1
+        bands = -(-S // rows)
+        rows = -(-S // bands)
+        planes, slabs = 1, S
+    plan = dict(planes=planes, rows=rows, slabs=slabs, bands=bands,
+                ctas=B * slabs * bands, stride=stride,
+                smem=need(planes, rows), list=lim.list_min,
+                halo=(S + slabs - 1) * (S + bands - 1) / S ** 2 - 1)
+    if plan["ctas"] < lim.sms:
+        plan["note"] = (f"{B} x {slabs * bands} tiles, one a CTA: fewer "
+                        f"than {lim.sms} multiprocessors")
+    return plan
+
+
+_bwd_plan = functools.lru_cache(maxsize=64)(splat_backward_plan)
+
+
+def _tiles(S: int, plan: dict):
+    """(z0, z1, y0, y1) of each tile's owned planes and rows."""
+    for z0 in range(0, S, plan["planes"]):
+        for y0 in range(0, S, plan["rows"]):
+            yield (z0, min(S, z0 + plan["planes"]), y0,
+                   min(S, y0 + plan["rows"]))
+
+
+def splat_backward_slabs_torch(gz, gy, gx, c, g, plan: dict, taps=None,
+                               need_dc: bool = True):
+    """Plain twin of K6 (``taps`` None) and K7 backward's partition
+    (``splat_backward_plan``) at the (B, S, S, S) cotangent ``g``: each
+    tile splats the corners of the points of weight != 0 that land in its
+    planes and rows and one halo plane and row past them (where the grid
+    goes on), takes the clamp's mask there (0 <= raw <= 1), multiplies
+    ``g`` (K6) or the transpose of the Y then X blur of ``g`` (K7) by it,
+    and gathers the points it owns (clamped lower corner in its planes
+    and rows) from it; zero-weight points only with ``need_dc``.  Returns
+    (dgz, dgy, dgx, dc), dc None without ``need_dc``.  Equal to
+    ``splat_backward_torch`` / ``splat_blur_backward_torch`` up to the
+    order of sums."""
+    S = g.shape[-1]
+    B, N = gz.shape
+    coords = torch.stack((gz, gy, gx), dim=-1)
+    base = torch.floor(coords)
+    t = coords - base
+    lo = base.to(torch.int64)
+    offs = torch.tensor([[dz, dy, dx] for dz in (0, 1) for dy in (0, 1)
+                         for dx in (0, 1)], device=gz.device)  # (8, 3)
+    idx = (lo[:, :, None, :] + offs).clamp(0, S - 1)  # (B, N, 8, 3)
+    f = t[:, :, None, :]
+    o = offs.to(t.dtype)
+    wt = f * o + (1.0 - f) * (1.0 - o)  # per-axis corner weights
+    dw = (2.0 * o - 1.0).expand_as(wt)  # their derivatives
+    cw = wt.prod(dim=-1)  # (B, N, 8)
+    d3 = torch.stack([torch.cat((dw[..., a:a + 1], wt[..., :a],
+                                 wt[..., a + 1:]), dim=-1).prod(dim=-1)
+                      for a in range(3)], dim=-1)  # (B, N, 8, 3)
+    if taps is None:
+        dv = g
+    else:
+        band = _band_matrix(taps.detach(), S).to(g.dtype)
+        dv = torch.matmul(g.movedim(2, -1), band.T).movedim(-1, 2)
+        dv = torch.matmul(dv, band.T)
+    batch = torch.arange(B, device=gz.device)[:, None, None]
+    za, ya = idx[:, :, 0, 0], idx[:, :, 0, 1]  # clamped lower corners
+    dp = torch.zeros((B, N, 3), dtype=g.dtype, device=g.device)
+    dc = torch.zeros((B, N), dtype=g.dtype, device=g.device)
+    for z0, z1, y0, y1 in _tiles(S, plan):
+        zh, yh = min(S, z1 + 1), min(S, y1 + 1)
+        inside = ((idx[..., 0] >= z0) & (idx[..., 0] < zh)
+                  & (idx[..., 1] >= y0) & (idx[..., 1] < yh))
+        flat = ((batch * (zh - z0) + idx[..., 0] - z0) * (yh - y0)
+                + idx[..., 1] - y0) * S + idx[..., 2]
+        dump = B * (zh - z0) * (yh - y0) * S
+        raw = torch.zeros(dump + 1, dtype=g.dtype, device=g.device)
+        raw = raw.index_add(0, torch.where(inside, flat, dump).reshape(-1),
+                            (cw * c[:, :, None]).reshape(-1))
+        keep = (raw >= 0) & (raw <= 1)
+        region = dv[:, z0:zh, y0:yh].reshape(-1)
+        val = torch.where(keep[:-1], region, 0.0)
+        owned = (za >= z0) & (za < z1) & (ya >= y0) & (ya < y1)
+        if not need_dc:
+            owned = owned & (c != 0)
+        v = val[torch.where(inside, flat, 0)] * inside  # (B, N, 8)
+        dp = torch.where(owned[..., None], (v[..., None] * d3).sum(dim=2),
+                         dp)
+        dc = torch.where(owned, (v * cw).sum(dim=2), dc)
+    dgz, dgy, dgx = (dp * c[:, :, None]).unbind(-1)
+    return dgz, dgy, dgx, dc if need_dc else None
+
+
 def splat_kernel(gz, gy, gx, c, size: int) -> torch.Tensor:
     """Launch K6 on (B, N) grid-coordinate planes and weights ``c`` (all
     float32, contiguous, on one CUDA device); returns the clamped
@@ -343,30 +518,38 @@ def splat_kernel(gz, gy, gx, c, size: int) -> torch.Tensor:
 splat_kernel.launches = 0
 
 
-def splat_backward_kernel(gz, gy, gx, c, g):
+def splat_backward_kernel(gz, gy, gx, c, g, need_dc: bool = True):
     """Launch K6's backward at the (B, S, S, S) cotangent ``g``; returns
-    (dgz, dgy, dgx, dc), each (B, N).
+    (dgz, dgy, dgx, dc), each (B, N), dc None without ``need_dc``.
 
     Replaces the Pallas kernel ``_bwd_kernel``
     (``im23d_tpu/ops/splat_pallas.py:93``) with the clamp's VJP in front of
-    it.  It splats again into a zeroed (B, S, S, S) scratch grid for the
-    clamp's mask (0 <= raw <= 1), then gathers ``g`` at each point's 8
-    corners, one thread per point, without atomics; ``dc`` is the gradient
-    at the point's own corners for every point.  The recomputed splat adds
-    in another order than the plain version's, so a voxel within rounding
-    of 0 or 1 can flip its mask.
+    it.  One launch, no scratch grid, no memset (``torch.empty``
+    outputs): a CTA a tile of z-planes (``splat_backward_plan``) lists its
+    cloud's points, rebuilds the raw splat of its planes and a halo plane
+    in shared memory (integer fixed point, for the clamp's mask 0 <= raw
+    <= 1) and gathers ``g`` at the 8 corners of the points whose lower
+    corner it owns, each output written once.  ``dc`` is the gradient at
+    the point's own corners for every point; without ``need_dc``
+    zero-weight points are skipped (their coordinate gradients are 0).
+    The integer sums do not depend on the order of the adds, so launches
+    are bit-equal; a voxel within rounding of 0 or 1 can take the other
+    side of the mask than the plain version's float sum.  Bound by the
+    bytes of ``g`` at the points' corners.
     """
     S = g.shape[-1]
     dev, B, N = _check_points("splat_backward_kernel", gz, gy, gx, c, S,
                               SPLAT_MAX_SIZE)
     _check_operand("g", g, (B, S, S, S), dev)
+    plan = _bwd_plan(B, S, 0, splat_blur_limits(dev))
     lib = _build.load_kernels()
-    raw = _zeros(B, S, dev)
-    dgz, dgy, dgx, dc = _empty_planes(B, N, dev)
+    dgz, dgy, dgx, dc = _backward_outputs(B, N, dev, need_dc)
     rc = lib.im23d_splat_bwd(gz.data_ptr(), gy.data_ptr(), gx.data_ptr(),
-                             c.data_ptr(), g.data_ptr(), raw.data_ptr(),
-                             dgz.data_ptr(), dgy.data_ptr(), dgx.data_ptr(),
-                             dc.data_ptr(), B, N, S, _stream(dev))
+                             c.data_ptr(), g.data_ptr(), dgz.data_ptr(),
+                             dgy.data_ptr(), dgx.data_ptr(),
+                             None if dc is None else dc.data_ptr(), B, N, S,
+                             plan["planes"], plan["rows"], plan["stride"],
+                             plan["smem"], _stream(dev))
     _build.check(lib, rc, "splat backward kernel (K6)")
     splat_backward_kernel.launches += 1
     return dgz, dgy, dgx, dc
@@ -411,32 +594,36 @@ def splat_blur_kernel(gz, gy, gx, c, taps, size: int) -> torch.Tensor:
 splat_blur_kernel.launches = 0
 
 
-def splat_blur_backward_kernel(gz, gy, gx, c, taps, g):
+def splat_blur_backward_kernel(gz, gy, gx, c, taps, g,
+                               need_dc: bool = True):
     """Launch K7's backward at the (B, S, S, S) cotangent ``g``; returns
-    (dgz, dgy, dgx, dc), each (B, N); the taps get no gradient.
+    (dgz, dgy, dgx, dc), each (B, N), dc None without ``need_dc``; the
+    taps get no gradient.
 
     Replaces the Pallas kernel ``_fused_bwd_kernel``
-    (``im23d_tpu/ops/splat_pallas.py:234``).  It splats again into a zeroed
-    scratch grid, applies the Y/X blur's transpose to ``g`` times the
-    clamp's mask (0 <= raw <= 1, ties passing) into a second
-    one, then gathers per point as K6's backward does.  Scratch: two
-    (B, S, S, S) float32 grids.  The mask is 0 <= raw <= 1, which for
-    weights >= 0 is the raw <= 1 of the JAX kernel.
+    (``im23d_tpu/ops/splat_pallas.py:234``).  One launch, no scratch
+    grid, no memset: K6 backward's tiles (``splat_backward_plan``), and
+    per plane of a tile the transpose of the Y then X blur of ``g`` (each
+    plane of ``g`` read once, coalesced) times the clamp's mask (0 <= raw
+    <= 1, ties passing) in shared memory, gathered there by the points the
+    tile owns.  For weights >= 0 the mask is the raw <= 1 of the JAX
+    kernel.  Launches are bit-equal (integer splat, fixed orders).
     """
     S = g.shape[-1]
     dev, B, N = _check_points("splat_blur_backward_kernel", gz, gy, gx, c, S,
                               SPLAT_BLUR_MAX_SIZE)
     _check_taps("splat_blur_backward_kernel", taps, dev)
     _check_operand("g", g, (B, S, S, S), dev)
+    K = taps.numel()
+    plan = _bwd_plan(B, S, K, splat_blur_limits(dev))
     lib = _build.load_kernels()
-    raw = _zeros(B, S, dev)
-    work = torch.empty_like(raw)
-    dgz, dgy, dgx, dc = _empty_planes(B, N, dev)
+    dgz, dgy, dgx, dc = _backward_outputs(B, N, dev, need_dc)
     rc = lib.im23d_splat_blur_bwd(
         gz.data_ptr(), gy.data_ptr(), gx.data_ptr(), c.data_ptr(),
-        taps.data_ptr(), taps.numel(), g.data_ptr(), raw.data_ptr(),
-        work.data_ptr(), dgz.data_ptr(), dgy.data_ptr(), dgx.data_ptr(),
-        dc.data_ptr(), B, N, S, _stream(dev))
+        taps.data_ptr(), K, g.data_ptr(), dgz.data_ptr(), dgy.data_ptr(),
+        dgx.data_ptr(), None if dc is None else dc.data_ptr(), B, N, S,
+        plan["planes"], plan["rows"], plan["stride"], plan["smem"],
+        _stream(dev))
     _build.check(lib, rc, "splat + blur backward kernel (K7)")
     splat_blur_backward_kernel.launches += 1
     return dgz, dgy, dgx, dc
@@ -455,7 +642,10 @@ class _SplatGrid(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (*splat_backward_kernel(*ctx.saved_tensors, g.contiguous()),
+        # constant weights (a keep mask) need no dc: zero-weight points are
+        # then not gathered
+        return (*splat_backward_kernel(*ctx.saved_tensors, g.contiguous(),
+                                       need_dc=ctx.needs_input_grad[3]),
                 None)
 
 
@@ -470,7 +660,8 @@ class _SplatBlurGrid(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        grads = splat_blur_backward_kernel(*ctx.saved_tensors, g.contiguous())
+        grads = splat_blur_backward_kernel(*ctx.saved_tensors, g.contiguous(),
+                                           need_dc=ctx.needs_input_grad[3])
         return (*grads, None, None)
 
 

@@ -47,10 +47,13 @@ K6 (the standalone splat: a cluster of CTAs a cloud with a copy of the
 grid each in shared memory, or atomics into device memory for a grid too
 large) and K7 (splat, clamp, Y/X blur: a CTA a slab of z-planes) add with
 atomicAdd (order changes between runs) and K7 blurs in another order than
-the plain band matmul: values atol 1e-5.  Their backward kernels recompute
-the splat for the clamp's mask (0 <= raw <= 1), so a voxel within
-rounding of 0 or 1 can flip it: relative L2 per output <= 1e-4, as K2;
-weights of either sign bind the clamp at both ends.
+the plain band matmul: values atol 1e-5.  Their backward kernels (a CTA a
+tile of z-planes with a halo plane, ``splat_backward_plan``) rebuild the
+splat in 32-bit fixed point for the clamp's mask (0 <= raw <= 1), so a
+voxel within rounding of 0 or 1 can flip it: relative L2 per output <=
+1e-4, as K2; weights of either sign bind the clamp at both ends.  Their
+integer sums make launches bit-equal, and ``need_dc=False`` leaves dgz,
+dgy and dgx as they are with dc, bit for bit.
 
 K8 (the GAN head conv) sums 25·C products per output in another order than
 cuDNN (in bfloat16 on the tensor cores): forward atol 1e-5 in float32 and
@@ -71,6 +74,7 @@ forward, relative L2 <= 6e-3 (2.7e-3 to 3.5e-3 on the CPU; a dropped
 W-pad fold reads 1.4e-1, the slope at pre = 0 9.0e-2).
 """
 
+import functools
 import math
 
 
@@ -135,6 +139,7 @@ from im23d_tpu_torch.ops.splat import (
     splat_blur_kernel,
     splat_blur_limits,
     splat_blur_plan,
+    splat_backward_plan,
     splat_grid_torch,
     splat_kernel,
     trilinear_splat,
@@ -1222,10 +1227,13 @@ def test_k6_paths(dev, B, n, S, path):
     (128, 21, 1.5, 1, 8000),
     (96, 21, 1.5, 0, 8000),    # no cloud
     (64, 21, 3.0, 24, 4000),   # slabs of several planes
+    (64, 8, 1.0, 24, 4000),    # even K: the transpose's offset K - 1 - K/2
+    (96, 16, 1.5, 1, 8000),
 ])
 def test_k7_matches_plain(dev, S, ks, sigma, b, n):
     """K7 forward (one launch, the output written whole: no memset) and
-    backward against the plain versions."""
+    backward against the plain versions; the backward without dc (None)
+    gives the other three outputs bit for bit."""
     gz, gy, gx, c, taps, g = _splat_operands(dev, S, ks, sigma, b=b, n=n)
     n0, b0 = splat_blur_kernel.launches, splat_blur_backward_kernel.launches
     got = splat_blur_kernel(gz, gy, gx, c, taps, S)
@@ -1233,12 +1241,15 @@ def test_k7_matches_plain(dev, S, ks, sigma, b, n):
     torch.cuda.synchronize()
     assert got.shape == (b, S, S, S)
     torch.testing.assert_close(got, ref, atol=1e-5, rtol=0)
-    for d, r in zip(splat_blur_backward_kernel(gz, gy, gx, c, taps, g),
-                    splat_blur_backward_torch(gz, gy, gx, c, taps, g)):
+    full = splat_blur_backward_kernel(gz, gy, gx, c, taps, g)
+    for d, r in zip(full, splat_blur_backward_torch(gz, gy, gx, c, taps, g)):
         assert torch.isfinite(d).all()
         assert _rel_l2(d, r) <= 1e-4, (_rel_l2(d, r), float((d - r).abs().max()))
+    part = splat_blur_backward_kernel(gz, gy, gx, c, taps, g, need_dc=False)
+    assert part[3] is None
+    assert all(torch.equal(a, f) for a, f in zip(part[:3], full[:3]))
     assert (splat_blur_kernel.launches,
-            splat_blur_backward_kernel.launches) == (n0 + 1, b0 + 1)
+            splat_blur_backward_kernel.launches) == (n0 + 1, b0 + 2)
 
 
 def test_k7_limits_are_the_plans(dev):
@@ -1254,12 +1265,52 @@ def test_k7_limits_are_the_plans(dev):
         assert splat_blur_plan(1, S, 64, lim)["smem"] <= lim.smem_optin
 
 
+def _check_backward(got, ref, launches):
+    """got against the plain ``ref`` (relative L2 <= 1e-4 per output), the
+    same call's later ``launches`` bit-equal to it."""
+    for d, r in zip(got, ref):
+        assert torch.isfinite(d).all()
+        assert _rel_l2(d, r) <= 1e-4, (_rel_l2(d, r),
+                                       float((d - r).abs().max()))
+    for again in launches:
+        assert all(torch.equal(a, d) for a, d in zip(again, got))
+
+
+def _tile_edge_clouds(dev, S, b, n, plan, seed, signed=True):
+    """b clouds of n points: weights uniform in (-1.5, 1.5) (or (0, 1.5):
+    the backward's fixed-point splat; a negative weight makes a tile add
+    floats), a quarter of
+    the points exactly on the z-planes where a tile or its halo begins
+    (and on the rows where a band begins), a few past the grid's edges
+    (culled: weight 0, gathered with dc at their clamped corners); the
+    last cloud's weights all 0."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    pts = torch.rand((b, n, 3), device=dev, generator=gen) * 1.1 - 0.55
+    edges = torch.arange(0, S, plan["planes"], device=dev)
+    k = n // 4
+    pick = torch.randint(0, edges.numel(), (b, k), device=dev, generator=gen)
+    pts[:, :k, 0] = edges[pick] / (S - 1) - 0.5
+    if plan["bands"] > 1:
+        rows = torch.arange(0, S, plan["rows"], device=dev)
+        pick = torch.randint(0, rows.numel(), (b, k), device=dev,
+                             generator=gen)
+        pts[:, :k, 1] = rows[pick] / (S - 1) - 0.5
+    w = torch.rand((b, n), device=dev, generator=gen) * 3.0 - 1.5
+    if not signed:
+        w = w.abs()
+    w[-1] = 0.0
+    return _prep_splat(pts, S, w, 1e-6)
+
+
 @pytest.mark.parametrize("S", [16, 40, 96])
 def test_k6_k7_mixed_sign_weights(dev, S):
     """Weights uniform in (-1.5, 1.5): the splat's clamp binds at both 0
     and 1.  K7 forward against the plain version, K6 and K7 backward
     against autograd of the plain versions (the clamp's mask
-    0 <= raw <= 1)."""
+    0 <= raw <= 1), K7's at K = 21, 8 and 16, on clouds with points on
+    the backward tiles' edges and a cloud of zero weights (the tiles with
+    a negative weight add floats, in an order that varies); each backward
+    also without dc (None)."""
     gen = torch.Generator(dev).manual_seed(100 + S)
     pts = torch.rand((2, 3000, 3), device=dev, generator=gen) * 0.9 - 0.45
     w = torch.rand((2, 3000), device=dev, generator=gen) * 3.0 - 1.5
@@ -1281,6 +1332,83 @@ def test_k6_k7_mixed_sign_weights(dev, S):
             assert torch.isfinite(d).all()
             assert _rel_l2(d, r) <= 1e-4, (_rel_l2(d, r),
                                            float((d - r).abs().max()))
+    lim = splat_blur_limits(dev)
+    for ks in (0, 21, 8, 16):
+        plan = splat_backward_plan(3, S, ks, lim)
+        ops = _tile_edge_clouds(dev, S, 3, 3000, plan, S + ks)
+        g3 = torch.randn((3, S, S, S), device=dev, generator=gen)
+        if ks:
+            taps, _ = _taps_and_scale(torch.tensor(1.5, device=dev), 1.0, ks,
+                                      3, dev)
+            taps = taps.contiguous()
+            run = functools.partial(splat_blur_backward_kernel, *ops, taps,
+                                    g3)
+            ref = splat_blur_backward_torch(*ops, taps, g3)
+        else:
+            run = functools.partial(splat_backward_kernel, *ops, g3)
+            ref = splat_backward_torch(*ops, g3)
+        got = run()
+        _check_backward(got, ref, [])
+        part = run(need_dc=False)
+        assert part[3] is None
+        _check_backward(part[:3], ref[:3], [])
+        assert not got[0][-1].any() and got[3][-1].abs().sum() > 0
+
+
+@pytest.mark.parametrize("S,ks,b,n,signed", [
+    (16, 0, 1, 40000, False),  # 7,500 listed points a tile: the list
+    (16, 21, 1, 40000, True),  # overflows, the tile scans by chunks
+    (200, 0, 2, 4000, False),  # K6 at 200^3: bands of rows
+    (170, 21, 1, 8000, True),  # K7 at 170^3: two bands
+    (170, 8, 1, 8000, False),
+    (16, 0, 3, 3000, False),   # the fixed-point splat on the tiles' edges
+    (40, 16, 3, 3000, False),
+    (96, 21, 2, 8000, False),
+])
+def test_k6_k7_backward_tiles(dev, S, ks, b, n, signed):
+    """K6 / K7 backward where the plan or the data leave the common path:
+    bands of rows (a halo row), a point list past its capacity (chunked
+    rescans), points on the tiles' edges with weights >= 0 (fixed point)
+    or of either sign (floats), with and without dc, bit-equal launches."""
+    lim = splat_blur_limits(dev)
+    plan = splat_backward_plan(b, S, ks, lim)
+    assert plan["smem"] <= lim.smem_optin
+    if S > 128:
+        assert plan["bands"] > 1
+    ops = _tile_edge_clouds(dev, S, b + 1, n, plan, S + ks, signed)
+    g = torch.randn((b + 1, S, S, S), device=dev,
+                    generator=torch.Generator(dev).manual_seed(S))
+    if ks:
+        taps, _ = _taps_and_scale(torch.tensor(1.5, device=dev), 1.0, ks,
+                                  b + 1, dev)
+        taps = taps.contiguous()
+        run = functools.partial(splat_blur_backward_kernel, *ops, taps, g)
+        ref = splat_blur_backward_torch(*ops, taps, g)
+    else:
+        run = functools.partial(splat_backward_kernel, *ops, g)
+        ref = splat_backward_torch(*ops, g)
+    got = run()
+    _check_backward(got, ref, [] if signed else [run()])
+    part = run(need_dc=False)
+    assert part[3] is None
+    assert all(torch.equal(a, f) for a, f in zip(part[:3], got[:3]))
+
+
+def test_k6_k7_backward_float_range(dev):
+    """Weights past the fixed point's range (n max|w| >= 2^15 in a tile):
+    the tile sums in float, against the plain version."""
+    gen = torch.Generator(dev).manual_seed(3)
+    pts = torch.rand((2, 2000, 3), device=dev, generator=gen) * 0.9 - 0.45
+    w = torch.rand((2, 2000), device=dev, generator=gen) * 3.0 - 1.5
+    w[:, :10] = 3.0e4
+    gz, gy, gx, c = _prep_splat(pts, 24, w, 1e-6)
+    g = torch.randn((2, 24, 24, 24), device=dev, generator=gen)
+    taps, _ = _taps_and_scale(torch.tensor(1.5, device=dev), 1.0, 21, 2, dev)
+    taps = taps.contiguous()
+    _check_backward(splat_backward_kernel(gz, gy, gx, c, g),
+                    splat_backward_torch(gz, gy, gx, c, g), [])
+    _check_backward(splat_blur_backward_kernel(gz, gy, gx, c, taps, g),
+                    splat_blur_backward_torch(gz, gy, gx, c, taps, g), [])
 
 
 def test_splat_autograd_runs_k6_and_k7(dev):
@@ -1302,6 +1430,38 @@ def test_splat_autograd_runs_k6_and_k7(dev):
                             (v6, v7, p.grad, wt.grad, sc.grad)]
     for got, ref in zip(runs["cuda"], runs["cpu"]):
         assert _rel_l2(got, ref) <= 1e-4, _rel_l2(got, ref)
+
+
+def test_splat_autograd_skips_dc_for_constant_weights(dev, monkeypatch):
+    """With weights that need no gradient, autograd of trilinear_splat and
+    splat_blur asks K6 and K7 backward for no dc; the points' gradients
+    are those of a run that does need the weights' (bit for bit)."""
+    from im23d_tpu_torch.ops import splat as sp
+
+    asked = []
+    for name in ("splat_backward_kernel", "splat_blur_backward_kernel"):
+        real = getattr(sp, name)
+
+        def spy(*args, need_dc=True, _real=real):
+            asked.append(need_dc)
+            return _real(*args, need_dc=need_dc)
+
+        spy.launches = 0  # the wrapper counts on the module's name
+        monkeypatch.setattr(sp, name, spy)
+    pts, w, _ = _points(9, 2, 1500, dev=dev)
+    scale = torch.full((2,), 0.5, device=dev)  # the last clip never binds
+    g6 = torch.randn((2, 24, 24, 24), device=dev)
+    g7 = torch.randn((2, 40, 40, 40), device=dev)
+    grads = []
+    for weights_grad in (True, False):
+        p = pts.detach().clone().requires_grad_()
+        wt = w.detach().clone().requires_grad_(weights_grad)
+        v = ((trilinear_splat(p, 24, wt) * g6).sum()
+             + (splat_blur(p, 40, 1.1, scale, wt) * g7).sum())
+        v.backward()
+        grads.append(p.grad)
+    assert asked == [True, True, False, False]
+    assert torch.equal(grads[0], grads[1])
 
 
 def test_k6_k7_reject_bad_operands(dev):

@@ -111,3 +111,49 @@ def spread(xs) -> dict:
     """min, median (the middle one, or the upper of two) and max."""
     xs = sorted(xs)
     return dict(min=xs[0], median=xs[len(xs) // 2], max=xs[-1])
+
+
+# peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, float32
+# FLOP/s outside the tensor cores
+PEAK_BYTES, PEAK_F32 = 3.35e12, 67e12
+# float32 operations: per splatted point 8 corners x 4 (weights, multiply,
+# add); per gathered point 8 corners x 14 (three derivative products, one
+# weight product, their sums, the mask)
+SPLAT_OPS, GATHER_OPS = 32, 112
+
+
+def splat_backward_work(gz, gy, gx, c, size: int, K: int,
+                        need_dc: bool = True) -> tuple[int, int]:
+    """(bytes, float32 operations) that K6 (``K = 0``) or K7 backward (K
+    taps) needs on these operands, counted from the data: the points'
+    planes read and the 3 or 4 gradient planes written; of the cotangent
+    only what the gathered points (every point with ``need_dc``, else
+    those of weight != 0) reach: K6 reads the 32-byte sectors that hold
+    their corners, K7 the z-planes that hold a corner, each once (the Y/X
+    transposes run over those planes, 4 K + 1 operations a voxel); the
+    splat of the points of weight != 0 and the gather."""
+    import torch
+
+    S = int(size)
+    B, N = gz.shape
+    live = torch.ones_like(c, dtype=torch.bool) if need_dc else c != 0
+    n_gather = int(live.sum())
+    coords = torch.stack((gz, gy, gx), dim=-1)[live]  # (M, 3)
+    batch = torch.arange(B, device=gz.device)[:, None].expand(B, N)[live]
+    base = torch.floor(coords).to(torch.int64)
+    nbytes = 4 * 4 * B * N + 4 * (4 if need_dc else 3) * B * N
+    ops = SPLAT_OPS * int((c != 0).sum()) + GATHER_OPS * n_gather
+    if n_gather == 0:
+        return nbytes, ops
+    offs = torch.tensor([[dz, dy, dx] for dz in (0, 1) for dy in (0, 1)
+                         for dx in (0, 1)], device=gz.device)
+    idx = (base[:, None, :] + offs).clamp(0, S - 1)  # (M, 8, 3)
+    plane = batch[:, None] * S + idx[..., 0]  # (M, 8)
+    if K:
+        planes = int(torch.unique(plane).numel())
+        nbytes += 4 * planes * S * S + 4 * K
+        ops += (4 * K + 1) * planes * S * S
+    else:
+        flat = (plane * S + idx[..., 1]) * S + idx[..., 2]
+        nbytes += 32 * int(torch.unique(flat // 8).numel())
+    return nbytes, ops

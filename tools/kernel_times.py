@@ -94,10 +94,12 @@ K7 forward (``k7``) at phase 25's meshing shapes ((1, 8000) at 96³ and
 128³, sigma 1.5) and the sweep's (480 × 8000 at 64³, keep-prob 0.07,
 sigma 3.0): event and device time, the wrapper's host time, the bound
 and the root's plan.  K6 and K7 backward (``k6b``, ``k7b``) at phase
-24's and 25's shapes with non-negative weights: event time, the hashes of
-3 launches' outputs, and the voxels whose raw splat lies within 1e-6 of 1
-(where the clamp's mask can flip between launches of a float atomic
-splat).
+24's and 25's shapes with non-negative weights (K6 also at the 3D IoU's
+(24, 8000) at 32³): event and device time with dc and, where the root
+takes ``need_dc``, without it, the bound of what the data needs, the
+hashes of 3 launches' outputs and whether they are bit-equal, and the
+voxels whose raw splat lies within 1e-6 of 1 (where the clamp's mask can
+flip between float sums in another order).
 
 The timing helpers are ``tools/gpu_timing.py``'s, from this checkout
 whatever the root.  Prints one JSON line ``{"root": ..., "gpu": ...,
@@ -120,10 +122,10 @@ import json
 import os
 import sys
 
-from gpu_timing import (K9_PASS, events_ms, graph_ms, gpu_line, host_ms,
-                        peak_mib, spread)
+from gpu_timing import (K9_PASS, PEAK_BYTES, events_ms, graph_ms, gpu_line,
+                        host_ms, peak_mib, spread)
 
-PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12
+PEAK_BF16 = 989e12
 B_GAN = 32
 # (name, (Cin, H, W, Cout), affine): the generator's 8 conv2s, then blk6's
 # conv1
@@ -642,53 +644,60 @@ def time_k7(repeats: int) -> dict:
 
 
 def time_backward(which: str, repeats: int) -> dict:
-    """K6 (``k6b``) or K7 (``k7b``) backward with non-negative weights:
-    event time, the hashes of 3 launches, the voxels within 1e-6 of 1."""
-    import numpy as np
+    """K6 (``k6b``) or K7 (``k7b``) backward at ``time_split._bwd_cases``
+    (weights >= 0): event and device time with dc and, where the root's
+    wrapper takes ``need_dc``, without it; the hashes of 3 launches'
+    outputs and whether they are bit-equal; the bound of the work the data
+    needs (``gpu_timing.splat_backward_work``); the voxels whose raw splat
+    lies within 1e-6 of 1 (where the clamp's mask can flip between float
+    sums in another order); and the root's plan where it has one."""
+    import inspect
+
     import torch
 
-    import chip_smoke as cs  # the root's
+    from gpu_timing import PEAK_F32, splat_backward_work
     from im23d_tpu_torch.ops import splat
-    from im23d_tpu_torch.ops.pointcloud import keep_mask
     from im23d_tpu_torch.ops.voxel import splat_sum
-    from time_split import _k7_cases
+    from time_split import _bwd_cases
 
-    dev = torch.device("cuda")
-    if which == "k6b":
-        gen = torch.Generator(device=dev).manual_seed(6)
-        pts = cs._sweep_points(8, cs.B * cs.V, dev)
-        w = keep_mask(gen, cs.B * cs.V, cs.N, 0.07)
-        gz, gy, gx, c = splat._prep_splat(pts, cs.S, w, 1e-6)
-        g = torch.randn((cs.B * cs.V, cs.S, cs.S, cs.S), device=dev,
-                        generator=gen)
-        cases = [("sweep", (gz, gy, gx, c), None, cs.S, g)]
-    else:
-        gen = torch.Generator(device=dev).manual_seed(17)
-        cases = []
-        for tag, ops, taps, S in _k7_cases():
-            g = torch.randn((ops[0].shape[0], S, S, S), device=dev,
-                            generator=gen)
-            cases.append((tag, ops, taps, S, g))
+    kernel = (splat.splat_backward_kernel if which == "k6b"
+              else splat.splat_blur_backward_kernel)
+    takes_dc = "need_dc" in inspect.signature(kernel).parameters
     res = {}
-    for tag, (gz, gy, gx, c), taps, S, g in cases:
-        if taps is None:
-            def call():
-                return splat.splat_backward_kernel(gz, gy, gx, c, g)
-        else:
-            def call():
-                return splat.splat_blur_backward_kernel(gz, gy, gx, c, taps,
-                                                        g)
+    for tag, (gz, gy, gx, c), taps, S, g in _bwd_cases(which):
+        ops = (gz, gy, gx, c) if taps is None else (gz, gy, gx, c, taps)
+        K = 0 if taps is None else taps.numel()
         raw = splat_sum(torch.stack((gz, gy, gx), -1), c, S)
-        r = {"event_ms": spread([events_ms(call, 10)
-                                 for _ in range(repeats)]),
-             "digests": [[_digest(t) for t in call()] for _ in range(3)],
-             "near_one": int(((raw - 1).abs() <= 1e-6).sum()),
+        r = {"near_one": int(((raw - 1).abs() <= 1e-6).sum()),
              "negative": int((raw < 0).sum())}
-        res[tag] = r
-        print(f"[{which}] {tag}: event {r['event_ms']}; hashes "
-              f"{r['digests']}; voxels within 1e-6 of 1: {r['near_one']}, "
-              f"below 0: {r['negative']}", flush=True)
         del raw
+        for dc in (True, False) if takes_dc else (True,):
+            def call(dc=dc):
+                if takes_dc:
+                    return kernel(*ops, g, need_dc=dc)
+                return kernel(*ops, g)
+
+            t = _timed(call, repeats, 10)
+            outs = [[o for o in call() if o is not None] for _ in range(3)]
+            t["digests"] = [_digest(o) for o in outs[0]]
+            t["bit_equal_launches"] = all(
+                torch.equal(a, b) for o in outs[1:] for a, b in
+                zip(o, outs[0]))
+            nbytes, flops = splat_backward_work(gz, gy, gx, c, S, K, dc)
+            t["bound_ms"] = max(nbytes / PEAK_BYTES, flops / PEAK_F32) * 1e3
+            r["dc" if dc else "no_dc"] = t
+            print(f"[{which}] {tag} {'with' if dc else 'without'} dc: event "
+                  f"{t['event_ms']} device {t['device_ms']}; bound "
+                  f"{t['bound_ms']:.4f} ms; hashes {t['digests']}; 3 "
+                  f"launches bit-equal {t['bit_equal_launches']}",
+                  flush=True)
+            del outs
+        if hasattr(splat, "splat_backward_plan"):
+            r["plan"] = splat.splat_backward_plan(
+                gz.shape[0], S, K, splat.splat_blur_limits(gz.device))
+        res[tag] = r
+        print(f"[{which}] {tag}: voxels within 1e-6 of 1: {r['near_one']}, "
+              f"below 0: {r['negative']}; plan {r.get('plan')}", flush=True)
         torch.cuda.empty_cache()
     return res
 

@@ -106,6 +106,16 @@ the root's wrapper (events, device by CUDA graph, host); for a root with
 the slab kernel (``k7_slab_variants``: ``full``, ``scan_only``,
 ``no_scan``, ``launch_only``, ``no_blur``, ``threads256``, ``run8``,
 ``list_unroll1``) the same shapes at the root's plan, and its wrapper.
+K6 and K7 backward (``--only k6b|k7b``, ``time_bwd``) at ``_bwd_cases``
+(K6 at phase 24's 120 × 8000 at 64³, keep-prob 0.07, and the IoU's
+(24, 8000) at 32³; K7 at ``_k7_cases``): for a root with the three-launch
+backward of commit e8c7a92 each launch alone (splat, blur transpose,
+gather; K6's gather with and without dc), the wrapper's memset, and the
+number format of a shared-memory splat (its K7 forward's adds as float,
+as integer, or none: ``k7_number_variants``); for a root with the
+one-launch tiles, ``bwd_slab_variants`` at the root's plan and the full
+kernel at 1 to 16 planes a tile; the root's wrapper by CUDA graph and
+events.
 
 Each variant keeps a value that depends on the removed work's inputs, so
 the compiler keeps the rest.  Times: CUDA events over ``--reps``
@@ -114,7 +124,7 @@ allocation), median of 3.  Prints one JSON line as its last line.
 
 Usage (from the repository root, on a machine with a CUDA device):
     python3 tools/time_split.py --root build/parent
-        [--only k4k8|k4f|k8dw|projection|k5b|k6|k3|k7]
+        [--only k4k8|k4f|k8dw|projection|k5b|k6|k3|k7|k6b|k7b]
 """
 
 from __future__ import annotations
@@ -1096,12 +1106,290 @@ def time_k7(root: str, csrc: str, nvcc: str, tmp: str, reps: int) -> dict:
     return res
 
 
+def k6b_parent_variants(src: str) -> dict:
+    """The three-launch K6 backward's variants (memset by the wrapper,
+    atomic splat, gather): ``full``; ``splat_only`` (the gather launch
+    removed); ``gather_only`` (the splat launch removed: the gather reads
+    a zeroed grid, every mask passing)."""
+    splat = ("  const int err = splat_launch(pz, py, px, w, a, B, N, S, st);\n"
+             "  if (err != cudaSuccess) return err;\n")
+    gather = ("  return splat_grad_launch(pz, py, px, w, "
+              "static_cast<const float*>(g), a,")
+    return {"full": src,
+            "splat_only": _cut(src, gather, "}\n\n// K7 forward:",
+                               "  return cudaSuccess;\n"),
+            "gather_only": _edit(src, splat, "")}
+
+
+def k7b_parent_variants(src: str) -> dict:
+    """The three-launch K7 backward's variants (memset by the wrapper,
+    atomic splat, the Y/X blur's transpose a plane a block, gather):
+    ``full``, ``splat_only``, ``blur_only`` and ``gather_only``, each the
+    entry with the other launches removed."""
+    splat = "  int err = splat_launch(pz, py, px, w, a, B, N, S, st);\n"
+    after_splat = splat + "  if (err != cudaSuccess) return err;\n"
+    blur = ("  err = blur_yx_t_launch(static_cast<const float*>(g), v, a,\n"
+            "                         static_cast<const float*>(taps), K, B, "
+            "S, st);\n  if (err != cudaSuccess) return err;\n")
+    no_splat = _edit(src, splat, "  int err = cudaSuccess;\n")
+    return {"full": src,
+            "splat_only": _edit(src, after_splat,
+                                after_splat + "  if (S > 0) return err;\n"),
+            "blur_only": _edit(no_splat, blur,
+                               blur + "  if (S > 0) return err;\n"),
+            "gather_only": _edit(no_splat, blur, "")}
+
+
+def k7_number_variants(src: str) -> dict:
+    """The slab K7 forward with its shared-memory adds as floats (``full``:
+    a compare-and-swap loop on sm_90a), as 32-bit integers on the same
+    words (``int_adds``: native shared atomics; the sums are wrong, the
+    work is the same) and without adds (``no_adds``): what the number
+    format of a splat in shared memory costs."""
+    add = ("            atomicAdd(buf + zl * plane + y[(q >> 1) & 1] * "
+           "stride + x[q & 1],\n                      v[q]);\n")
+    return {"full": src,
+            "int_adds": _edit(src, add, (
+                "            atomicAdd(reinterpret_cast<int*>(buf + zl * plane"
+                " + y[(q >> 1) & 1] * stride + x[q & 1]),\n"
+                "                      __float2int_rn(v[q] * 1048576.f));\n")),
+            "no_adds": _edit(src, add, (
+                "            if (v[q] == 1.2345e-30f) buf[zl] = v[q];\n"))}
+
+
+def bwd_slab_variants(src: str, which: str) -> dict:
+    """The one-launch K6 / K7 backward's variants: ``full`` (also timed at
+    other plans: 1 to 16 planes a tile); ``scan_only`` (every CTA leaves
+    after the first pass over the points); ``no_gather`` (the gather of
+    the owned points skipped); ``float_adds`` (the tile's raw splat in
+    float shared-memory atomics, a compare-and-swap loop, in place of
+    32-bit fixed point); for K7 ``no_taps`` (the transposed blurs'
+    windows read, each output one value of its window) and ``all_rows``
+    (the transposes over every row of the tile, not only those its
+    points' corners reach)."""
+    first = "  if (sh.owned == 0) return kNoPoints;  // reads no cotangent\n"
+    frac = ("    sh.frac = fixed_frac_bits(sh.splats, __uint_as_float("
+            "sh.most),\n                              sh.signed_w != 0);"
+            "\n")
+    out = {"full": src,
+           "no_gather": _edit_all(src, "  bwd_gather<",
+                                  "  if (frac == 12345) bwd_gather<"),
+           "float_adds": _edit(src, frac, "    sh.frac = -1;\n"),
+           "scan_only": _edit(src, first, "  if (sh.owned >= 0) return "
+                              "kNoPoints;\n")}
+    if which == "k7b":
+        taps = ("      if (j - r >= 0 && j - r < KT) acc[r] += k[j - r] * "
+                "v;\n")
+        out["no_taps"] = _edit(src, taps, "      if (j == r) acc[r] += v;\n")
+        out["all_rows"] = _edit(src, "  if (listed > kListMin) {  // the "
+                                "overflowed splat", "  if (listed >= 0) {  "
+                                "// the overflowed splat")
+    return out
+
+
+def _bwd_cases(which: str) -> list:
+    """(tag, grid-coordinate planes and weights, taps or None, S, cotangent)
+    of K6 backward (``k6b``: ``chip_smoke.py`` phase 24's 120 x 8000 at
+    64³, keep-prob 0.07, and the 3D IoU's (24, 8000) at 32³) or K7
+    backward (``k7b``: the cases of ``_k7_cases``), non-negative
+    weights."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.ops.pointcloud import keep_mask
+    from im23d_tpu_torch.ops.splat import _prep_splat
+
+    dev = torch.device("cuda")
+    if which == "k7b":
+        gen = torch.Generator(device=dev).manual_seed(17)
+        return [(tag, ops, taps, S,
+                 torch.randn((ops[0].shape[0], S, S, S), device=dev,
+                             generator=gen))
+                for tag, ops, taps, S in _k7_cases()]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    pts = cs._sweep_points(8, cs.B * cs.V, dev)
+    w = keep_mask(gen, cs.B * cs.V, cs.N, 0.07)
+    sweep = _prep_splat(pts, cs.S, w, 1e-6)
+    g = torch.randn((cs.B * cs.V, cs.S, cs.S, cs.S), device=dev,
+                    generator=gen)
+    iou = _prep_splat(cs._clouds(np.random.RandomState(7), cs.B, cs.N, dev),
+                      cs.IOU_S, None, 1e-6)
+    g_iou = torch.randn((cs.B, cs.IOU_S, cs.IOU_S, cs.IOU_S), device=dev,
+                        generator=gen)
+    return [("sweep", sweep, None, cs.S, g), ("iou", iou, None, cs.IOU_S,
+                                               g_iou)]
+
+
+def time_bwd(which: str, root: str, csrc: str, nvcc: str, tmp: str,
+             reps: int) -> dict:
+    """K6 (``k6b``) or K7 (``k7b``) backward's split at ``_bwd_cases``:
+    for a root with the three-launch backward (``k6b_parent_variants``,
+    ``k7b_parent_variants``) each launch alone and the wrapper's memset of
+    its grids; for a root with the slab kernels (``bwd_slab_variants``)
+    each variant at the root's plan.  Each with ``dc`` and, for K6, without
+    it; the root's wrapper by CUDA graph and events; for the three-launch
+    root's K7 the number format of a shared-memory splat
+    (``k7_number_variants`` of its slab K7 forward).  Device time by CUDA
+    graph, medians of 3."""
+    import torch
+
+    from gpu_timing import graph_ms
+    from im23d_tpu_torch.ops import splat
+
+    with open(os.path.join(csrc, "splat.cu")) as fh:
+        src = fh.read()
+    parent = "splat_grad_kernel" in src or "splat_grad_kernel" in open(
+        os.path.join(csrc, "splat_common.cuh")).read()
+    if parent:
+        variants = (k6b_parent_variants if which == "k6b"
+                    else k7b_parent_variants)(src)
+    else:
+        variants = bwd_slab_variants(src, which)
+    libs = build({f"{which}_{k}": v for k, v in variants.items()}, tmp,
+                 nvcc, csrc)
+    if which == "k7b" and parent:
+        libs.update(build({f"fmt_{k}": v for k, v in
+                           k7_number_variants(src).items()}, tmp, nvcc, csrc))
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    res = {}
+
+    def med(fn, timer=graph_ms):
+        return sorted(timer(fn, reps) for _ in range(3))[1]
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    for tag, (gz, gy, gx, c), taps, S, g in _bwd_cases(which):
+        B, N = gz.shape
+        K_ = 0 if taps is None else taps.numel()
+        outs = [torch.empty((B, N), device=gz.device) for _ in range(4)]
+        pts = [t.data_ptr() for t in (gz, gy, gx, c)]
+        r = {}
+        if parent:
+            raw = torch.zeros((B, S, S, S), device=gz.device)
+            work = torch.empty_like(raw)
+            r["memset"] = med(raw.zero_)
+        else:
+            plan = splat.splat_backward_plan(
+                B, S, K_, splat.splat_blur_limits(gz.device))
+            r["plan"] = plan
+        for name, lib in libs.items():
+            if name.startswith("fmt_"):
+                continue
+            key = name[len(which) + 1:]
+            for dc in ((True, False) if which == "k6b" else (True,)):
+                o = [t.data_ptr() for t in outs[:3]] + [
+                    outs[3].data_ptr() if dc else None]
+                if which == "k6b":
+                    fn = lib.im23d_splat_bwd
+                    if parent:
+                        fn.argtypes = [P] * 10 + [I] * 3 + [P]
+                        args = (*pts, g.data_ptr(), raw.data_ptr(), *o, B, N,
+                                S)
+                    else:
+                        fn.argtypes = [P] * 9 + [I] * 6 + [L, P]
+                        args = (*pts, g.data_ptr(), *o, B, N, S,
+                                plan["planes"], plan["rows"], plan["stride"],
+                                plan["smem"])
+                else:
+                    fn = lib.im23d_splat_blur_bwd
+                    if parent:
+                        fn.argtypes = [P] * 5 + [I] + [P] * 7 + [I] * 3 + [P]
+                        args = (*pts, taps.data_ptr(), taps.numel(),
+                                g.data_ptr(), raw.data_ptr(),
+                                work.data_ptr(), *o, B, N, S)
+                    else:
+                        fn.argtypes = [P] * 5 + [I] + [P] * 5 + [I] * 6 + [
+                            L, P]
+                        args = (*pts, taps.data_ptr(), taps.numel(),
+                                g.data_ptr(), *o, B, N, S, plan["planes"],
+                                plan["rows"], plan["stride"], plan["smem"])
+
+                def call(fn=fn, args=args, name=name):
+                    rc = fn(*args, stream())
+                    if rc:
+                        raise RuntimeError(f"{name}: CUDA error {rc}")
+
+                r[key + ("" if dc else "_no_dc")] = med(call)
+        if not parent:
+            # the full kernel at other plans: planes a tile, no bands
+            lim = splat.splat_blur_limits(gz.device)
+            fn = libs[f"{which}_full"]
+            fn = fn.im23d_splat_bwd if which == "k6b" else \
+                fn.im23d_splat_blur_bwd
+            for p in (1, 2, 3, 4, 5, 6, 8, 11, 16):
+                smem = splat._backward_smem(p, S, S, S | 1, K_, lim)
+                if p > S or smem > lim.smem_optin:
+                    continue
+                head = pts + ([] if which == "k6b" else
+                              [taps.data_ptr(), taps.numel()])
+                tail = [S, S | 1, smem]
+
+                def call(p=p, head=head, tail=tail, dc=True):
+                    o = [t.data_ptr() for t in outs[:3]] + [
+                        outs[3].data_ptr() if dc else None]
+                    rc = fn(*head, g.data_ptr(), *o, B, N, S, p, *tail,
+                            stream())
+                    if rc:
+                        raise RuntimeError(f"planes {p}: CUDA error {rc}")
+
+                r[f"planes{p}"] = med(call)
+                if which == "k6b":
+                    r[f"planes{p}_no_dc"] = med(
+                        lambda call=call: call(dc=False))
+        for dc in ((True, False) if which == "k6b" else (True,)):
+            if which == "k6b":
+                def wrapper(dc=dc):
+                    if parent:
+                        return splat.splat_backward_kernel(gz, gy, gx, c, g)
+                    return splat.splat_backward_kernel(gz, gy, gx, c, g,
+                                                       need_dc=dc)
+            else:
+                def wrapper(dc=dc):
+                    if parent:
+                        return splat.splat_blur_backward_kernel(
+                            gz, gy, gx, c, taps, g)
+                    return splat.splat_blur_backward_kernel(
+                        gz, gy, gx, c, taps, g, need_dc=dc)
+            if parent and not dc:
+                continue
+            sfx = "" if dc else "_no_dc"
+            r["wrapper" + sfx] = med(wrapper)
+            r["wrapper_events" + sfx] = med(wrapper, events_ms)
+        if which == "k7b" and parent:
+            out = torch.empty((B, S, S, S), device=gz.device)
+            fplan = splat.splat_blur_plan(B, S, taps.numel(),
+                                          splat.splat_blur_limits(gz.device))
+            for name, lib in libs.items():
+                if not name.startswith("fmt_"):
+                    continue
+                fn = lib.im23d_splat_blur_fwd
+                fn.argtypes = [P] * 5 + [I, P] + [I] * 5 + [L, P]
+
+                def fwd(fn=fn):
+                    rc = fn(*pts, taps.data_ptr(), taps.numel(),
+                            out.data_ptr(), B, N, S, fplan["planes"],
+                            fplan["stride"], fplan["smem"], stream())
+                    if rc:
+                        raise RuntimeError(f"K7 forward: CUDA error {rc}")
+
+                r["fwd_" + name[4:]] = med(fwd)
+            del out
+        res[tag] = r
+        for k, v in r.items():
+            print(f"[{which}] {tag} {k}: {v}", flush=True)
+        torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", choices=("k4k8", "k4f", "k8dw", "projection",
-                                       "k5b", "k6", "k3", "k7"))
+                                       "k5b", "k6", "k3", "k7", "k6b",
+                                       "k7b"))
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -1134,6 +1422,9 @@ def main(argv=None) -> int:
             res["k3"] = time_k3(root, csrc, nvcc, tmp, args.reps)
         if args.only == "k7":
             res["k7"] = time_k7(root, csrc, nvcc, tmp, args.reps)
+        if args.only in ("k6b", "k7b"):
+            res[args.only] = time_bwd(args.only, root, csrc, nvcc, tmp,
+                                      args.reps)
     print(json.dumps(res))
     return 0
 
