@@ -25,7 +25,7 @@ Phases:
      (``chamfer_distance``: both directions from one launch, 3 launches
      bit-equal) and the rows-only mode in both roles, each with its plan;
   5. the chairs training slice through the port's training CLI
-     (``cli/training_test_shape_net.main --synthetic --steps 20``) from a
+     (``cli/training_test_shape_net.main --synthetic --steps 10``) from a
      fresh workdir; launch counts of the kernels in that run; finite losses;
      a checkpoint with the optimizer state;
   6. the chairs eval slice through the port's eval CLI (3 synthetic
@@ -156,7 +156,32 @@ Phases:
  29. (after phase 28) the bf16 generator at the CLI's configuration, bs 8,
      against the float32 one with the same weights: the K9 route's
      relative L2 error at most 1.5x that of the unfused chain it replaced
-     (norm1, leaky ReLU, pad and cuDNN's conv2, each rounding to bf16).
+     (norm1, leaky ReLU, pad and cuDNN's conv2, each rounding to bf16);
+ 30. (after phase 7) the chairs training CLI without ``--synthetic``
+     (``main(argv, datasets=...)``) on an in-memory render set at the
+     chairs config (``ShapeNetRenderSet``: 24 train and 48 valid models of
+     5 views at 128², each a random cloud of 2048 points) for 20 steps with
+     ``--profile_dir``: launch counts of K1 and K2 and the (S, K) plans
+     they took, finite losses, the trace file; then ``--category planes``
+     for 3 steps at its config (64², N = 4000, 32³, bs 16) on 16 models:
+     K1 and K2 at their (32, 21) instance;
+ 31. (after phase 30) the eval CLI's real-data path on that set's valid
+     split with 2048-point ground truth (``--gt_points``): K3 one pair
+     launch a GT batch and K6 launched; each batch's Chamfer and IoU held
+     against the plain ``nn_dist2`` pair and the plain splat on the same
+     clouds (phase 4's and phase 26's limits), the CLI's means against
+     the plain ones;
+ 32. (after phase 16) ``batch_iterator`` with 2 decode processes
+     (``process_workers``) on 110 fabricated CUB photos, CUDA already
+     initialised: one epoch's batches bit-equal to the serial path's;
+     then ``run_reconstruction --data_processes 2`` for one epoch; each
+     within a bounded wait;
+ 33. (after phase 23) ``DeviceGANCache`` on phase 17's cache (100 items
+     at 512²): the staged bytes, its batches bit-equal on the card to the
+     host iterator's for two epochs; one epoch of the GAN CLI with
+     ``--device_cache`` (launch counts of K8 forward, K8 dW and K9); 1G +
+     2D groups/s fed from the cache and from the host iterator, in turns,
+     beside phase 23's rate with the batch resident on the card.
 
 Prints timings beside the GPU's name and power limit, then one JSON line
 with the per-kernel results (each with its bound: the larger of the bytes
@@ -180,6 +205,7 @@ import math
 import os
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -193,8 +219,11 @@ from im23d_tpu_torch.cli import main as gan_cli
 from im23d_tpu_torch.cli import pointcloud_to_mesh as mesh_cli
 from im23d_tpu_torch.cli import run_reconstruction as recon_cli
 from im23d_tpu_torch.cli import training_test_shape_net as train_cli
+from im23d_tpu_torch.data import cmr
 from im23d_tpu_torch.data.cmr import batch_iterator
+from im23d_tpu_torch.data.device_cache import DeviceGANCache
 from im23d_tpu_torch.data.fabricate import (
+    ShapeNetRenderSet,
     StructuredPseudoGT,
     StructuredReconSet,
 )
@@ -341,7 +370,8 @@ PROJ_SHAPES = ((16, 9, 0.8), (32, 21, 3.0), (64, 21, 0.2), (20, 7, 1.3),
 K3_RTOL, K3_ATOL = 1e-5, 1e-6
 # slice vs plain chain: losses are sums of 120 x 64 x 64 squared errors
 SLICE_RTOL = 1e-4
-TRAIN_STEPS = 20          # the training CLI's run
+TRAIN_STEPS = 20  # the training CLI's run on real-data paths (phase 30)
+SYNTH_STEPS = 10  # its --synthetic run (phase 5: a numpy render a batch)
 LEARN_STEPS, WARM = 40, 10  # the learning check; steps before the timing
 # Pipeline B, CUB config: bs 50, 256² images, 128² texture (130 wide after
 # the circular pad), 960 faces, sigma 1e-4
@@ -442,6 +472,11 @@ K6B_REL_L2 = K7B_REL_L2 = 1e-4
 IOU_S, IOU_ATOL = 32, 1e-3  # the eval CLI's 3D IoU grid; one flipped voxel
 # at the 0.1 threshold moves an IoU by 1 / union (~2e-4 here)
 MESH_S, MESH_SIGMA = 96, 1.5  # the meshing CLI's defaults
+# Pipeline A on real-data paths: the in-memory render set's splits (a
+# train batch's models; one valid batch, 2 x bs) and the planes run
+RD_TRAIN, RD_VALID, PLANES_MODELS, PLANES_STEPS = 24, 48, 16, 3
+WAIT_S = 300  # bound on a run fed by decode processes
+CACHE_EPOCHS = 3  # epochs of one 1G + 2D group each, per timed feed
 # peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, float32
 # FLOP/s outside the tensor cores, dense bfloat16 FLOP/s on them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -1090,7 +1125,7 @@ def phase_train(gpu: str, workdir: str) -> dict:
     _zero_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = train_cli.main(["--synthetic", "--steps", str(TRAIN_STEPS),
+        rc = train_cli.main(["--synthetic", "--steps", str(SYNTH_STEPS),
                              "--workdir", workdir, "--device", DEVICE])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -1098,7 +1133,7 @@ def phase_train(gpu: str, workdir: str) -> dict:
     out = buf.getvalue().strip()
     for line in out.splitlines():
         print(f"[train] cli: {line}")
-    print(f"[train] CLI main rc {rc} in {secs:.2f} s ({TRAIN_STEPS} steps "
+    print(f"[train] CLI main rc {rc} in {secs:.2f} s ({SYNTH_STEPS} steps "
           f"incl. host-side synthetic batches); launches {launches}")
     if rc != 0:
         raise AssertionError(f"training CLI returned {rc}")
@@ -1107,12 +1142,12 @@ def phase_train(gpu: str, workdir: str) -> dict:
         raise AssertionError(f"non-finite training losses: {losses}")
     if launches["k1"] < 1 or launches["k2"] < 1:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
-    tree = torch.load(os.path.join(workdir, f"checkpoint_{TRAIN_STEPS}.pt"),
+    tree = torch.load(os.path.join(workdir, f"checkpoint_{SYNTH_STEPS}.pt"),
                       map_location="cpu", weights_only=True)
     n_state = len(tree["opt_state"]["state"])
     print(f"[train] checkpoint step {tree['step']}, optimizer state for "
           f"{n_state} parameters")
-    if tree["step"] != TRAIN_STEPS or n_state == 0:
+    if tree["step"] != SYNTH_STEPS or n_state == 0:
         raise AssertionError("checkpoint lacks its step or optimizer state")
     if not all(torch.isfinite(v).all() for v in tree["params"].values()):
         raise AssertionError("non-finite parameters after training")
@@ -1138,7 +1173,7 @@ def phase_slice(gpu: str, workdir: str) -> dict:
           f"loss curves {curves}; {metrics}")
     if rc != 0:
         raise AssertionError(f"CLI returned {rc}")
-    if metrics["step"] != TRAIN_STEPS:
+    if metrics["step"] != SYNTH_STEPS:
         raise AssertionError(f"eval restored step {metrics['step']}")
     for key in ("projection_loss", "total_loss", "chamfer_l2", "iou_3d"):
         if not math.isfinite(metrics[key]):
@@ -2804,6 +2839,334 @@ def phase_gan_learn(gpu: str, tmp: str, template) -> float:
     return rate
 
 
+def _plans_taken(run):
+    """Run ``run()``; return its result and the (S, K) of every projection
+    plan taken (each K1 / K2 launch takes one)."""
+    from im23d_tpu_torch.ops import projection
+
+    with mock.patch.object(projection, "projection_plan",
+                           wraps=projection.projection_plan) as spy:
+        out = run()
+    return out, sorted({c.args[:2] for c in spy.call_args_list})
+
+
+def _quiet_cli(main, *args, **kw):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(*args, **kw)
+    torch.cuda.synchronize()
+    return rc, buf.getvalue().strip().splitlines()
+
+
+def phase_real_train(gpu: str, workdir: str) -> tuple:
+    """The chairs training CLI without --synthetic on the in-memory render
+    set, with --profile_dir; then the planes config on its own set.
+    Returns the chairs run's launches and the (train, valid) pair."""
+    cfg = ShapeNetConfig.chairs()
+    t0 = time.perf_counter()
+    pair = tuple(ShapeNetRenderSet(n, cfg.image_size, V, GT_POINTS, seed=s)
+                 for s, n in enumerate((RD_TRAIN, RD_VALID)))
+    render_s = time.perf_counter() - t0
+    prof = os.path.join(workdir, "profile")
+    _zero_counts()
+    t0 = time.perf_counter()
+    (rc, out), plans = _plans_taken(lambda: _quiet_cli(
+        train_cli.main, ["--steps", str(TRAIN_STEPS), "--workdir", workdir,
+                         "--profile_dir", prof, "--device", DEVICE],
+        datasets=pair))
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    traces = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+    print(f"[real-train] {RD_TRAIN} + {RD_VALID} models of {V} views at "
+          f"{cfg.image_size}² rendered in {render_s:.2f} s; CLI rc {rc} in "
+          f"{secs:.2f} s ({TRAIN_STEPS} steps, DataBunch's prefetch thread, "
+          f"trace included); launches {launches}; plans (S, K) {plans}; "
+          f"trace {traces}; cli: {out[-1] if out else ''} [{gpu}]")
+    if rc != 0:
+        raise AssertionError(f"the training CLI returned {rc}")
+    losses = ast.literal_eval(out[-1])
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"non-finite training losses: {losses}")
+    if min(launches["k1"], launches["k2"]) < TRAIN_STEPS or plans != [
+            (S, 21)]:
+        raise AssertionError(f"K1 / K2 launches {launches}, plans {plans}")
+    if len(traces) != 1 or not traces[0].endswith(".json"):
+        raise AssertionError(f"--profile_dir wrote {traces}")
+
+    planes = ShapeNetConfig.planes()
+    data = ShapeNetRenderSet(PLANES_MODELS, planes.image_size, V, GT_POINTS,
+                             seed=2)
+    _zero_counts()
+    t0 = time.perf_counter()
+    (rc, out), plans = _plans_taken(lambda: _quiet_cli(
+        train_cli.main, ["--category", "planes", "--steps",
+                         str(PLANES_STEPS), "--workdir",
+                         os.path.join(workdir, "planes"), "--device",
+                         DEVICE], datasets=(data, data)))
+    secs = time.perf_counter() - t0
+    p_launches = _counts()
+    print(f"[real-train] planes: CLI rc {rc} in {secs:.2f} s ({PLANES_STEPS}"
+          f" steps, bs {planes.batch_size}, {planes.image_size}², N "
+          f"{planes.num_points}, {planes.voxel_size}³); launches "
+          f"{p_launches}; plans (S, K) {plans}; cli: "
+          f"{out[-1] if out else ''} [{gpu}]")
+    if rc != 0 or not all(math.isfinite(v) for v in
+                          ast.literal_eval(out[-1]).values()):
+        raise AssertionError(f"the planes run failed: rc {rc}, {out[-1:]}")
+    if (min(p_launches["k1"], p_launches["k2"]) < PLANES_STEPS
+            or plans != [(planes.voxel_size, 21)]):
+        raise AssertionError(f"planes: K1 / K2 launches {p_launches}, "
+                             f"plans {plans}")
+    return launches, pair
+
+
+def phase_real_eval(gpu: str, workdir: str, pair) -> dict:
+    """The eval CLI on the render set's valid split with GT_POINTS-point
+    ground truth; each GT batch's Chamfer and IoU against the plain pair
+    and splat on the clouds the CLI scored."""
+    seen = {"chamfer": [], "iou": []}
+
+    def recorded(name, fn):
+        def call(a, b, *args, **kw):
+            out = fn(a, b, *args, **kw)
+            seen[name].append((a.detach().clone(), b.detach().clone(),
+                               (out[0] if name == "chamfer" else out)
+                               .detach().clone()))
+            return out
+        return call
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = os.path.join(tmp, "eval")
+        _zero_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(cli, "chamfer_distance",
+                               recorded("chamfer", cli.chamfer_distance)), \
+                mock.patch.object(cli, "iou_3d",
+                                  recorded("iou", cli.iou_3d)):
+            rc, out = _quiet_cli(
+                cli.main, ["--workdir", workdir, "--gt_points",
+                           str(GT_POINTS), "--out_dir", out_dir, "--device",
+                           DEVICE], datasets=pair)
+        secs = time.perf_counter() - t0
+        launches = _counts()
+        with open(os.path.join(out_dir, "eval_metrics.json")) as fh:
+            metrics = json.load(fh)
+    n, batches = metrics.get("n_scored", 0), len(seen["chamfer"])
+    print(f"[real-eval] CLI rc {rc} in {secs:.2f} s; {n} models scored in "
+          f"{batches} GT batches; launches {launches}; chamfer_l2 "
+          f"{metrics.get('chamfer_l2')}, iou_3d {metrics.get('iou_3d')} "
+          f"[{gpu}]")
+    if rc != 0 or n != RD_VALID or metrics["gt_points"] != GT_POINTS:
+        raise AssertionError(f"the eval CLI returned {rc}: {metrics}")
+    if (launches["k3"], launches["k3r"]) != (batches, 0) or batches != -(
+            -n // B) or launches["k6"] < 1:
+        raise AssertionError(f"K3 / K6 launches {launches} for {batches} "
+                             f"GT batches")
+    e_ch = e_iou = 0.0
+    totals, ious = [], []
+    with torch.no_grad():
+        for (pred, gt, got), (pred_i, gt_i, got_i) in zip(seen["chamfer"],
+                                                         seen["iou"]):
+            if not (torch.equal(pred, pred_i) and torch.equal(gt, gt_i)):
+                raise AssertionError("Chamfer and IoU scored other clouds")
+            d_ab, d_ba = nn_dist2_pair_torch(pred, gt)
+            ref = d_ab.mean(-1) + d_ba.mean(-1)
+            va, vb = (trilinear_splat_torch(x, IOU_S) > 0.1
+                      for x in (pred, gt))
+            ref_i = ((va & vb).float().sum(dim=(1, 2, 3))
+                     / (va | vb).float().sum(dim=(1, 2, 3)).clamp(min=1.0))
+            e_ch = max(e_ch, float((got - ref).abs().max()))
+            e_iou = max(e_iou, float((got_i - ref_i).abs().max()))
+            if not torch.allclose(got, ref, rtol=K3_RTOL, atol=K3_ATOL):
+                raise AssertionError(f"Chamfer disagrees with the plain "
+                                     f"pair: {e_ch}")
+            totals.append(ref)
+            ious.append(ref_i)
+    ref_ch = float(torch.cat(totals)[:n].mean())
+    ref_iou = float(torch.cat(ious)[:n].mean())
+    print(f"[real-eval] per model max |K3 path - plain| {e_ch:.3e} (rtol "
+          f"{K3_RTOL}, atol {K3_ATOL}), 3D IoU {e_iou:.3e} (atol {IOU_ATOL}); "
+          f"CLI means {metrics['chamfer_l2']:.6f} / {metrics['iou_3d']:.6f} "
+          f"vs plain {ref_ch:.6f} / {ref_iou:.6f}")
+    if e_iou > IOU_ATOL or abs(metrics["iou_3d"] - ref_iou) > IOU_ATOL or (
+            not math.isclose(metrics["chamfer_l2"], ref_ch, rel_tol=K3_RTOL,
+                             abs_tol=K3_ATOL)):
+        raise AssertionError("the real-data eval disagrees with the plain "
+                             "path")
+    return launches
+
+
+def _bounded(fn, seconds: float):
+    """``fn()`` on a thread, waited for at most ``seconds``; past that the
+    decode processes are terminated and the phase fails."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as exc:  # re-raised on the caller's thread
+            box["err"] = exc
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        for pool in list(cmr._PROC_POOLS.values()):
+            for proc in pool._processes.values():
+                proc.terminate()
+        raise AssertionError(f"not done within {seconds} s")
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def phase_data_processes(gpu: str, template, tmp: str) -> dict:
+    """One epoch of batch_iterator with 2 decode processes against the
+    serial path, then the recon CLI with --data_processes 2 for one epoch;
+    CUDA is initialised before either starts a process."""
+    data = _fabricated_batch(template, RECON_IMAGES, 0)
+    keys = ("image", "scale", "translation", "rotation", "idx")
+
+    def epoch(**kw):
+        return list(batch_iterator(data, RB, seed=1, keys=keys, **kw))
+
+    serial = epoch(num_workers=1)
+    t0 = time.perf_counter()
+    try:
+        procs = _bounded(lambda: epoch(num_workers=4, process_workers=2),
+                         WAIT_S)
+    except BaseException:
+        cmr.close_process_pools(data)
+        raise
+    secs = time.perf_counter() - t0
+    same = len(procs) == len(serial) and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(procs, serial) for k in a)
+    print(f"[data-procs] {len(procs)} batches of {RB} from 2 spawned decode "
+          f"processes in {secs:.2f} s (start-up included), bit-equal to the "
+          f"serial path: {same}")
+    if not same:
+        cmr.close_process_pools(data)
+        raise AssertionError("the decode processes' batches differ")
+    # the CLI takes over this dataset's pool and ends it
+    flags = ["--name", "chip_smoke_procs", "--dataset", "cub", "--device",
+             DEVICE, "--image_resolution", str(RES), "--texture_resolution",
+             str(TEX), "--batch_size", str(RB), "--epochs", "1",
+             "--data_processes", "2"]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        rc, out = _bounded(lambda: _quiet_cli(recon_cli.main, flags,
+                                              datasets=(data, data)), WAIT_S)
+        secs = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        os.chdir(cwd)
+    print(f"[data-procs] recon CLI --data_processes 2: rc {rc}, one epoch "
+          f"of {RECON_IMAGES // RB} steps in {secs:.2f} s (the running "
+          f"processes reused); launches {launches}; pools left "
+          f"{len(cmr._PROC_POOLS)} [{gpu}]")
+    if rc != 0 or cmr._PROC_POOLS:
+        raise AssertionError(f"the recon CLI returned {rc}")
+    if min(launches[k] for k in ("k4", "k4b", "k5", "k5b")) < 1:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    return launches
+
+
+def _groups_per_s(trainer, batches, epochs: int) -> float:
+    """1G + 2D groups/s over ``epochs`` epochs of ``batches(epoch)`` (one
+    group an epoch), host clock, the last loss fetched."""
+    t0 = time.perf_counter()
+    for e in range(epochs):
+        for batch in batches(e):
+            losses = trainer.train_step(batch)
+    float(next(iter(losses.values())))
+    return epochs * (PGT_IMAGES // GAN_B) / 3 / (time.perf_counter() - t0)
+
+
+def phase_device_cache(gpu: str, tmp: str, template, resident: float
+                       ) -> dict:
+    """DeviceGANCache on phase 17's cache: the staged bytes, batches against
+    the host iterator's for two epochs, the GAN CLI with --device_cache for
+    one epoch, then groups/s fed from the cache and from the host."""
+    cache_dir = os.path.join(tmp, "cache", "cub")
+    ds = CubGANDataset(cache_dir, texture_resolution=PGT_RES,
+                       conditional_class=True)
+    t0 = time.perf_counter()
+    dev = DeviceGANCache(ds, GAN_B, DEVICE)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    first = ds.load_pseudo_ground_truth(0, with_image=False)
+    want = len(ds) * sum(a.nbytes for a in first.values())
+    same = True
+    for epoch in (0, 1):
+        got = list(dev.epoch_batches(epoch))
+        host = list(gan_batch_iterator(ds, GAN_B, seed=epoch))
+        same &= len(got) == len(host) == PGT_IMAGES // GAN_B
+        same &= ds._epoch == epoch
+        for g, h in zip(got, host):
+            same &= g.keys() == h.keys() and all(
+                g[k].device.type == DEVICE
+                and torch.equal(g[k].cpu(), torch.as_tensor(h[k])) for k in g)
+    print(f"[dev-cache] staged {len(ds)} items, {dev.nbytes()} bytes "
+          f"(expected {want}: maps "
+          f"{[(a.shape, str(a.dtype)) for a in first.values()]}"
+          f"; fits_in_hbm {DeviceGANCache.fits_in_hbm(ds)}) "
+          f"in {stage_s:.2f} s; epochs 0 and 1 bit-equal to the host "
+          f"iterator on the card: {same}")
+    if dev.nbytes() != want or not same:
+        raise AssertionError("the device cache's batches or size differ")
+
+    name = "chip_smoke_cache"
+    flags = ["--name", name, "--dataset", "cub", "--device", DEVICE,
+             "--texture_resolution", str(PGT_RES), "--batch_size",
+             str(GAN_B), "--conditional_class", "--device_cache", "--epochs",
+             "1", "--evaluate_freq", "100", "--save_freq", "100",
+             "--checkpoint_freq", "100"]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        rc, out = _quiet_cli(gan_cli.main, flags)
+        secs = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        os.chdir(cwd)
+    iters = PGT_IMAGES // GAN_B
+    staged = [line for line in out if line.startswith("device_cache")]
+    print(f"[dev-cache] GAN CLI --device_cache: rc {rc}, one epoch of "
+          f"{iters} iterations in {secs:.2f} s (models and staging "
+          f"included); launches {launches}; {staged} [{gpu}]")
+    if rc != 0 or not staged:
+        raise AssertionError(f"the GAN CLI returned {rc}")
+    if (launches["k8"] < iters or launches["k8b"] < 1
+            or launches["k9"] < 8 * iters):
+        raise AssertionError(f"K8 / K9 launches {launches}")
+
+    trainer = GANTrainer(GANTrainConfig(model=_gan_config("bfloat16"),
+                                        batch_size=GAN_B),
+                         template=template, device=DEVICE)
+    feeds = {"cache": dev.epoch_batches,
+             "host": lambda e: gan_batch_iterator(ds, GAN_B, seed=e)}
+    _groups_per_s(trainer, feeds["cache"], 1)  # warm
+    rates = {k: [] for k in feeds}
+    for key in ("host", "cache", "cache", "host"):
+        rates[key].append(_groups_per_s(trainer, feeds[key], CACHE_EPOCHS))
+    print(f"[dev-cache] 1G + 2D groups/s over {CACHE_EPOCHS} epochs each, "
+          f"in turns host / cache / cache / host: fed from the device cache "
+          f"{rates['cache'][0]:.3f}, {rates['cache'][1]:.3f}; from the host "
+          f"iterator (npz reads, pageable copies) {rates['host'][0]:.3f}, "
+          f"{rates['host'][1]:.3f}; phase 23, one batch resident on the "
+          f"card: {resident:.3f} (bs {GAN_B}, {GAN_RES}², bf16, 3 critics, "
+          f"host clock) [{gpu}]")
+    del trainer, dev
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2822,10 +3185,15 @@ def main() -> int:
     k7, k7b = phase_k7(gpu)
     with tempfile.TemporaryDirectory() as tmp:
         workdir = os.path.join(tmp, "train")
-        train = phase_train(gpu, workdir)
+        phase_train(gpu, workdir)
         evals = phase_slice(gpu, workdir)
         mesh = phase_mesh(gpu, workdir)
     phase_learn(gpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = os.path.join(tmp, "real")
+        real, pair = phase_real_train(gpu, workdir)
+        phase_real_eval(gpu, workdir, pair)
+        del pair
     template = MeshTemplate(segments=32, rings=16)
     k4, uv, tex_adj, scene = phase_k4(gpu, template)
     k5 = phase_k5(gpu, uv, tex_adj)
@@ -2840,6 +3208,8 @@ def main() -> int:
         recon_train = phase_recon_train(gpu, template, tmp)
     phase_recon_learn(gpu, template)
     with tempfile.TemporaryDirectory() as tmp:
+        phase_data_processes(gpu, template, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
         phase_pseudogt(gpu, template, tmp)
         torch.cuda.empty_cache()
         k8 = phase_k8(gpu)
@@ -2848,17 +3218,18 @@ def main() -> int:
         phase_gen_bf16(gpu)
         phase_gan_group(gpu, template)
         gan = phase_gan_cli(gpu, tmp)
-        phase_gan_learn(gpu, tmp, template)
+        resident = phase_gan_learn(gpu, tmp, template)
+        phase_device_cache(gpu, tmp, template, resident)
 
     kernels = [
         dict(name="K1 projection forward", route="cuda",
              source="im23d_tpu_torch/csrc/projection.cu",
              replaces="im23d_tpu/ops/splat_pallas.py:1080",
-             launches=train["k1"], **k1),
+             launches=real["k1"], **k1),
         dict(name="K2 projection backward", route="cuda",
              source="im23d_tpu_torch/csrc/projection.cu",
              replaces="im23d_tpu/ops/splat_pallas.py:1124",
-             launches=train["k2"], **k2),
+             launches=real["k2"], **k2),
         dict(name="K3 Chamfer nearest-neighbour pair", route="cuda",
              source="im23d_tpu_torch/csrc/nn_dist2.cu",
              replaces="im23d_tpu/metrics/chamfer.py:56",

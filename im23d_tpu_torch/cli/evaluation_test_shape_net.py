@@ -1,15 +1,20 @@
-"""ShapeNet checkpoint evaluation on synthetic data (PyTorch / CUDA).
+"""ShapeNet checkpoint evaluation (PyTorch / CUDA).
 
-Counterpart of the ``--synthetic`` path of
-``im23d_tpu/cli/evaluation_test_shape_net.py``: restore a learner
-checkpoint, report the eval projection losses, Chamfer-L2 and 3D IoU of the
-predicted clouds against random synthetic clouds, and with ``--out_dir``
-save the student and per-candidate projection grids, the numbers as
-``eval_metrics.json`` and the training loss curves of the workdir's
-``metrics_shapenet.jsonl`` (``loss_curves.png`` where matplotlib imports,
-``loss_curves.csv`` where it does not).
+Counterpart of ``im23d_tpu/cli/evaluation_test_shape_net.py``: restore a
+learner checkpoint, report the eval projection losses on the valid split
+of a ShapeNet tree (``--data_root``) or on synthetic batches
+(``--synthetic``), and Chamfer-L2 and 3D IoU of the predicted clouds: on a
+tree, against each valid model's ground truth (a points file or an OBJ
+mesh, ``data/shapenet.py:load_gt_points``), both clouds normalized to zero
+mean and max radius 0.5; on synthetic data, against random clouds.  With
+``--out_dir`` it saves the student and per-candidate projection grids, the
+numbers as ``eval_metrics.json`` and the training loss curves of the
+workdir's ``metrics_shapenet.jsonl`` (``loss_curves.png`` where matplotlib
+imports, ``loss_curves.csv`` where it does not).
 
-Example:
+Examples:
+    python -m im23d_tpu_torch.cli.evaluation_test_shape_net \
+        --workdir runs/chairs --data_root data --out_dir runs/chairs/eval
     python -m im23d_tpu_torch.cli.evaluation_test_shape_net \
         --workdir runs/chairs --synthetic --out_dir runs/chairs/eval
 """
@@ -17,6 +22,7 @@ Example:
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 
@@ -29,6 +35,10 @@ from im23d_tpu_torch.cli.flags import (
     apply_shapenet_overrides,
 )
 from im23d_tpu_torch.core.metrics_logger import tile_grid, write_png
+from im23d_tpu_torch.metrics.chamfer import chamfer_distance
+from im23d_tpu_torch.metrics.iou import iou_3d
+
+IOU_RES = 32  # the 3D IoU's grid
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -36,11 +46,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--workdir", type=str, required=True)
     p.add_argument("--category", choices=("chairs", "planes", "cars"),
                    default="chairs")
+    p.add_argument("--data_root", type=str, default="data")
     p.add_argument("--synthetic", action="store_true",
-                   help="evaluate on synthetic batches (the only data path "
-                        "ported so far)")
+                   help="evaluate on synthetic batches (no assets needed)")
     p.add_argument("--step", type=int, default=None)
     p.add_argument("--num_batches", type=int, default=4)
+    p.add_argument("--gt_points", type=int, default=2048,
+                   help="points per ground-truth cloud for Chamfer/IoU")
+    p.add_argument("--max_models", type=int, default=256,
+                   help="cap on valid-split models scored for Chamfer/IoU")
     p.add_argument("--out_dir", type=str, default=None,
                    help="save projection grids and eval_metrics.json here")
     p.add_argument("--batch_size", type=int, default=None,
@@ -106,19 +120,67 @@ def export_loss_curves(workdir: str, out_dir: str) -> str | None:
     return path
 
 
-def main(argv=None) -> int:
+def normalize_clouds(points: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3) -> zero mean, max radius 0.5: ``normalize_cloud`` of
+    ``data/shapenet.py`` on the device."""
+    points = points - points.mean(dim=-2, keepdim=True)
+    radius = torch.linalg.vector_norm(points, dim=-1).amax(dim=-1,
+                                                           keepdim=True)
+    return points / radius.clamp(min=1e-8)[..., None] * 0.5
+
+
+@torch.no_grad()
+def evaluate_gt_clouds(learner, pairs, batch_size: int):
+    """Chamfer-L2 and 3D IoU (at ``IOU_RES``³) of the predicted clouds
+    against GT clouds, for (image (H, W, 3) uint8, GT cloud (P, 3)) pairs.
+
+    The pose branch is fed the image itself (its output is unused); a
+    partial last batch is padded by repeating its last pair.  One
+    ``chamfer_distance`` and one ``iou_3d`` a batch.  Returns
+    (chamfer_mean, iou_mean, n_scored), NaNs and 0 without pairs."""
+    learner.model.eval()
+    chamfers, ious, images, gts = [], [], [], []
+
+    def flush():
+        n = len(images)
+        images.extend(images[-1:] * (batch_size - n))
+        gts.extend(gts[-1:] * (batch_size - n))
+        nb = learner._normalize(dict(images=np.stack(images),
+                                     gt=np.stack(gts)))
+        pred = learner.model(nb["images"], nb["images"])["point_cloud"]
+        pred = normalize_clouds(pred.float())
+        total, _, _ = chamfer_distance(pred, nb["gt"])
+        iou = iou_3d(pred, nb["gt"], voxel_size=IOU_RES)
+        chamfers.extend(total[:n].tolist())
+        ious.extend(iou[:n].tolist())
+        images.clear()
+        gts.clear()
+
+    for img, gt in pairs:
+        images.append(img)
+        gts.append(gt)
+        if len(images) == batch_size:
+            flush()
+    if images:
+        flush()
+    if not chamfers:
+        return float("nan"), float("nan"), 0
+    return float(np.mean(chamfers)), float(np.mean(ious)), len(chamfers)
+
+
+def main(argv=None, datasets=None) -> int:
+    """Run the CLI.  ``datasets`` is an optional (train, valid) pair with
+    ``data/shapenet.py:ShapeNetRenders``' item contract and a
+    ``gt_pairs(n_points)`` method (``data/fabricate.py:ShapeNetRenderSet``),
+    used in place of the tree under ``--data_root``."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if not args.synthetic:
-        parser.error("only the --synthetic data path is ported")
+    if not (args.synthetic or datasets is not None
+            or os.path.isdir(args.data_root)):
+        parser.error(f"no ShapeNet tree at --data_root {args.data_root!r}; "
+                     "pass --data_root or --synthetic")
 
-    from im23d_tpu_torch.data.synthetic import (
-        SyntheticSilhouettes,
-        _random_shapes,
-    )
     from im23d_tpu_torch.losses.effective import unsupervised_loss
-    from im23d_tpu_torch.metrics.chamfer import chamfer_distance
-    from im23d_tpu_torch.metrics.iou import iou_3d
     from im23d_tpu_torch.train.shapenet_learner import (
         ShapeNetConfig,
         ShapeNetLearner,
@@ -132,28 +194,70 @@ def main(argv=None) -> int:
     learner.restore(step=args.step)
     print(f"restored step {learner.step}")
 
-    data = SyntheticSilhouettes(cfg.batch_size, cfg.image_size,
-                                cfg.num_views, n_points=512, seed=1)
-    batches = [data.next_batch() for _ in range(args.num_batches)]
+    if args.synthetic:
+        from im23d_tpu_torch.data.synthetic import SyntheticSilhouettes
+
+        data = SyntheticSilhouettes(cfg.batch_size, cfg.image_size,
+                                    cfg.num_views, n_points=512, seed=1)
+        batches = [data.next_batch() for _ in range(args.num_batches)]
+    else:
+        from im23d_tpu_torch.data.shapenet import DataBunch
+
+        bunch = DataBunch(
+            datasets if datasets is not None else args.data_root,
+            args.category, cfg.batch_size, cfg.image_size, use_camera=False)
+        batches = list(itertools.islice(bunch.valid_batches(),
+                                        args.num_batches))
+        if not batches:
+            parser.error("the valid split holds fewer models than one "
+                         f"valid batch ({2 * cfg.batch_size})")
 
     # projection losses (reference parity: projection-MSE eval)
     means = learner.evaluate(batches)
     print("projection eval:", {k: round(v, 5) for k, v in means.items()})
 
-    # Chamfer + 3D IoU against random clouds, NOT the checkpoint's targets
-    gt = torch.as_tensor(
-        _random_shapes(np.random.RandomState(123), cfg.batch_size, 512),
-        device=learner.device,
-    )
     with torch.no_grad():
         nb = learner._normalize(batches[0])
         model_out = learner.model(nb["images"], nb["pose_input"])
-        pred = model_out["point_cloud"]
-        total, _, _ = chamfer_distance(pred, gt)
-        iou = iou_3d(pred, gt, voxel_size=32)
-    chamfer, iou = float(total.mean()), float(iou.mean())
-    print(f"chamfer_l2 {chamfer:.5f} iou_3d {iou:.4f} "
-          "(note: synthetic clouds are NOT the checkpoint's training targets)")
+    scored = {}
+    if args.synthetic:
+        # random clouds, NOT the checkpoint's training targets
+        from im23d_tpu_torch.data.synthetic import _random_shapes
+
+        gt = torch.as_tensor(
+            _random_shapes(np.random.RandomState(123), cfg.batch_size, 512),
+            device=learner.device,
+        )
+        with torch.no_grad():
+            pred = model_out["point_cloud"]
+            total, _, _ = chamfer_distance(pred, gt)
+            iou = iou_3d(pred, gt, voxel_size=IOU_RES)
+        chamfer, iou = float(total.mean()), float(iou.mean())
+        print(f"chamfer_l2 {chamfer:.5f} iou_3d {iou:.4f} (note: synthetic "
+              "clouds are NOT the checkpoint's training targets)")
+    else:
+        if datasets is not None:
+            pairs = itertools.islice(datasets[1].gt_pairs(args.gt_points),
+                                     args.max_models)
+        else:
+            from im23d_tpu_torch.data.shapenet import (
+                SYNSET_IDS,
+                get_model_dirs,
+                gt_cloud_pairs,
+            )
+
+            model_dirs = get_model_dirs(args.data_root,
+                                        SYNSET_IDS[args.category], "valid")
+            pairs = gt_cloud_pairs(model_dirs[:args.max_models],
+                                   args.gt_points, cfg.image_size)
+        chamfer, iou, n = evaluate_gt_clouds(learner, pairs, cfg.batch_size)
+        scored = dict(n_scored=n, gt_points=args.gt_points)
+        if n:
+            print(f"chamfer_l2 {chamfer:.5f} iou_3d {iou:.4f} ({n} models, "
+                  f"{args.gt_points} GT points, normalized frame)")
+        else:
+            print("no GT point clouds / meshes found under model dirs; "
+                  "skipping Chamfer/IoU (add points.npy or model OBJs)")
 
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
@@ -180,7 +284,7 @@ def main(argv=None) -> int:
                    masks_s.cpu().numpy(), ncol=4)
         with open(os.path.join(args.out_dir, "eval_metrics.json"), "w") as fh:
             json.dump(dict(step=learner.step, **means, chamfer_l2=chamfer,
-                           iou_3d=iou,
+                           iou_3d=iou, **scored,
                            student_projection_shape=list(proj.shape),
                            candidate_projection_shape=list(cand.shape)), fh)
         curves = export_loss_curves(args.workdir, args.out_dir)

@@ -10,8 +10,10 @@ Ctrl-C saves ``latest`` and exits 130).  ``--continue_train`` resumes,
 ``--evaluate`` prints the FIDs of the EMA generator (``--which_epoch best``
 sweeps the numbered checkpoints), ``--save_results`` exports obj / mtl /
 png samples and a grid of renders under ``results/<name>``.
-``--conditional_text``, ``--device_cache``, ``--export_serving`` and
-``--multihost`` raise ``NotImplementedError``.
+``--device_cache`` stages the cache's maps on the card once and builds the
+training batches there (``ValueError`` if they exceed
+``data/device_cache.py:HBM_BUDGET_BYTES``).  ``--conditional_text``,
+``--export_serving`` and ``--multihost`` raise ``NotImplementedError``.
 
 Examples:
     python -m im23d_tpu_torch.cli.main --name cub_512x512_class \
@@ -81,7 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for reference parity; see --device")
     p.add_argument("--num_workers", type=int, default=4,
                    help="data-loading threads")
-    p.add_argument("--device_cache", action="store_true")
+    p.add_argument("--device_cache", action="store_true",
+                   help="stage the cache in device memory once and build "
+                        "each training batch there")
     p.add_argument("--text_max_length", type=int, default=18)
     p.add_argument("--text_pretrained_encoder", type=str,
                    default="cache/cub/text_encoder200.pth")
@@ -106,7 +110,6 @@ GRID_RES = 256  # the in-training sample grids' renders, as the JAX CLI
 _NOT_PORTED = (
     ("conditional_text", "--conditional_text (SpatialAttention, the text "
      "encoder and the caption cache) is not ported yet"),
-    ("device_cache", "--device_cache is not ported yet"),
     ("export_serving", "--export_serving comes with the serving slice "
      "(torch.export)"),
     ("multihost", "--multihost comes with the multi-GPU slice"),
@@ -348,15 +351,33 @@ def main(argv=None) -> int:
         from im23d_tpu_torch.core.profiler import StepProfiler
 
         profiler = StepProfiler(args.profile_dir)
+
+    dev_cache = None
+    if args.device_cache:
+        from im23d_tpu_torch.data.device_cache import DeviceGANCache
+
+        if not DeviceGANCache.fits_in_hbm(ds):
+            raise ValueError("--device_cache: the cache's maps exceed the "
+                             "device budget (data/device_cache.py:"
+                             "HBM_BUDGET_BYTES)")
+        dev_cache = DeviceGANCache(ds, args.batch_size, device)
+        logger.log_text(f"device_cache: staged {len(ds)} items "
+                        f"({dev_cache.nbytes() / 1e6:.0f} MB) in device "
+                        "memory")
+
+    def epoch_batches(epoch):
+        if dev_cache is not None:
+            return dev_cache.epoch_batches(epoch)
+        return gan_batch_iterator(ds, args.batch_size, seed=epoch,
+                                  num_workers=args.num_workers)
+
     try:
         for epoch in range(trainer.epoch, args.epochs):
             trainer.epoch = epoch
             t0 = time.time()
             # a loss fetch stalls the device: the first 1G + 2D group of an
             # epoch and every 10th iteration after
-            for it_in_epoch, batch in enumerate(gan_batch_iterator(
-                    ds, args.batch_size, seed=epoch,
-                    num_workers=args.num_workers)):
+            for it_in_epoch, batch in enumerate(epoch_batches(epoch)):
                 if profiler is not None:
                     profiler.tick()
                 losses = trainer.train_step(batch)

@@ -10,8 +10,10 @@ render every ``--image_freq``; Ctrl-C saves ``latest`` and exits 130).
 ``--generate_pseudogt`` writes the pseudo-ground-truth cache under
 ``cache/<dataset>`` (its FID statistics from ``--inception_weights`` where
 given, so that the GAN CLI with the same file can read them).
-``--export_serving``, ``--multihost`` and ``--data_processes > 0`` raise
-``NotImplementedError`` naming the slice that brings them.
+``--data_processes N`` decodes the training and pseudo-GT items in N
+worker processes beside the ``--num_workers`` threads.
+``--export_serving`` and ``--multihost`` raise ``NotImplementedError``
+naming the slice that brings them.
 
 Examples:
     python -m im23d_tpu_torch.cli.run_reconstruction --name cub_recon \
@@ -73,7 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "float32")
     p.add_argument("--num_workers", type=int, default=4,
                    help="data-loading threads")
-    p.add_argument("--data_processes", type=int, default=0)
+    p.add_argument("--data_processes", type=int, default=0,
+                   help="worker processes decoding the training and "
+                        "pseudo-GT items (0: the threads decode)")
     p.add_argument("--multihost", action="store_true")
     p.add_argument("--profile_dir", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda",
@@ -86,8 +90,6 @@ _NOT_PORTED = (
     ("export_serving", "--export_serving comes with the serving slice "
      "(torch.export)"),
     ("multihost", "--multihost comes with the multi-GPU slice"),
-    ("data_processes", "--data_processes > 0 (forked PIL decoders) comes "
-     "with the real-data slice; use --num_workers threads"),
 )
 
 
@@ -107,6 +109,7 @@ def main(argv=None, datasets=None) -> int:
         CUBDataset,
         P3dDataset,
         batch_iterator,
+        close_process_pools,
     )
     from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
     from im23d_tpu_torch.metrics.inception import load_inception
@@ -170,7 +173,8 @@ def main(argv=None, datasets=None) -> int:
         def loader():
             for batch in batch_iterator(train_ds, args.batch_size,
                                         shuffle=False, drop_last=False,
-                                        num_workers=args.num_workers):
+                                        num_workers=args.num_workers,
+                                        process_workers=args.data_processes):
                 batch["hd_image"] = (batch.pop(f"image_{renderer_res}") / 2.0
                                      + 0.5)
                 batch["inception_image"] = batch.pop("image_299")
@@ -183,14 +187,17 @@ def main(argv=None, datasets=None) -> int:
                 key = "image_299" if "image_299" in batch else "image"
                 yield {"inception_image": batch[key]}
 
-        trainer.generate_pseudogt(
-            loader(), cache_dir, args.dataset,
-            pseudogt_resolution=args.pseudogt_resolution,
-            inception_resolution=inception_res,
-            paths=train_ds.get_paths(),
-            val_loader=val_loader() if args.dataset == "cub" else None,
-            renderer_resolution=renderer_res,
-            inception=load_inception(args.inception_weights, trainer.device))
+        try:
+            trainer.generate_pseudogt(
+                loader(), cache_dir, args.dataset,
+                pseudogt_resolution=args.pseudogt_resolution,
+                inception_resolution=inception_res,
+                paths=train_ds.get_paths(),
+                val_loader=val_loader() if args.dataset == "cub" else None,
+                renderer_resolution=renderer_res,
+                inception=load_inception(args.inception_weights, trainer.device))
+        finally:
+            close_process_pools(train_ds)
         return 0
 
     def val_batches():
@@ -221,7 +228,8 @@ def main(argv=None, datasets=None) -> int:
             t0 = time.time()
             for it_in_epoch, batch in enumerate(batch_iterator(
                     train_ds, args.batch_size, seed=epoch, keys=train_keys,
-                    num_workers=args.num_workers)):
+                    num_workers=args.num_workers,
+                    process_workers=args.data_processes)):
                 if profiler is not None:
                     profiler.tick()
                 losses = trainer.train_step(batch)
@@ -252,6 +260,7 @@ def main(argv=None, datasets=None) -> int:
     finally:
         if profiler is not None:
             profiler.close()
+        close_process_pools(train_ds)
     trainer.save()
     return 0
 

@@ -1,11 +1,17 @@
-"""ShapeNet unsupervised training on synthetic data (PyTorch / CUDA).
+"""ShapeNet unsupervised training (PyTorch / CUDA).
 
 Counterpart of ``im23d_tpu/cli/training_test_shape_net.py`` on one device:
-the chairs / planes / cars configs, the ``--synthetic`` data path, restore,
-eval-only, a checkpoint at the end and a rolling ``latest`` checkpoint on
-Ctrl-C.  The real ShapeNet data path is not ported yet.
+the chairs / planes / cars configs on a ShapeNet render tree
+(``--data_root``: ``<synset>.{train,valid}`` split files and model dirs of
+``render*.png`` and ``camera*.mat``; PIL and scipy read them) or on
+generated silhouettes (``--synthetic``), restore, eval-only, a
+``torch.profiler`` trace of a window of steps (``--profile_dir``), a
+checkpoint at the end and a rolling ``latest`` checkpoint on Ctrl-C.
+``--multihost`` and ``--tp > 1`` raise ``NotImplementedError``.
 
-Example:
+Examples:
+    python -m im23d_tpu_torch.cli.training_test_shape_net --category chairs \
+        --data_root data --workdir runs/chairs
     python -m im23d_tpu_torch.cli.training_test_shape_net --category chairs \
         --synthetic --steps 200 --workdir runs/smoke
 """
@@ -13,20 +19,30 @@ Example:
 from __future__ import annotations
 
 import argparse
+import os
 
 from im23d_tpu_torch.cli.flags import (
     add_shapenet_overrides,
     apply_shapenet_overrides,
 )
 
+PROFILE_START = 12  # the trace's first step: past the warm-up steps
+PROFILE_STEPS = 5
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--category", choices=("chairs", "planes", "cars"),
                    default="chairs")
+    p.add_argument("--data_root", type=str, default="data",
+                   help="directory with <synset>.{train,valid} splits + "
+                        "renders")
+    p.add_argument("--no_ram_cache", action="store_true",
+                   help="stream renders from disk instead of caching the "
+                        "decoded uint8 views in RAM (~325 KB/model at 128^2)")
     p.add_argument("--synthetic", action="store_true",
-                   help="train on generated silhouette data (the only data "
-                        "path ported so far)")
+                   help="train on generated silhouette data (no assets "
+                        "needed)")
     p.add_argument("--workdir", type=str, required=True)
     p.add_argument("--steps", type=int, default=None,
                    help="override the per-category step count (the p/sigma "
@@ -39,19 +55,42 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("auto", "float32", "bfloat16"),
                    help="encoder/pose-trunk compute dtype (auto = bfloat16 "
                         "on CUDA); heads and the projection loss stay f32")
+    p.add_argument("--multihost", action="store_true",
+                   help="accepted for parity with the JAX CLI; raises "
+                        "NotImplementedError")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel width; > 1 raises "
+                        "NotImplementedError")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of a window of "
+                        "steady-state steps to this directory")
     p.add_argument("--device", type=str, default="cuda")
     add_shapenet_overrides(p)
     return p
 
 
-def main(argv=None) -> int:
+def _ticking(train_iter, profiler):
+    """Yield from ``train_iter``, ticking ``profiler`` once a batch: the
+    learner takes one batch a step."""
+    for batch in train_iter:
+        profiler.tick()
+        yield batch
+
+
+def main(argv=None, datasets=None) -> int:
+    """Run the CLI.  ``datasets`` is an optional (train, valid) pair with
+    ``data/shapenet.py:ShapeNetRenders``' item contract, used in place of
+    the tree under ``--data_root``."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if not args.synthetic:
-        parser.error("only the --synthetic data path is ported; the ShapeNet "
-                     "loader (data/shapenet.py) is not")
+    if args.multihost or args.tp > 1:
+        raise NotImplementedError("--multihost and --tp > 1 come with the "
+                                  "multi-GPU slice")
+    if not (args.synthetic or datasets is not None
+            or os.path.isdir(args.data_root)):
+        parser.error(f"no ShapeNet tree at --data_root {args.data_root!r}; "
+                     "pass --data_root or --synthetic")
 
-    from im23d_tpu_torch.data.synthetic import SyntheticSilhouettes
     from im23d_tpu_torch.train.shapenet_learner import (
         ShapeNetConfig,
         ShapeNetLearner,
@@ -73,23 +112,50 @@ def main(argv=None) -> int:
     if args.restore:
         learner.restore(args.restore)
 
-    data = SyntheticSilhouettes(cfg.batch_size, cfg.image_size, cfg.num_views,
-                                n_points=512)
-    train_iter = iter(data)
-    valid_batches = lambda: [data.next_batch() for _ in range(2)]  # noqa: E731
+    if args.synthetic:
+        from im23d_tpu_torch.data.synthetic import SyntheticSilhouettes
+
+        data = SyntheticSilhouettes(cfg.batch_size, cfg.image_size,
+                                    cfg.num_views, n_points=512)
+        train_iter = iter(data)
+        valid_batches = lambda: [data.next_batch() for _ in range(2)]  # noqa: E731
+    else:
+        from im23d_tpu_torch.data.shapenet import DataBunch
+
+        bunch = DataBunch(
+            datasets if datasets is not None else args.data_root,
+            args.category, cfg.batch_size, cfg.image_size, use_camera=False,
+            cache_in_ram=not args.no_ram_cache)
+        train_iter = bunch.train_iter()
+        valid_batches = bunch.valid_batches
 
     if args.eval_only:
         means = learner.evaluate(valid_batches)
         print({k: round(v, 5) for k, v in means.items()})
         return 0
 
+    profiler = None
+    if args.profile_dir:
+        from im23d_tpu_torch.core.profiler import StepProfiler
+
+        # a short run traces its last steps
+        start = min(PROFILE_START, max(cfg.total_steps - PROFILE_STEPS, 0))
+        profiler = StepProfiler(args.profile_dir, start=start,
+                                steps=PROFILE_STEPS)
     try:
-        losses = learner.fit(train_iter, num_steps=cfg.total_steps,
-                             valid_batches=valid_batches)
+        losses = learner.fit(
+            _ticking(train_iter, profiler) if profiler else train_iter,
+            num_steps=cfg.total_steps, valid_batches=valid_batches)
     except KeyboardInterrupt:
         print("KeyboardInterrupt: saving final checkpoint")
         learner.save(tag="latest")
         return 130
+    finally:
+        if profiler is not None:
+            profiler.close()
+        close = getattr(train_iter, "close", None)
+        if close is not None:
+            close()
     learner.save()
     print({k: round(v, 5) for k, v in losses.items()})
     return 0

@@ -5,9 +5,8 @@ quaternion flip, giving the (image RGBA, scale, translation, rotation,
 index) items the mesh-estimation trainer consumes.  PIL (photo decode and
 resize) and scipy (.mat files) are imported when they are needed.
 
-``batch_iterator`` assembles batches on threads; the JAX version's forked
-decode processes (``process_workers``) belong to the training loop, which
-the port does not run yet.
+``batch_iterator`` assembles batches on threads and, with
+``process_workers``, decodes items in worker processes.
 """
 
 from __future__ import annotations
@@ -255,12 +254,63 @@ class P3dDataset(CMRBaseDataset):
         self.num_imgs = len(self.anno)
 
 
+_WORKER_DS = None
+_PROC_POOLS: dict = {}
+
+
+def _worker_init(dataset) -> None:
+    global _WORKER_DS
+    _WORKER_DS = dataset
+
+
+def _worker_item(args):
+    idx, epoch = args
+    item_at = getattr(_WORKER_DS, "item", None)
+    return item_at(idx, epoch) if item_at is not None else _WORKER_DS[idx]
+
+
+def _dataset_proc_pool(dataset, process_workers: int):
+    """The dataset's persistent pool of decode processes (started once a
+    run, not once an epoch).  Its workers are spawned, not forked: by the
+    first batch the trainer has initialised CUDA and torch's threads, which
+    a forked child would inherit half-held.  Each worker unpickles its own
+    copy of the dataset; items are a pure function of (seed, epoch, index)
+    and the epoch travels with each work unit, so the copies give the
+    serial path's items."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    key = (id(dataset), process_workers)
+    pool = _PROC_POOLS.get(key)
+    if pool is None:
+        pool = ProcessPoolExecutor(
+            process_workers, mp_context=mp.get_context("spawn"),
+            initializer=_worker_init, initargs=(dataset,),
+        )
+        _PROC_POOLS[key] = pool
+    return pool
+
+
+def close_process_pools(dataset) -> None:
+    """End the decode processes of ``dataset`` (every worker count) and
+    wait for them to exit.  The pool holds the dataset, so it lives until
+    this call or the interpreter's exit."""
+    for key in [k for k in _PROC_POOLS if k[0] == id(dataset)]:
+        _PROC_POOLS.pop(key).shutdown(wait=True, cancel_futures=True)
+
+
 def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
                    seed: int = 0, drop_last: bool = True,
                    keys: Sequence[str] | None = None,
-                   num_workers: int = 4) -> Iterator[dict]:
-    """One epoch of stacked-dict batches from an indexable dataset;
-    ``num_workers`` threads assemble batches ahead of the consumer."""
+                   num_workers: int = 4,
+                   process_workers: int = 0) -> Iterator[dict]:
+    """One epoch of stacked-dict batches from an indexable dataset.
+
+    ``num_workers`` threads assemble batches ahead of the consumer; with
+    ``process_workers > 0`` the items are decoded in that many worker
+    processes (``_dataset_proc_pool``: PIL's decode holds the GIL, so
+    threads alone cannot scale it).  The workers run only the dataset's
+    numpy / PIL code, never torch."""
     rng = np.random.RandomState(seed)
     epoch = seed  # captured locally: concurrent iterators cannot clobber it
     set_epoch = getattr(dataset, "set_epoch", None)
@@ -276,13 +326,19 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
         for start in range(0, end, batch_size)
         if len(order[start : start + batch_size]) > 0
     ]
+    proc_pool = (_dataset_proc_pool(dataset, process_workers)
+                 if process_workers > 0 else None)
 
     def build(idx):
-        items = [
-            item_at(int(i), epoch) if item_at is not None
-            else dataset[int(i)]
-            for i in idx
-        ]
+        if proc_pool is not None:
+            items = list(proc_pool.map(_worker_item,
+                                       [(int(i), epoch) for i in idx]))
+        else:
+            items = [
+                item_at(int(i), epoch) if item_at is not None
+                else dataset[int(i)]
+                for i in idx
+            ]
         batch = {}
         for k in items[0]:
             if keys is not None and k not in keys:

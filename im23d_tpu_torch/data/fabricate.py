@@ -10,7 +10,10 @@ counterpart of the JAX ``build_structured_cmr_tree``: each photo is the
 port's own render of a structured (texture, mesh) pair under a known
 normalised pose, served with the item contract of the CMR loaders
 (``data/cmr.py``), so the mesh-estimation trainer and ``batch_iterator``
-take it unchanged.
+take it unchanged.  ``ShapeNetRenderSet`` does the same for Pipeline A:
+random box / ellipsoid clouds rendered in memory from V views, served with
+``ShapeNetRenders``' item contract (``data/shapenet.py``), and each cloud as
+its model's ground truth.
 """
 
 from __future__ import annotations
@@ -18,6 +21,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from im23d_tpu_torch.data.shapenet import resample_cloud
+from im23d_tpu_torch.data.synthetic import (
+    _random_shapes,
+    _random_unit_quats,
+    render_silhouettes_np,
+)
 from im23d_tpu_torch.train.gan_eval import render_generated
 
 
@@ -234,3 +243,54 @@ class StructuredReconSet:
         for res, images in self.extra.items():
             item[f"image_{res}"] = images[index]
         return item
+
+
+class ShapeNetRenderSet:
+    """``n`` models, each a fixed random box or ellipsoid surface of
+    ``gt_points`` points (``data/synthetic.py:_random_shapes``), rendered
+    from ``num_views`` random views by ``render_silhouettes_np`` (the
+    projection at ``image_size // 2``, sigma 1.2, bilinearly upsampled),
+    with ``ShapeNetRenders``' camera-less item contract: images (V, H, W, 3)
+    uint8 (the silhouette in each channel), the same images as the poses,
+    masks (V, H, W) uint8.  It stands in for a ShapeNet tree where PNG
+    renders cannot be decoded; ``gt_pairs`` gives the eval CLI each
+    model's first view and its cloud.
+    """
+
+    _CHUNK = 24  # models rendered at once: ~0.5 GB of 64³ grids
+
+    def __init__(self, n: int, image_size: int = 128, num_views: int = 5,
+                 gt_points: int = 2048, seed: int = 0):
+        rng = np.random.RandomState(seed)
+        self.clouds = _random_shapes(rng, n, gt_points)
+        self.quats = _random_unit_quats(rng, n * num_views).reshape(
+            n, num_views, 4)
+        self.masks = np.empty((n, num_views, image_size, image_size),
+                              np.uint8)
+        for start in range(0, n, self._CHUNK):
+            stop = min(start + self._CHUNK, n)
+            sil = render_silhouettes_np(
+                np.repeat(self.clouds[start:stop], num_views, axis=0),
+                self.quats[start:stop].reshape(-1, 4), 1.2,
+                voxel_size=image_size // 2, kernel_size=9,
+                out_size=image_size)
+            self.masks[start:stop] = np.clip(sil * 255.0, 0, 255).astype(
+                np.uint8).reshape(stop - start, num_views, image_size,
+                                  image_size)
+        self.images = np.repeat(self.masks[..., None], 3, axis=-1)
+
+    def __len__(self) -> int:
+        return len(self.masks)
+
+    def __getitem__(self, idx: int):
+        images = self.images[idx]
+        return images, images, self.masks[idx]
+
+    def gt_pairs(self, n_points: int):
+        """(first view (H, W, 3) uint8, normalized GT cloud of
+        ``n_points``) for each model, resampled as ``load_gt_points``
+        resamples a points file: one ``RandomState(0)`` in model order."""
+        rng = np.random.RandomState(0)
+        for idx in range(len(self)):
+            yield self.images[idx, 0], resample_cloud(self.clouds[idx],
+                                                      n_points, rng)

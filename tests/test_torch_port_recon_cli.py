@@ -11,7 +11,8 @@ a tree at a tiny configuration (the finite losses, checkpoints, images and
 cache files are checked; their values are held to JAX in
 ``tests/test_torch_port_recon_train.py`` and
 ``tests/test_torch_port_pseudogt.py``).  The modes that later slices bring
-raise ``NotImplementedError``.
+raise ``NotImplementedError``; ``--data_processes`` runs in
+``tests/test_torch_port_data_feeds.py``.
 """
 
 import ast
@@ -185,8 +186,6 @@ def test_step_profiler_writes_a_chrome_trace(tmp_path):
 @pytest.mark.parametrize("flags", [
     ["--export_serving", "x"], ["--evaluate", "--export_serving", "x"],
     ["--multihost"], ["--evaluate", "--multihost"],
-    ["--data_processes", "2"],
-    ["--generate_pseudogt", "--data_processes", "1"],
 ])
 def test_unported_modes_raise(flags):
     with pytest.raises(NotImplementedError):
