@@ -181,7 +181,23 @@ Phases:
      host iterator's for two epochs; one epoch of the GAN CLI with
      ``--device_cache`` (launch counts of K8 forward, K8 dW and K9); 1G +
      2D groups/s fed from the cache and from the host iterator, in turns,
-     beside phase 23's rate with the batch resident on the card.
+     beside phase 23's rate with the batch resident on the card;
+ 34. (after phase 33) the text-conditional GAN at the CLI's CUB
+     configuration for a 512² cache with ``--conditional_text`` (bs 32,
+     bf16, 3 critics, ``text_embedding_dim`` 256, captions of 18 tokens)
+     on phase 17's cache beside a fabricated caption cache (100 items x 10
+     captions, a vocabulary of 5450, seeded): one 1G + 2D group with the
+     batch resident (finite losses, 3 K8, 1 K8 dW and 24 K9 launches) and
+     its groups/s beside phase 23's; then the GAN CLI for one epoch with
+     ``--conditional_text`` and ``--text_pretrained_encoder`` (a seeded
+     AttnGAN-shaped state dict written in the phase): the encoder loaded
+     and checkpointed, ``sample captions:`` in its log, its launches;
+ 35. (after phase 34) the serving artifacts (``serve/export.py``): the
+     EMA generator of phase 34's trainer exported for CUDA, loaded and
+     run on 32 latents against ``trainer.generate`` (1 K8 and 8 K9
+     launches a call, through the custom ops); the reconstruction network
+     at ``ReconConfig()`` (bs 50, 256² RGBA) against
+     ``ReconTrainer.predict``; export, load and call times.
 
 Prints timings beside the GPU's name and power limit, then one JSON line
 with the per-kernel results (each with its bound: the larger of the bytes
@@ -315,6 +331,11 @@ from im23d_tpu_torch.render.rasterizer import (
     rasterize_torch,
     rasterize_winners_torch,
     soft_margin,
+)
+from im23d_tpu_torch.serve import (
+    export_gan_inference,
+    export_reconstruction_inference,
+    load_artifact,
 )
 from im23d_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
 from im23d_tpu_torch.train.recon_trainer import (
@@ -476,6 +497,15 @@ MESH_S, MESH_SIGMA = 96, 1.5  # the meshing CLI's defaults
 # train batch's models; one valid batch, 2 x bs) and the planes run
 RD_TRAIN, RD_VALID, PLANES_MODELS, PLANES_STEPS = 24, 48, 16, 3
 WAIT_S = 300  # bound on a run fed by decode processes
+# the text GAN: captions a cache item, tokens a caption, the vocabulary
+# (the CUB caption cache's size), the AttnGAN encoder's embedding width
+CAPTIONS, TEXT_LEN, TEXT_VOCAB, TEXT_EMB = 10, 18, 5450, 300
+TEXT_GROUPS = 5  # timed 1G + 2D groups with the batch resident
+# an artifact against the eager module it was traced from: the same ops on
+# the same operands, so within one bfloat16 spacing near 1 (2^-7) of the
+# texture; the mesh map (float32 from bf16 convs) by the same spacing of
+# its largest value
+SERVE_TEX_ATOL = 2.0 ** -7
 CACHE_EPOCHS = 3  # epochs of one 1G + 2D group each, per timed feed
 # peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, float32
 # FLOP/s outside the tensor cores, dense bfloat16 FLOP/s on them
@@ -2374,7 +2404,7 @@ def _k9_path_shapes() -> list[tuple[int, int, int, int]]:
 
 
 def _k9_bf16_backward(mode: str) -> list[float]:
-    """``_FusedConv``'s bf16 backward at K9_SMALL, with pre exactly 0 on a
+    """The K9 op's bf16 backward at K9_SMALL, with pre exactly 0 on a
     quarter of channel 0's pixels, against float64 autograd of the plain
     version on the same values: relative L2 of dx, da, db, dW."""
     B, cin, H, W, cout = K9_SMALL
@@ -2550,7 +2580,7 @@ def phase_gen_bf16(gpu: str) -> None:
 
 class _PlainHead(torch.autograd.Function):
     """The head through its plain pieces: the plain forward, dx by the
-    transpose conv ``_HeadConv`` uses, dW by the float64 plain version."""
+    transpose conv K8's op uses, dW by the float64 plain version."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, pad_mode):
@@ -3167,6 +3197,200 @@ def phase_device_cache(gpu: str, tmp: str, template, resident: float
     return launches
 
 
+def _caption_cache(cache_dir: str) -> None:
+    """A fabricated ``captions_tokens.npz`` for the cache's items, as
+    ``data/captions.py`` writes it: CAPTIONS captions an item of 4 to
+    TEXT_LEN words drawn from a TEXT_VOCAB-word vocabulary, 0-padded."""
+    with np.load(os.path.join(cache_dir, "poses_metadata.npz"),
+                 allow_pickle=True) as f:
+        n = len(f["data"].item()["path"])
+    rng = np.random.RandomState(34)
+    lengths = rng.randint(4, TEXT_LEN + 1, (n, CAPTIONS)).astype(np.int32)
+    tokens = rng.randint(1, TEXT_VOCAB, (n, CAPTIONS, TEXT_LEN))
+    tokens = np.where(np.arange(TEXT_LEN) < lengths[..., None], tokens,
+                      0).astype(np.int32)
+    vocab = np.array(["<pad>"] + [f"w{i}" for i in range(1, TEXT_VOCAB)])
+    np.savez(os.path.join(cache_dir, "captions_tokens.npz"), tokens=tokens,
+             lengths=lengths, n_words=TEXT_VOCAB, vocab=vocab)
+
+
+def _attngan_encoder(path: str) -> dict:
+    """A seeded AttnGAN ``RNN_Encoder`` state dict (TEXT_VOCAB words,
+    TEXT_EMB-wide embedding, 128 hidden units a direction), saved."""
+    gen = torch.Generator().manual_seed(35)
+    H = 128
+    sd = {"encoder.weight": torch.randn((TEXT_VOCAB, TEXT_EMB),
+                                        generator=gen) * 0.1}
+    for sfx in ("", "_reverse"):
+        for name, shape in (("weight_ih", (4 * H, TEXT_EMB)),
+                            ("weight_hh", (4 * H, H)), ("bias_ih", (4 * H,)),
+                            ("bias_hh", (4 * H,))):
+            sd[f"rnn.{name}_l0{sfx}"] = torch.randn(shape,
+                                                    generator=gen) * 0.05
+    torch.save(sd, path)
+    return sd
+
+
+def _text_config() -> GANConfig:
+    """The CLI's CUB configuration for a 512² cache with
+    ``--conditional_text`` (no class conditioning: the critics' text term
+    runs)."""
+    return GANConfig(texture_resolution=GAN_RES, num_discriminators=3,
+                     conditional_text=True, compute_dtype="bfloat16")
+
+
+def phase_text_gan(gpu: str, tmp: str, template, resident: float):
+    """The text-conditional GAN: a resident-batch 1G + 2D group and its
+    rate, then the GAN CLI for one epoch with the pretrained encoder.
+    Returns the trainer (for phase 35) and the CLI's launches."""
+    cache_dir = os.path.join(tmp, "cache", "cub")
+    _caption_cache(cache_dir)
+    ds = CubGANDataset(cache_dir, texture_resolution=PGT_RES,
+                       conditional_text=True)
+    batch = next(gan_batch_iterator(ds, GAN_B, seed=0, num_workers=1))
+    trainer = GANTrainer(GANTrainConfig(
+        model=_text_config(), batch_size=GAN_B, text_vocab_size=ds.n_words,
+        text_max_length=TEXT_LEN), template=template, device=DEVICE)
+    nb = trainer.put_batch(batch)
+    _zero_counts()
+    group = [trainer.train_step(nb) for _ in range(3)]
+    losses = {k: float(v) for step in group for k, v in step.items()}
+    torch.cuda.synchronize()
+    launched = _counts()
+    t0 = time.perf_counter()
+    for _ in range(3 * TEXT_GROUPS):
+        last = trainer.train_step(nb)
+    float(next(iter(last.values())))
+    rate = TEXT_GROUPS / (time.perf_counter() - t0)
+    print(f"[text-gan] one 1G + 2D group, bs {GAN_B}, {GAN_RES}², bf16, 3 "
+          f"critics, captions (B, {TEXT_LEN}) from a {ds.n_words}-word "
+          f"cache: losses {losses}; launches {launched}")
+    print(f"[text-gan] {rate:.3f} 1G + 2D groups/s ({1e3 / rate:.1f} ms a "
+          f"group, host clock, batch on the card; phase 23's unconditional "
+          f"group {resident:.3f}) [{gpu}]")
+    if not (batch["caption"].shape == (GAN_B, TEXT_LEN)
+            and all(math.isfinite(v) for v in losses.values())):
+        raise AssertionError(f"the text group: {losses}")
+    if (launched["k8"] != 3 or launched["k8b"] != 1
+            or launched["k9"] != 24):
+        raise AssertionError(f"K8 / K9 launches in the text group: "
+                             f"{launched}")
+
+    pth = os.path.join(tmp, "text_encoder200.pth")
+    sd = _attngan_encoder(pth)
+    name = "chip_smoke_text"
+    flags = ["--name", name, "--dataset", "cub", "--device", DEVICE,
+             "--texture_resolution", str(PGT_RES), "--batch_size",
+             str(GAN_B), "--conditional_text", "--text_pretrained_encoder",
+             pth, "--epochs", "1", "--evaluate_freq", "1", "--save_freq",
+             "100", "--checkpoint_freq", "100"]
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        _zero_counts()
+        t0 = time.perf_counter()
+        rc, out = _quiet_cli(gan_cli.main, flags)
+        secs = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        os.chdir(cwd)
+    workdir = os.path.join(tmp, "gan_weights", name)
+    with open(os.path.join(workdir, "log.txt")) as fh:
+        log = fh.read()
+    iters = PGT_IMAGES // GAN_B
+    tree = torch.load(os.path.join(workdir, "checkpoints",
+                                   f"checkpoint_{iters}.pt"),
+                      map_location="cpu", weights_only=True)
+    loaded = [line for line in out if line.startswith("loaded pretrained")]
+    captions = log[log.index("sample captions:"):].splitlines()[:3] \
+        if "sample captions:" in log else []
+    same_te = tree["te"].keys() == sd.keys() and all(
+        torch.equal(tree["te"][k], sd[k]) for k in sd)
+    print(f"[text-gan] GAN CLI --conditional_text, one epoch of {iters} "
+          f"iterations with FID and grids: rc {rc} in {secs:.2f} s; "
+          f"{loaded}; the checkpoint's encoder is the .pth's: {same_te}; "
+          f"log {captions}; launches {launches} [{gpu}]")
+    if rc != 0 or not loaded or not same_te or not captions:
+        raise AssertionError("the text GAN CLI run failed its checks")
+    if (launches["k8"] < iters or launches["k8b"] < 1
+            or launches["k9"] < 8 * iters
+            or min(launches[k] for k in ("k4", "k5")) < 1):
+        raise AssertionError(f"a kernel of the text CLI's path never "
+                             f"launched: {launches}")
+    return trainer, launches
+
+
+def phase_serve(gpu: str, tmp: str, trainer, template) -> dict:
+    """The serving artifacts: phase 34's EMA generator and the recon
+    network at ReconConfig(), each exported for CUDA, loaded and held to
+    the trainer's own inference; the GAN artifact's K8 / K9 launches."""
+    path = os.path.join(tmp, "gan_serving.zip")
+    t0 = time.perf_counter()
+    export_gan_inference(trainer, GAN_B, path, platforms=("cuda",))
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = load_artifact(path, DEVICE)
+    t_load = time.perf_counter() - t0
+    z = torch.randn((GAN_B, trainer.mcfg.latent_dim), device=DEVICE,
+                    generator=torch.Generator(DEVICE).manual_seed(35))
+    want = trainer.generate(z)
+    with torch.no_grad():
+        served(z)  # the first call
+    torch.cuda.synchronize()
+    _zero_counts()
+    with torch.no_grad():
+        got = served(z)
+    torch.cuda.synchronize()
+    launches = _counts()
+    ms = _time_ms(torch.no_grad()(lambda: served(z)), 5)
+    errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    limits = [SERVE_TEX_ATOL,
+              SERVE_TEX_ATOL * max(1.0, float(want[1].abs().max()))]
+    print(f"[serve] GAN artifact ({os.path.getsize(path)} bytes, bs "
+          f"{GAN_B}, {GAN_RES}², bf16, text model without captions): "
+          f"export {t_export:.2f} s, load {t_load:.2f} s, a call {ms:.2f} "
+          f"ms (events over 5); vs trainer.generate max |d| texture "
+          f"{errs[0]:.3e}, mesh map {errs[1]:.3e} (limits {limits[0]:.3e}, "
+          f"{limits[1]:.3e}); launches in one call {launches} [{gpu}]")
+    if not all(torch.isfinite(g).all() for g in got) or any(
+            e > lim for e, lim in zip(errs, limits)):
+        raise AssertionError("the GAN artifact disagrees with generate()")
+    if launches["k8"] != 1 or launches["k9"] != 8:
+        raise AssertionError(f"the GAN artifact's launches: {launches}")
+
+    recon = ReconTrainer(ReconConfig(), dataset_size=RECON_IMAGES,
+                         template=template, device=DEVICE)
+    with torch.no_grad():  # a mesh head that moves the sphere
+        w = recon.model.conv_mesh.weight
+        w.copy_(torch.randn(w.shape, device=DEVICE,
+                            generator=torch.Generator(DEVICE).manual_seed(
+                                36)) * 0.01)
+    rpath = os.path.join(tmp, "recon_serving.zip")
+    t0 = time.perf_counter()
+    export_reconstruction_inference(recon, RB, rpath, platforms=("cuda",))
+    r_export = time.perf_counter() - t0
+    rserved = load_artifact(rpath, DEVICE)
+    images = torch.rand((RB, RES, RES, 4), device=DEVICE,
+                        generator=torch.Generator(DEVICE).manual_seed(37))
+    rwant = recon.predict(images)
+    with torch.no_grad():
+        rgot = rserved(images)
+    rerrs = [float((g - w).abs().max()) for g, w in zip(rgot, rwant)]
+    rlimits = [SERVE_TEX_ATOL,
+               SERVE_TEX_ATOL * max(1.0, float(rwant[1].abs().max()))]
+    print(f"[serve] recon artifact ({os.path.getsize(rpath)} bytes, bs {RB}, "
+          f"{RES}² RGBA, bf16): export {r_export:.2f} s; vs "
+          f"ReconTrainer.predict max |d| texture {rerrs[0]:.3e}, mesh map "
+          f"{rerrs[1]:.3e} (limits {rlimits[0]:.3e}, {rlimits[1]:.3e}) "
+          f"[{gpu}]")
+    if not all(torch.isfinite(g).all() for g in rgot) or any(
+            e > lim for e, lim in zip(rerrs, rlimits)):
+        raise AssertionError("the recon artifact disagrees with predict()")
+    del recon, rserved, served
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3220,6 +3444,9 @@ def main() -> int:
         gan = phase_gan_cli(gpu, tmp)
         resident = phase_gan_learn(gpu, tmp, template)
         phase_device_cache(gpu, tmp, template, resident)
+        text_trainer, _ = phase_text_gan(gpu, tmp, template, resident)
+        phase_serve(gpu, tmp, text_trainer, template)
+        del text_trainer
 
     kernels = [
         dict(name="K1 projection forward", route="cuda",

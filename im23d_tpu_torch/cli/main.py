@@ -12,8 +12,15 @@ sweeps the numbered checkpoints), ``--save_results`` exports obj / mtl /
 png samples and a grid of renders under ``results/<name>``.
 ``--device_cache`` stages the cache's maps on the card once and builds the
 training batches there (``ValueError`` if they exceed
-``data/device_cache.py:HBM_BUDGET_BYTES``).  ``--conditional_text``,
-``--export_serving`` and ``--multihost`` raise ``NotImplementedError``.
+``data/device_cache.py:HBM_BUDGET_BYTES``).  ``--conditional_text``
+conditions the GAN on the cache's captions (``captions_tokens.npz``,
+``data/captions.py``) through a frozen text encoder, the pretrained
+AttnGAN state dict ``--text_pretrained_encoder`` where that file exists;
+as in the JAX CLI, ``--text_train_encoder``, ``--text_attention`` and
+``--text_embedding_dim`` are parsed and not read.  ``--export_serving PATH``
+writes a ``torch.export`` artifact of the EMA generator for each of
+``--export_platforms`` (``serve/export.py``) and exits.  ``--multihost``
+raises ``NotImplementedError``.
 
 Examples:
     python -m im23d_tpu_torch.cli.main --name cub_512x512_class \
@@ -75,8 +82,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--evaluate", action="store_true")
     p.add_argument("--save_results", action="store_true")
     p.add_argument("--which_epoch", type=str, default="latest")
-    p.add_argument("--export_serving", type=str, default=None)
-    p.add_argument("--export_platforms", type=str, default="tpu,cpu")
+    p.add_argument("--export_serving", type=str, default=None,
+                   help="write a torch.export serving artifact of the EMA "
+                        "generator to this path and exit; implies "
+                        "--evaluate")
+    p.add_argument("--export_platforms", type=str, default="cuda,cpu",
+                   help="the artifact's programs (cuda, cpu)")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--truncation_sigma", type=float, default=-1)
     p.add_argument("--gpu_ids", type=str, default="0",
@@ -108,10 +119,6 @@ GRID_RES = 256  # the in-training sample grids' renders, as the JAX CLI
 
 # modes of the JAX CLI that later slices of the port bring
 _NOT_PORTED = (
-    ("conditional_text", "--conditional_text (SpatialAttention, the text "
-     "encoder and the caption cache) is not ported yet"),
-    ("export_serving", "--export_serving comes with the serving slice "
-     "(torch.export)"),
     ("multihost", "--multihost comes with the multi-GPU slice"),
 )
 
@@ -122,12 +129,15 @@ def load_dataset(args):
     cache_dir = args.cache_dir or os.path.join("cache", args.dataset)
     common = dict(texture_resolution=args.texture_resolution,
                   evaluate=args.evaluate,
-                  conditional_class=args.conditional_class)
+                  conditional_class=args.conditional_class,
+                  conditional_text=args.conditional_text)
     if args.dataset == "cub":
         if args.conditional_color:
             raise ValueError("--conditional_color is not supported for cub")
         return CubGANDataset(cache_dir, **common)
     if args.dataset == "p3d":
+        if args.conditional_text:
+            raise ValueError("--conditional_text is not supported for p3d")
         return Pascal3DGANDataset(
             cache_dir, conditional_color=args.conditional_color, **common)
     raise ValueError("Invalid dataset")
@@ -138,7 +148,7 @@ def main(argv=None) -> int:
     for flag, why in _NOT_PORTED:
         if getattr(args, flag):
             raise NotImplementedError(why)
-    if args.save_results:
+    if args.save_results or args.export_serving:
         args.evaluate = True
 
     import torch
@@ -185,6 +195,7 @@ def main(argv=None) -> int:
         texture_only=args.texture_only,
         conditional_class=args.conditional_class,
         conditional_color=args.conditional_color,
+        conditional_text=args.conditional_text,
         norm_g="batch" if args.norm_g == "syncbatch" else args.norm_g,
         norm_d=args.norm_d,
         latent_dim=args.latent_dim,
@@ -193,6 +204,8 @@ def main(argv=None) -> int:
         n_classes=tuple(getattr(ds, "n_classes", (1,))))
     tcfg = GANTrainConfig(
         model=mcfg, lr_g=args.lr_g, lr_d=args.lr_d,
+        text_vocab_size=max(ds.n_words, 2),
+        text_max_length=args.text_max_length,
         d_steps_per_g=args.d_steps_per_g,
         g_ema_alpha=args.g_running_average_alpha,
         mesh_regularization=args.mesh_regularization, loss=args.loss,
@@ -201,32 +214,59 @@ def main(argv=None) -> int:
     workdir = os.path.join("gan_weights", args.name)
     trainer = GANTrainer(tcfg, template=template, workdir=workdir,
                          device=device)
+    if (args.conditional_text
+            and os.path.exists(args.text_pretrained_encoder)):
+        sd = torch.load(args.text_pretrained_encoder, map_location="cpu",
+                        weights_only=True)
+        vocab, emb = sd["encoder.weight"].shape
+        hidden = sd["rnn.weight_hh_l0"].shape[1]
+        trainer.set_text_encoder(sd, vocab, emb, hidden)
+        print(f"loaded pretrained text encoder ({vocab} words) from "
+              f"{args.text_pretrained_encoder}")
     if args.continue_train or args.evaluate:
         if args.which_epoch not in ("latest", "best"):
             trainer.restore(step=int(args.which_epoch))
         elif args.which_epoch == "latest" or not args.evaluate:
             trainer.restore()
-    if args.save_results and args.which_epoch == "best":
-        raise SystemExit("--save_results requires --which_epoch latest or a "
+    if (args.export_serving or args.save_results) \
+            and args.which_epoch == "best":
+        # the best sweep runs in --evaluate: exporting here would write
+        # the unrestored initial generator
+        flag = ("--export_serving" if args.export_serving
+                else "--save_results")
+        raise SystemExit(f"{flag} requires --which_epoch latest or a "
                          "numeric epoch (run --evaluate --which_epoch best "
                          "first to identify the best epoch)")
 
+    if args.export_serving:
+        from im23d_tpu_torch.serve import export_gan_inference
+
+        export_gan_inference(
+            trainer, args.batch_size, args.export_serving,
+            platforms=tuple(args.export_platforms.split(",")))
+        print(f"wrote serving artifact to {args.export_serving}")
+        return 0
+
     def sample_conditioning(n, seed=0):
-        """Random dataset indices -> (classes, poses, indices)."""
+        """Random dataset indices -> (classes, poses, caption tokens,
+        indices)."""
         idx = np.random.RandomState(seed).randint(0, len(ds), size=n)
         classes = (np.stack([np.atleast_1d(ds.classes[i]) for i in idx])
                    if args.conditional_class else None)
         poses = {k: np.asarray(ds.data[k])[idx]
                  for k in ("scale", "translation", "rotation")}
-        return classes, poses, idx
+        captions = (ds.caption_tokens[idx, 0]
+                    if ds.caption_tokens is not None else None)
+        return classes, poses, captions, idx
 
     if args.save_results:
         out = os.path.join("results", args.name)
-        classes, poses, _ = sample_conditioning(args.batch_size)
+        classes, poses, captions, _ = sample_conditioning(args.batch_size)
         files = export_results(trainer, template, out,
                                n_samples=args.batch_size,
                                truncation_sigma=args.truncation_sigma,
                                classes=classes, poses=poses,
+                               caption_tokens=captions,
                                render_res=min(args.texture_resolution, 512))
         print(f"exported {len(files)} samples to {out}")
         return 0
@@ -292,7 +332,8 @@ def main(argv=None) -> int:
 
     # the same classes and poses in every grid
     viz_n = min(args.batch_size, 16)
-    viz_classes, viz_poses, viz_idx = sample_conditioning(viz_n, seed=1234)
+    viz_classes, viz_poses, viz_captions, viz_idx = sample_conditioning(
+        viz_n, seed=1234)
     viz_real = None
     if ds.has_pseudo_ground_truth:
         items = [ds.load_pseudo_ground_truth(int(i)) for i in viz_idx]
@@ -314,7 +355,7 @@ def main(argv=None) -> int:
             logger.log_text(f"epoch {epoch} " + " ".join(
                 f"{k} {v:.3f}" for k, v in fids.items()))
         z = trainer.truncation_sample(1234, viz_n, args.truncation_sigma)
-        tex, mesh_map = trainer.generate(z, viz_classes)
+        tex, mesh_map = trainer.generate(z, viz_classes, viz_captions)
 
         def f32(a):
             return torch.as_tensor(np.asarray(a), dtype=torch.float32,
@@ -345,6 +386,12 @@ def main(argv=None) -> int:
                               render(f32(viz_real["mesh"]), tex))
             logger.log_images(it, "samples/render_fake_mesh",
                               render(mesh_map, f32(viz_real["texture"])))
+        vocab = getattr(ds, "caption_vocab", None)
+        if viz_captions is not None and vocab is not None:
+            lines = [f"{i}. " + " ".join(vocab[w] for w in row.tolist()
+                                         if w != 0)
+                     for i, row in enumerate(viz_captions)]
+            logger.log_text("sample captions:\n" + "\n".join(lines))
 
     profiler = None
     if args.profile_dir:

@@ -12,8 +12,11 @@ render every ``--image_freq``; Ctrl-C saves ``latest`` and exits 130).
 given, so that the GAN CLI with the same file can read them).
 ``--data_processes N`` decodes the training and pseudo-GT items in N
 worker processes beside the ``--num_workers`` threads.
-``--export_serving`` and ``--multihost`` raise ``NotImplementedError``
-naming the slice that brings them.
+``--export_serving PATH`` restores the checkpoint and writes a
+``torch.export`` artifact of the network alone for each of
+``--export_platforms`` (``serve/export.py``), then exits.
+``--multihost`` raises ``NotImplementedError`` naming the slice that
+brings it.
 
 Examples:
     python -m im23d_tpu_torch.cli.run_reconstruction --name cub_recon \
@@ -59,8 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--evaluate", action="store_true")
     p.add_argument("--continue_train", action="store_true")
     p.add_argument("--which_epoch", type=str, default="latest")
-    p.add_argument("--export_serving", type=str, default=None)
-    p.add_argument("--export_platforms", type=str, default="tpu,cpu")
+    p.add_argument("--export_serving", type=str, default=None,
+                   help="write a torch.export serving artifact of the "
+                        "restored network to this path and exit")
+    p.add_argument("--export_platforms", type=str, default="cuda,cpu",
+                   help="the artifact's programs (cuda, cpu)")
     p.add_argument("--mesh_regularization", type=float, default=5e-5)
     p.add_argument("--epochs", type=int, default=1000)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -87,8 +93,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 # modes of the JAX CLI that later slices of the port bring
 _NOT_PORTED = (
-    ("export_serving", "--export_serving comes with the serving slice "
-     "(torch.export)"),
     ("multihost", "--multihost comes with the multi-GPU slice"),
 )
 
@@ -161,9 +165,19 @@ def main(argv=None, datasets=None) -> int:
     workdir = os.path.join("checkpoints_recon", args.name)
     trainer = ReconTrainer(cfg, dataset_size=len(train_ds), template=template,
                            workdir=workdir, device=args.device)
-    if args.evaluate or args.generate_pseudogt or args.continue_train:
+    if (args.evaluate or args.generate_pseudogt or args.continue_train
+            or args.export_serving):
         trainer.restore(step=None if args.which_epoch in ("latest", "best")
                         else int(args.which_epoch))
+
+    if args.export_serving:
+        from im23d_tpu_torch.serve import export_reconstruction_inference
+
+        export_reconstruction_inference(
+            trainer, args.batch_size, args.export_serving,
+            platforms=tuple(args.export_platforms.split(",")))
+        print(f"wrote serving artifact to {args.export_serving}")
+        return 0
     train_keys = ("image", "scale", "translation", "rotation", "idx")
 
     if args.generate_pseudogt:

@@ -1,7 +1,8 @@
 """JAX params -> the port's ``state_dict``: ``UnsupervisedPart`` /
 ``SupervisedPart`` (Pipeline A), ``ReconstructionNetwork`` and
 ``DatasetParams`` (Pipeline B), the GAN's ``Generator`` and
-``MultiScaleDiscriminator``, ``InceptionV3Features`` (FID).
+``MultiScaleDiscriminator`` (with their ``SpatialAttention``), its
+``TextEncoder``, ``InceptionV3Features`` (FID).
 
 Input is the flax param tree as nested dicts of numpy arrays (what
 ``jax.tree.map(np.asarray, params)`` gives), with or without the top-level
@@ -217,7 +218,16 @@ def generator_state_dict(variables: dict) -> dict:
         if name in p:
             sd[f"{name}.weight"] = _conv_weight(p[name]["kernel"])
             sd[f"{name}.bias"] = _tensor(p[name]["bias"])
+    _attention(sd, "att", p)
     return sd
+
+
+def _attention(sd: dict, name: str, p: dict) -> None:
+    """A ``SpatialAttention`` ``att`` of ``p``, when there is one: its
+    ``conv_context`` kernel (1, 1, words, C) -> (C, words, 1, 1)."""
+    if "att" in p:
+        sd[f"{name}.conv_context.weight"] = _conv_weight(
+            p["att"]["conv_context"]["kernel"])
 
 
 def discriminator_state_dict(variables: dict) -> dict:
@@ -238,6 +248,34 @@ def discriminator_state_dict(variables: dict) -> dict:
         for emb in ("projector", "projector_col1"):
             if emb in dp:
                 sd[f"{d}.{emb}.weight"] = _tensor(dp[emb]["embedding"])
+        _attention(sd, f"{d}.att", dp)
+    return sd
+
+
+def text_encoder_state_dict(params: dict) -> dict:
+    """Flax ``TextEncoder`` params -> the port's ``TextEncoder.state_dict``
+    (AttnGAN's names): ``embed`` -> ``encoder.weight``; the forward cell
+    ``OptimizedLSTMCell_0`` -> ``rnn.*_l0`` and the backward
+    ``OptimizedLSTMCell_1`` -> ``rnn.*_l0_reverse``, their gate rows
+    [i, f, g, o] stacked from the transposed ``i*`` (input) and ``h*``
+    (hidden) kernels; ``bias_ih`` is the ``h*`` biases and ``bias_hh`` 0
+    (flax carries one bias a gate)."""
+    p = params.get("params", params)
+    sd: dict[str, torch.Tensor] = {
+        "encoder.weight": _tensor(p["embed"]["embedding"])}
+    for cell, suffix in (("OptimizedLSTMCell_0", ""),
+                         ("OptimizedLSTMCell_1", "_reverse")):
+        c = p[cell]
+        sd[f"rnn.weight_ih_l0{suffix}"] = torch.from_numpy(np.concatenate(
+            [np.asarray(c[f"i{g}"]["kernel"], np.float32).T
+             for g in "ifgo"]).copy())
+        sd[f"rnn.weight_hh_l0{suffix}"] = torch.from_numpy(np.concatenate(
+            [np.asarray(c[f"h{g}"]["kernel"], np.float32).T
+             for g in "ifgo"]).copy())
+        bias = np.concatenate([np.asarray(c[f"h{g}"]["bias"], np.float32)
+                               for g in "ifgo"])
+        sd[f"rnn.bias_ih_l0{suffix}"] = torch.from_numpy(bias)
+        sd[f"rnn.bias_hh_l0{suffix}"] = torch.zeros(bias.shape[0])
     return sd
 
 

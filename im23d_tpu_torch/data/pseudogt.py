@@ -6,7 +6,10 @@ Read ``<cache>/poses_metadata.npz`` and the per-index
 augmentation, carry class labels and the per-dataset suggestions.  Items
 and batches are NHWC numpy arrays; the GAN trainer makes tensors of them.
 The per-item npz is read with ``np.load`` (the JAX package's native decode
-pool is not copied).  Captions (``conditional_text``) are not ported.
+pool is not copied).  With ``conditional_text`` the caption cache
+``<cache>/captions_tokens.npz`` (``data/captions.py``) gives each item one
+of its image's captions, ``caption`` (L,) int32, drawn after the mirror
+from the same (seed, epoch, idx) stream.
 """
 
 from __future__ import annotations
@@ -37,19 +40,25 @@ class PseudoGTDataset:
                  augment: bool = True, evaluate: bool = False,
                  conditional_class: bool = False,
                  conditional_text: bool = False, seed: int = 0):
-        if conditional_text:
-            raise NotImplementedError("conditional_text (the caption cache) "
-                                      "is not ported yet")
         self.cache_dir = cache_dir
         self.texture_resolution = texture_resolution
         self.augment = augment
         self.evaluate = evaluate
         self.conditional_class = conditional_class
-        self.conditional_text = False
+        self.conditional_text = conditional_text
         self._seed = seed
         self._epoch = 0
         self.caption_tokens = None
         self.n_words = 0
+        if conditional_text:
+            # tokens (N, E, L) int32: E captions an image, 0-padded; the
+            # index -> word table, when the cache has one, names the grid
+            # samples' captions in the log
+            with np.load(os.path.join(cache_dir, "captions_tokens.npz")) as cap:
+                self.caption_tokens = cap["tokens"].astype(np.int32)
+                self.n_words = int(cap["n_words"])
+                self.caption_vocab = ([str(w) for w in cap["vocab"]]
+                                      if "vocab" in cap else None)
 
         meta = np.load(os.path.join(cache_dir, "poses_metadata.npz"),
                        allow_pickle=True)
@@ -125,10 +134,17 @@ class PseudoGTDataset:
         """``__getitem__`` with the augmentation epoch given explicitly."""
         item = self.load_pseudo_ground_truth(idx, with_image=False)
         rng = self._item_rng(idx, epoch)
-        if self.augment and not self.evaluate and rng.integers(2) == 1:
+        # the mirror draw is skipped without augmentation, then the caption
+        # draw: the JAX order, so items match for every flag
+        mirror = self.augment and not self.evaluate and rng.integers(2) == 1
+        e = (int(rng.integers(self.caption_tokens.shape[1]))
+             if self.caption_tokens is not None else 0)
+        if mirror:
             item = {k: mirror_tex_nhwc(v) for k, v in item.items()}
         if self.conditional_class:
             item["c"] = np.asarray(self.classes[idx], np.int32)
+        if self.caption_tokens is not None:
+            item["caption"] = self.caption_tokens[idx, e]
         item["idx"] = np.int32(idx)
         return item
 
@@ -255,9 +271,10 @@ def gan_batch_iterator(dataset: PseudoGTDataset, batch_size: int,
                        shuffle: bool = True, seed: int = 0,
                        num_workers: int = 4) -> Iterator[dict]:
     """Epoch iterator of GAN training batches, NHWC numpy: texture
-    (B, H, W, 3), alpha (B, H, W, 1), mesh (B, h, w, 3), optional c; the
-    last partial batch dropped.  ``num_workers`` threads build batches
-    ahead (``data/prefetch.py``); ``seed`` is the epoch."""
+    (B, H, W, 3), alpha (B, H, W, 1), mesh (B, h, w, 3), optional c and
+    caption (B, L); the last partial batch dropped.  ``num_workers``
+    threads build batches ahead (``data/prefetch.py``); ``seed`` is the
+    epoch."""
     from im23d_tpu_torch.data.prefetch import prefetched_batches
 
     rng = np.random.RandomState(seed)
@@ -280,8 +297,9 @@ def gan_batch_iterator(dataset: PseudoGTDataset, batch_size: int,
             texture=np.stack([it["texture"] for it in items]),
             alpha=np.stack([it["texture_alpha"] for it in items]),
             mesh=np.stack([it["mesh"] for it in items]))
-        if "c" in items[0]:
-            batch["c"] = np.stack([it["c"] for it in items])
+        for key in ("c", "caption"):
+            if key in items[0]:
+                batch[key] = np.stack([it[key] for it in items])
         return batch
 
     yield from prefetched_batches(index_batches, build, num_workers)

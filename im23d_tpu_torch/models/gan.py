@@ -27,8 +27,16 @@ reduces in float32; the texture leaves in the compute dtype, the mesh map
 and the critics' outputs in float32.  The texture head is kernel K8 on
 CUDA and each ResBlockUp's conv2, with norm1 and its leaky ReLU folded
 in, is kernel K9 (``ops/conv.py``); on the CPU both are their plain
-versions.  ``conditional_text`` and ``wide_hires`` are not
-ported and raise ``NotImplementedError``.
+versions.  ``wide_hires`` is not ported and raises
+``NotImplementedError``.
+
+``conditional_text`` adds ``SpatialAttention`` (word / region attention
+over the text encoder's word features, ``att`` with its ``conv_context``)
+to the generator after ``blk2`` and, without class conditioning, to each
+critic's last feature map, whose text term is Σ_c h·att; the critics then
+stride their first conv at every resolution.  The generator and critics
+take the caption as (word features (B, L, text_embedding_dim), padding
+mask (B, L) True where padded), or None.
 """
 
 from __future__ import annotations
@@ -77,10 +85,6 @@ class GANConfig:
     wide_hires: bool = False
 
     def __post_init__(self):
-        if self.conditional_text:
-            raise NotImplementedError(
-                "conditional_text (SpatialAttention, the text encoder and "
-                "the caption cache) is not ported yet")
         if self.wide_hires:
             raise NotImplementedError("wide_hires is not ported")
         if self.num_discriminators not in (2, 3):
@@ -240,6 +244,37 @@ class ResBlockUp(nn.Module):
         return h + shortcut
 
 
+class SpatialAttention(nn.Module):
+    """AttnGAN-style word / region attention: a 1 × 1 ``conv_context`` (no
+    bias) takes the word features to the map's channels, the logits q·ctxᵀ
+    are formed in float32 from the compute-dtype operands (the JAX
+    version's ``preferred_element_type``), padded words get − 1e4, the
+    softmax over words runs in float32 and attn·ctx in the compute dtype.
+    """
+
+    def __init__(self, ctx_dim: int, ch: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.conv_context = nn.Conv2d(ctx_dim, ch, 1, bias=False)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                mask: torch.Tensor | None = None):
+        """x (B, C, H, W), context (B, L, ctx_dim), mask (B, L) True where
+        padded -> (out (B, C, H, W) in the compute dtype, attention map
+        (B, H, W, L) float32)."""
+        B, C, H, W = x.shape
+        w = self.conv_context.weight[:, :, 0, 0].to(self.dtype)
+        ctx = F.linear(context.to(self.dtype), w)  # (B, L, C)
+        q = x.reshape(B, C, H * W).transpose(1, 2)
+        attn = torch.matmul(q.float(), ctx.float().transpose(1, 2))
+        if mask is not None:
+            attn = attn - 1e4 * mask[:, None, :].float()
+        attn = torch.softmax(attn, dim=-1)
+        out = torch.matmul(attn.to(ctx.dtype), ctx)  # (B, HW, C)
+        return (out.transpose(1, 2).reshape(B, C, H, W),
+                attn.reshape(B, H, W, -1))
+
+
 class HeadConvTanh(nn.Module):
     """``conv_final`` + tanh: (3, C, 5, 5) weight and bias, kernel K8 on
     CUDA, the plain conv on the CPU."""
@@ -283,6 +318,8 @@ class Generator(nn.Module):
 
         self.blk1 = blk(512, 512)
         self.blk2 = blk(512, 256)
+        if cfg.conditional_text:
+            self.att = SpatialAttention(cfg.text_embedding_dim, 256, cfg.dtype)
         self.tex_stages = [n for n, r in (("blk3a", 256), ("blk3b", 512),
                                           ("blk3c", 1024))
                            if cfg.texture_resolution >= r]
@@ -296,7 +333,10 @@ class Generator(nn.Module):
             self.blk3_mesh = blk(256, 64)
             self.conv_mesh = nn.Conv2d(64, 3, 5, padding=(2, 0))
 
-    def forward(self, z: torch.Tensor, c: torch.Tensor | None = None):
+    def forward(self, z: torch.Tensor, c: torch.Tensor | None = None,
+                caption=None, return_attention: bool = False):
+        """-> (texture, mesh map), and the attention map (B, 16, W, L)
+        mirrored as the texture, or None, when ``return_attention``."""
         cfg = self.cfg
         dt = cfg.dtype
         if cfg.conditional_class:
@@ -311,7 +351,12 @@ class Generator(nn.Module):
         z = z.to(dt)
         x = _linear(self.fc, z).reshape(z.shape[0], 512, 8, self.base_w)
         x = upsample_nearest(self.blk1(x, z))
-        x = upsample_nearest(self.blk2(x, z))
+        x = self.blk2(x, z)
+        attn_map = None
+        if cfg.conditional_text and caption is not None:
+            att_out, attn_map = self.att(x, caption[0], caption[1])
+            x = x + att_out
+        x = upsample_nearest(x)
 
         x_tex = x
         for name in self.tex_stages:
@@ -333,8 +378,10 @@ class Generator(nn.Module):
             tex = symmetrize_texture(tex)
             if mesh is not None:
                 mesh = symmetrize_texture(mesh)
-        return tex.contiguous(), (None if mesh is None
-                                  else mesh.contiguous())
+            if attn_map is not None:
+                attn_map = symmetrize_texture(attn_map)
+        out = tex.contiguous(), (None if mesh is None else mesh.contiguous())
+        return (*out, attn_map) if return_attention else out
 
 
 class _InstanceNormAffine(nn.Module):
@@ -360,7 +407,7 @@ def _pe(h: int, w: int, like: torch.Tensor) -> torch.Tensor:
 
 class _Critic(nn.Module):
     """Shared tail of both critics: the spectral-norm conv stack, the
-    optional instance norms and the class projection."""
+    optional instance norms and the class projection or text term."""
 
     def _norm(self, name: str, h: torch.Tensor) -> torch.Tensor:
         norm = getattr(self, name, None)
@@ -371,8 +418,13 @@ class _Critic(nn.Module):
         dtype (the instance norms leave float32, as flax's GroupNorm)."""
         return conv(circular_pad_w(h.to(self.cfg.dtype), pad))
 
-    def _project(self, y, h, c):
+    def _project(self, y, h, c, caption):
+        """The class projection, or without class conditioning the text
+        term Σ_c h·att(h, caption)."""
         if not self.cfg.conditional_class:
+            if self.cfg.conditional_text and caption is not None:
+                att_out, _ = self.att(h, caption[0], caption[1])
+                y = y + (h * att_out).float().sum(dim=1, keepdim=True)
             return y
         c = c.long()
         emb = self.projector(c[:, 0])
@@ -392,6 +444,8 @@ class _Critic(nn.Module):
             self.projector = nn.Embedding(cfg.n_classes[0], ch)
             if cfg.conditional_color:
                 self.projector_col1 = nn.Embedding(cfg.n_classes[1], ch)
+        elif cfg.conditional_text:
+            self.att = SpatialAttention(cfg.text_embedding_dim, ch, cfg.dtype)
 
 
 class TextureDiscriminator(_Critic):
@@ -402,7 +456,8 @@ class TextureDiscriminator(_Critic):
         self.cfg = cfg
         self.downsample = downsample
         self.stride_first = ((downsample == 1 and cfg.texture_resolution >= 512)
-                             or cfg.texture_resolution >= 1024)
+                             or cfg.texture_resolution >= 1024
+                             or cfg.conditional_text)
         bias = cfg.norm_d != "instance"
         if self.stride_first:
             self.conv1 = SNConv2d(8, 64, 4, stride=2, padding=(1, 0))
@@ -415,7 +470,7 @@ class TextureDiscriminator(_Critic):
         self._make_norms(cfg, (("bn2", 128), ("bn3", 256), ("bn4", 512)))
         self._make_projector(cfg, 512)
 
-    def forward(self, x, c=None, alpha=None):
+    def forward(self, x, c=None, alpha=None, caption=None):
         """x (B, H, W, 4) NHWC; alpha (B, H, W, 1), the channel 3 of x
         when given -> (prediction (B, 1, h, w) float32, mask or None)."""
         cfg = self.cfg
@@ -433,7 +488,7 @@ class TextureDiscriminator(_Critic):
         h = leaky_relu(self._norm("bn3", self._conv(self.conv3, h, 1)))
         h = leaky_relu(self._norm("bn4", self._conv(self.conv4, h, 1)))
         y = self._conv(self.conv5, h, 2).float()
-        return self._project(y, h, c), mask
+        return self._project(y, h, c, caption), mask
 
 
 class MeshDiscriminator(_Critic):
@@ -451,7 +506,7 @@ class MeshDiscriminator(_Critic):
         self._make_norms(cfg, (("bn2", 128), ("bn3", 256)))
         self._make_projector(cfg, 256)
 
-    def forward(self, texture, mesh_map, c=None, alpha=None):
+    def forward(self, texture, mesh_map, c=None, alpha=None, caption=None):
         cfg = self.cfg
         pool = texture.shape[1] // mesh_map.shape[1]
         x = avg_pool_box(texture.permute(0, 3, 1, 2), pool)
@@ -466,7 +521,7 @@ class MeshDiscriminator(_Critic):
         h = leaky_relu(self._norm("bn2", self._conv(self.conv2, h, 1)))
         h = leaky_relu(self._norm("bn3", self._conv(self.conv3, h, 1)))
         y = self._conv(self.conv4, h, 2).float()
-        return self._project(y, h, c), mask
+        return self._project(y, h, c, caption), mask
 
 
 class MultiScaleDiscriminator(nn.Module):
@@ -482,15 +537,15 @@ class MultiScaleDiscriminator(nn.Module):
         if cfg.num_discriminators == 3:
             self.d3 = TextureDiscriminator(cfg, 4)
 
-    def forward(self, x, mesh_map=None, c=None, alpha=None):
+    def forward(self, x, mesh_map=None, c=None, alpha=None, caption=None):
         """-> (predictions, masks), one of each per critic."""
-        outs = [self.d1(x, c, alpha)]
+        outs = [self.d1(x, c, alpha, caption)]
         if self.cfg.texture_only:
-            outs.append(self.d2(x, c, alpha))
+            outs.append(self.d2(x, c, alpha, caption))
         else:
-            outs.append(self.d2(x, mesh_map, c, alpha))
+            outs.append(self.d2(x, mesh_map, c, alpha, caption))
         if self.cfg.num_discriminators == 3:
-            outs.append(self.d3(x, c, alpha))
+            outs.append(self.d3(x, c, alpha, caption))
         return [o[0] for o in outs], [o[1] for o in outs]
 
 

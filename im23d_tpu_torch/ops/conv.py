@@ -7,7 +7,7 @@ The head is a 5×5 conv to 3 channels, zero H padding and replicate or
 circular W padding, plus bias and tanh.
 
 ``head_conv_tanh`` runs the plain ``head_conv_tanh_torch`` on CPU tensors
-and, on CUDA tensors, the autograd Function ``_HeadConv``: kernel K8's
+and, on CUDA tensors, the custom op ``im23d::head_conv_tanh``: kernel K8's
 forward (``csrc/head_conv.cu``: bf16 tensor-core products for bfloat16 x,
 float32 FMA sums for float32 x) and, as its backward, g = dy·(1 − y²),
 db = Σ g, dW from K8's dW kernel and dx from cuDNN's transpose conv folded
@@ -21,10 +21,19 @@ dtype: by the forward kernel itself, and by ``head_conv_dx`` for dx.
 per-(batch, channel) float32 rows (a conditional norm folded into one
 multiply-add) or both None, with zero H padding and replicate or circular
 W padding.  It runs the plain ``fused_affine_conv3x3_torch`` on CPU
-tensors and, on CUDA tensors, the autograd Function ``_FusedConv``:
-kernel K9's forward (``csrc/fused_conv.cu``) and, as its backward, the
-JAX version's XLA VJP written in PyTorch (cuDNN's transpose conv and
-weight gradient, their operands in x's type).
+tensors and, on CUDA tensors, the custom op
+``im23d::fused_affine_conv3x3``: kernel K9's forward
+(``csrc/fused_conv.cu``) and, as its backward, the JAX version's XLA VJP
+written in PyTorch (cuDNN's transpose conv and weight gradient, their
+operands in x's type).
+
+Both ops are ``torch.library`` custom ops, so ``torch.export`` keeps each
+as one node of the graph it traces (``serve/export.py``); importing this
+module registers them, and K8's dW as ``im23d::head_conv_dw``, which the
+head op's backward calls.  An op's CUDA implementation launches its kernel
+or raises, its CPU implementation is the plain version (the rule for a CPU
+tensor), its fake implementation gives the output's shape and dtype, and
+its autograd formula is the backward above on either device.
 """
 
 from __future__ import annotations
@@ -209,33 +218,70 @@ def head_conv_dx(g: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
     return _fold_w_pad(dxp, PAD, pad_mode)
 
 
-class _HeadConv(torch.autograd.Function):
-    """K8 forward; backward: g = dy·(1 − y²), db = Σ g, dW by K8's dW
-    kernel, dx by ``head_conv_dx``."""
+@torch.library.custom_op("im23d::head_conv_tanh", mutates_args=(),
+                         device_types="cuda")
+def _head_conv_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  pad_mode: str) -> torch.Tensor:
+    """K8 forward (``head_conv_kernel``)."""
+    return head_conv_kernel(x, weight.float().contiguous(),
+                            bias.float().contiguous(), pad_mode)
 
-    @staticmethod
-    def forward(ctx, x, weight, bias, pad_mode):
-        y = head_conv_kernel(x, weight.detach().float().contiguous(),
-                             bias.detach().float().contiguous(), pad_mode)
-        ctx.save_for_backward(x, weight, y)
-        ctx.pad_mode = pad_mode
-        ctx.param_dtypes = (weight.dtype, bias.dtype)
-        return y
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, w, y = ctx.saved_tensors
-        yf = y.float()
-        g = (dy.float() * (1.0 - yf * yf)).contiguous()
-        dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = head_conv_dx(g, w, x.dtype, ctx.pad_mode)
-        if ctx.needs_input_grad[1]:
-            dw = head_conv_dw_kernel(x, g, ctx.pad_mode).to(
-                ctx.param_dtypes[0])
-        if ctx.needs_input_grad[2]:
-            db = g.sum(dim=(0, 2, 3)).to(ctx.param_dtypes[1])
-        return dx, dw, db, None
+@torch.library.custom_op("im23d::head_conv_dw", mutates_args=(),
+                         device_types="cuda")
+def _head_conv_dw_op(x: torch.Tensor, g: torch.Tensor,
+                     pad_mode: str) -> torch.Tensor:
+    """K8 dW (``head_conv_dw_kernel``), opaque to tracers, so the head
+    op's backward traces."""
+    return head_conv_dw_kernel(x, g, pad_mode)
+
+
+@_head_conv_dw_op.register_kernel("cpu")
+def _head_conv_dw_cpu(x, g, pad_mode):
+    return head_conv_dw_torch(x, g, pad_mode)
+
+
+@_head_conv_dw_op.register_fake
+def _head_conv_dw_fake(x, g, pad_mode):
+    return x.new_empty((COUT, x.shape[1], KSIZE, KSIZE), dtype=torch.float32)
+
+
+@_head_conv_op.register_kernel("cpu")
+def _head_conv_cpu(x, weight, bias, pad_mode):
+    return head_conv_tanh_torch(x, weight, bias, pad_mode)
+
+
+@_head_conv_op.register_fake
+def _head_conv_fake(x, weight, bias, pad_mode):
+    return x.new_empty((x.shape[0], COUT, x.shape[2], x.shape[3]))
+
+
+def _head_conv_setup(ctx, inputs, output):
+    x, weight, bias, pad_mode = inputs
+    ctx.save_for_backward(x, weight, output)
+    ctx.pad_mode = pad_mode
+    ctx.param_dtypes = (weight.dtype, bias.dtype)
+
+
+def _head_conv_backward(ctx, dy):
+    """g = dy·(1 − y²), db = Σ g, dW by K8's dW kernel (the op
+    ``im23d::head_conv_dw``: its plain version for CPU tensors), dx by
+    ``head_conv_dx``."""
+    x, w, y = ctx.saved_tensors
+    yf = y.float()
+    g = (dy.float() * (1.0 - yf * yf)).contiguous()
+    dx = dw = db = None
+    if ctx.needs_input_grad[0]:
+        dx = head_conv_dx(g, w, x.dtype, ctx.pad_mode)
+    if ctx.needs_input_grad[1]:
+        dw = _head_conv_dw_op(x, g, ctx.pad_mode).to(ctx.param_dtypes[0])
+    if ctx.needs_input_grad[2]:
+        db = g.sum(dim=(0, 2, 3)).to(ctx.param_dtypes[1])
+    return dx, dw, db, None
+
+
+_head_conv_op.register_autograd(_head_conv_backward,
+                                setup_context=_head_conv_setup)
 
 
 def head_conv_tanh(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -244,7 +290,7 @@ def head_conv_tanh(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     CUDA, K8 forward with K8's dW in the gradient."""
     if x.device.type == "cpu":
         return head_conv_tanh_torch(x, weight, bias, pad_mode)
-    return _HeadConv.apply(x.contiguous(), weight, bias, pad_mode)
+    return _head_conv_op(x.contiguous(), weight, bias, pad_mode)
 
 
 # --- K9: folded affine + leaky ReLU + 3×3 conv ------------------------------
@@ -486,26 +532,41 @@ def _fused_conv_bwd(x, a, b, weight, dy, pad_mode, needs):
     return dx, da, db, dw
 
 
-class _FusedConv(torch.autograd.Function):
-    """K9 forward (the plain forward for CPU tensors, so that the backward
-    formula runs on the CPU too); backward ``_fused_conv_bwd``."""
+@torch.library.custom_op("im23d::fused_affine_conv3x3", mutates_args=(),
+                         device_types="cuda")
+def _fused_conv_op(x: torch.Tensor, a: torch.Tensor | None,
+                   b: torch.Tensor | None, weight: torch.Tensor,
+                   pad_mode: str) -> torch.Tensor:
+    """K9 forward (``fused_affine_conv3x3_kernel``)."""
+    return fused_affine_conv3x3_kernel(x, a, b, weight, pad_mode)
 
-    @staticmethod
-    def forward(ctx, x, a, b, weight, pad_mode):
-        fwd = (fused_affine_conv3x3_torch if x.device.type == "cpu"
-               else fused_affine_conv3x3_kernel)
-        y = fwd(x, None if a is None else a.detach(),
-                None if b is None else b.detach(), weight.detach(), pad_mode)
-        ctx.save_for_backward(x, a, b, weight)
-        ctx.pad_mode = pad_mode
-        return y
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, a, b, weight = ctx.saved_tensors
-        dx, da, db, dw = _fused_conv_bwd(
-            x, a, b, weight, dy, ctx.pad_mode, ctx.needs_input_grad[:4])
-        return dx, da, db, dw, None
+@_fused_conv_op.register_kernel("cpu")
+def _fused_conv_cpu(x, a, b, weight, pad_mode):
+    return fused_affine_conv3x3_torch(x, a, b, weight, pad_mode)
+
+
+@_fused_conv_op.register_fake
+def _fused_conv_fake(x, a, b, weight, pad_mode):
+    return x.new_empty((x.shape[0], weight.shape[0], x.shape[2], x.shape[3]))
+
+
+def _fused_conv_setup(ctx, inputs, output):
+    x, a, b, weight, pad_mode = inputs
+    ctx.save_for_backward(x, a, b, weight)
+    ctx.pad_mode = pad_mode
+
+
+def _fused_conv_backward(ctx, dy):
+    """``_fused_conv_bwd``."""
+    x, a, b, weight = ctx.saved_tensors
+    dx, da, db, dw = _fused_conv_bwd(
+        x, a, b, weight, dy, ctx.pad_mode, ctx.needs_input_grad[:4])
+    return dx, da, db, dw, None
+
+
+_fused_conv_op.register_autograd(_fused_conv_backward,
+                                 setup_context=_fused_conv_setup)
 
 
 def fused_affine_conv3x3(x: torch.Tensor, a: torch.Tensor | None,
@@ -519,4 +580,4 @@ def fused_affine_conv3x3(x: torch.Tensor, a: torch.Tensor | None,
     _check_affine(a, b)
     if a is not None:
         a, b = a.contiguous(), b.contiguous()
-    return _FusedConv.apply(x.contiguous(), a, b, weight, pad_mode)
+    return _fused_conv_op(x.contiguous(), a, b, weight, pad_mode)

@@ -176,9 +176,10 @@ def val_fids(acts: dict, val_stats, rng: np.random.RandomState) -> dict:
 
 def export_results(gan_trainer, template, out_dir: str, n_samples: int = 16,
                    truncation_sigma: float = 1.0, classes=None, poses=None,
-                   render_res: int = 512) -> list[str]:
+                   caption_tokens=None, render_res: int = 512) -> list[str]:
     """``--save_results``: obj / mtl / png per sample (Y-up, the reference's
-    Y/Z swap) and, with ``poses`` (scale / translation / rotation arrays),
+    Y/Z swap), conditioned on ``classes`` and ``caption_tokens`` (B, L)
+    where given, and, with ``poses`` (scale / translation / rotation arrays),
     the samples rendered under them on white, 2× average-pooled, tiled in
     rows of 8 into ``<out_dir>.png``.  Returns the written .obj paths and
     the grid's."""
@@ -186,7 +187,7 @@ def export_results(gan_trainer, template, out_dir: str, n_samples: int = 16,
 
     os.makedirs(out_dir, exist_ok=True)
     z = gan_trainer.truncation_sample(0, n_samples, truncation_sigma)
-    tex, mesh_map = gan_trainer.generate(z, classes)
+    tex, mesh_map = gan_trainer.generate(z, classes, caption_tokens)
     with torch.no_grad():
         vtx = template.get_vertex_positions(mesh_map)
     tex01 = (tex / 2.0 + 0.5).cpu().numpy()

@@ -19,10 +19,15 @@
   iteration), drawn on the CPU, so a run is reproducible and a resumed run
   draws what the uninterrupted one drew; the steps take ``z`` as an
   argument too.  ``truncation_sample`` resamples components above sigma.
+* ``conditional_text``: a frozen ``TextEncoder`` (vocabulary
+  ``text_vocab_size``, width ``text_embedding_dim``, seeded at init or
+  replaced by ``set_text_encoder``) turns a batch's ``caption`` tokens
+  into word features and a padding mask for the generator and critics;
+  the D step doubles them for its fake + real batch.
 * Checkpoints ``checkpoint_<it>.pt`` (or the rolling ``latest``) under
   ``<workdir>/checkpoints`` hold both networks, the EMA generator, both
-  optimizers, ``total_it`` and ``epoch``; ``curves_<step>.npz`` beside them
-  the loss curves.
+  optimizers, the text encoder, ``total_it`` and ``epoch``;
+  ``curves_<step>.npz`` beside them the loss curves.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from im23d_tpu_torch.core.checkpoint import (
 from im23d_tpu_torch.core.convert import (
     discriminator_state_dict,
     generator_state_dict,
+    text_encoder_state_dict,
 )
 from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
 from im23d_tpu_torch.losses.gan_losses import flatness_loss, gan_loss
@@ -51,12 +57,16 @@ from im23d_tpu_torch.models.gan import (
     MultiScaleDiscriminator,
     gan_init_,
 )
+from im23d_tpu_torch.models.text_encoder import (
+    TextEncoder,
+    caption_mask,
+    text_encoder_init_,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class GANTrainConfig:
-    """The JAX ``GANTrainConfig``'s fields and defaults, less the text
-    encoder's."""
+    """The JAX ``GANTrainConfig``'s fields and defaults."""
 
     model: GANConfig = dataclasses.field(default_factory=GANConfig)
     lr_g: float = 1e-4
@@ -69,6 +79,8 @@ class GANTrainConfig:
     lr_decay_after: int = 1000
     batch_size: int = 32
     seed: int = 0
+    text_vocab_size: int = 5450
+    text_max_length: int = 18
 
 
 def truncation_sample(gen: torch.Generator, n: int, dim: int,
@@ -109,6 +121,15 @@ class GANTrainer:
         self.generator.to(self.device).eval()
         self.discriminator.to(self.device).eval()
         self.g_ema = copy.deepcopy(self.generator).requires_grad_(False)
+        self.text_encoder = None
+        if self.mcfg.conditional_text:
+            dim = self.mcfg.text_embedding_dim
+            self.text_encoder = TextEncoder(config.text_vocab_size, dim,
+                                            dim // 2)
+            seed = np.random.SeedSequence([config.seed, 7]).generate_state(1)
+            text_encoder_init_(self.text_encoder,
+                               torch.Generator().manual_seed(int(seed[0])))
+            self._freeze_text_encoder()
         self.opt_g = torch.optim.Adam(self.generator.parameters(),
                                       lr=config.lr_g, betas=(0.0, 0.9),
                                       eps=1e-8)
@@ -123,15 +144,44 @@ class GANTrainer:
     # -- weights --------------------------------------------------------------
 
     def load_variables(self, g_vars: dict, d_vars: dict | None = None,
-                       ema_vars: dict | None = None) -> None:
+                       ema_vars: dict | None = None,
+                       te_params: dict | None = None) -> None:
         """Load the JAX package's generator (and critics', EMA's) variables
-        ``{params, batch_stats}`` as nested numpy dicts; the EMA generator
-        takes ``ema_vars`` or a copy of the generator."""
+        ``{params, batch_stats}`` and text encoder params as nested numpy
+        dicts; the EMA generator takes ``ema_vars`` or a copy of the
+        generator."""
         self.generator.load_state_dict(generator_state_dict(g_vars))
         if d_vars is not None:
             self.discriminator.load_state_dict(discriminator_state_dict(d_vars))
         self.g_ema.load_state_dict(generator_state_dict(ema_vars) if ema_vars
                                    else self.generator.state_dict())
+        if te_params is not None:
+            self.text_encoder.load_state_dict(
+                text_encoder_state_dict(te_params))
+
+    def _freeze_text_encoder(self) -> None:
+        self.text_encoder.to(self.device).eval().requires_grad_(False)
+
+    def set_text_encoder(self, state_dict: dict, vocab_size: int,
+                         embedding_dim: int, hidden_dim: int) -> None:
+        """Swap in pretrained text-encoder weights, an AttnGAN
+        ``RNN_Encoder`` state dict (``encoder.*``, ``rnn.*``; other keys
+        are ignored), frozen.  Raises ``ValueError`` unless the model is
+        text-conditional and the encoder's word features (2·hidden_dim)
+        are as wide as ``text_embedding_dim``."""
+        if not self.mcfg.conditional_text:
+            raise ValueError("the model is not text-conditional")
+        if 2 * hidden_dim != self.mcfg.text_embedding_dim:
+            raise ValueError(
+                f"the pretrained encoder gives {2 * hidden_dim}-dim word "
+                f"features but the GAN was built for "
+                f"{self.mcfg.text_embedding_dim}")
+        enc = TextEncoder(vocab_size, embedding_dim, hidden_dim)
+        enc.load_state_dict({k: torch.as_tensor(v) for k, v in
+                             state_dict.items()
+                             if k.startswith(("encoder.", "rnn."))})
+        self.text_encoder = enc
+        self._freeze_text_encoder()
 
     # -- schedules --------------------------------------------------------------
 
@@ -166,8 +216,18 @@ class GANTrainer:
         for k, v in batch.items():
             t = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
             t = t.to(self.device, non_blocking=True)
-            out[k] = t.long() if k in ("c", "idx") else t.to(self.mcfg.dtype)
+            out[k] = (t.long() if k in ("c", "idx", "caption")
+                      else t.to(self.mcfg.dtype))
         return out
+
+    def encode_caption(self, tokens: torch.Tensor | None):
+        """Caption tokens (B, L) -> (word features, padding mask) from the
+        frozen encoder, or None without tokens or a text encoder."""
+        if tokens is None or self.text_encoder is None:
+            return None
+        with torch.no_grad():
+            words, _ = self.text_encoder(tokens)
+        return words, caption_mask(tokens)
 
     def sample_z(self, n: int) -> torch.Tensor:
         """The iteration's latent draw, (n, latent_dim) on the device."""
@@ -176,8 +236,8 @@ class GANTrainer:
         return torch.randn((n, self.mcfg.latent_dim), generator=gen).to(
             self.device)
 
-    def _fake(self, z, c, alpha):
-        tex, mesh = self.generator(z, c)
+    def _fake(self, z, c, alpha, caption):
+        tex, mesh = self.generator(z, c, caption)
         return torch.cat([tex * alpha, alpha], dim=-1), mesh
 
     def g_step(self, nb: dict, z: torch.Tensor, lr_factor: float = 1.0
@@ -189,8 +249,9 @@ class GANTrainer:
         D.requires_grad_(False)
         try:
             c, alpha = nb.get("c"), nb["alpha"]
-            x_fake, mesh = self._fake(z, c, alpha)
-            preds, masks = D(x_fake, mesh, c, alpha=alpha)
+            caption = self.encode_caption(nb.get("caption"))
+            x_fake, mesh = self._fake(z, c, alpha, caption)
+            preds, masks = D(x_fake, mesh, c, alpha=alpha, caption=caption)
             loss_gan = gan_loss(preds, True, False, masks, self._d_weights(),
                                 cfg.loss)
             flat = torch.zeros((), device=self.device)
@@ -219,15 +280,19 @@ class GANTrainer:
         D.train()
         try:
             c, alpha = nb.get("c"), nb["alpha"]
+            caption = self.encode_caption(nb.get("caption"))
             with torch.no_grad():
-                x_fake, mesh = self._fake(z, c, alpha)
+                x_fake, mesh = self._fake(z, c, alpha, caption)
             x_real = torch.cat([nb["texture"], alpha], dim=-1)
             x_comb = torch.cat([x_fake, x_real], dim=0)
             c_comb = None if c is None else torch.cat([c, c], dim=0)
             mesh_comb = (None if mesh is None else
                          torch.cat([mesh, nb["mesh"].float()], dim=0))
+            caption_comb = (None if caption is None else
+                            tuple(torch.cat([t, t], dim=0) for t in caption))
             preds, masks = D(x_comb, mesh_comb, c_comb,
-                             alpha=torch.cat([alpha, alpha], dim=0))
+                             alpha=torch.cat([alpha, alpha], dim=0),
+                             caption=caption_comb)
             B = x_fake.shape[0]
             w = self._d_weights()
             loss_fake = gan_loss([p[:B] for p in preds], False, True,
@@ -270,16 +335,25 @@ class GANTrainer:
 
     # -- inference ----------------------------------------------------------
 
+    def _long(self, a) -> torch.Tensor:
+        """A host array or a tensor on any device -> int64 on the device."""
+        t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
+        return t.to(self.device).long()
+
     @torch.no_grad()
-    def generate(self, z: torch.Tensor, c=None):
+    def generate(self, z: torch.Tensor, c=None, caption_tokens=None):
         """EMA generator in eval mode: (texture (B, T, T, 3), mesh map
-        (B, m, m, 3) or None), float32."""
+        (B, m, m, 3) or None), float32; ``caption_tokens`` (B, L) go
+        through the text encoder."""
         z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
         if c is not None:
-            c = torch.as_tensor(np.asarray(c), device=self.device).long()
+            c = self._long(c)
             if c.dim() == 1:
                 c = c[:, None]
-        tex, mesh = self.g_ema(z, c)
+        caption = None
+        if caption_tokens is not None:
+            caption = self.encode_caption(self._long(caption_tokens))
+        tex, mesh = self.g_ema(z, c, caption)
         return tex.float(), None if mesh is None else mesh.float()
 
     def truncation_sample(self, seed: int, n: int, sigma: float
@@ -310,7 +384,9 @@ class GANTrainer:
             g=self.generator.state_dict(), d=self.discriminator.state_dict(),
             g_ema=self.g_ema.state_dict(), opt_g=self.opt_g.state_dict(),
             opt_d=self.opt_d.state_dict(), total_it=self.total_it,
-            epoch=self.epoch))
+            epoch=self.epoch,
+            te=(None if self.text_encoder is None
+                else self.text_encoder.state_dict())))
         np.savez(os.path.join(d, f"curves_{step}.npz"),
                  **{k: np.asarray(v, np.float32)
                     for k, v in self.curves.items()})
@@ -327,6 +403,8 @@ class GANTrainer:
         self.g_ema.load_state_dict(tree["g_ema"])
         self.opt_g.load_state_dict(tree["opt_g"])
         self.opt_d.load_state_dict(tree["opt_d"])
+        if self.text_encoder is not None and tree.get("te") is not None:
+            self.text_encoder.load_state_dict(tree["te"])
         self.total_it = int(tree["total_it"])
         self.epoch = int(tree["epoch"])
         tag = os.path.basename(path)[len("checkpoint_"):-len(".pt")]

@@ -1,5 +1,5 @@
 """The folded affine + leaky ReLU + 3×3 conv of the PyTorch port (K9's
-plain version and the backward formula its autograd Function uses) and the
+plain version and the backward formula its custom op's autograd uses) and the
 ``ResBlockUp`` that routes through it, against the JAX reference on the
 CPU.
 
@@ -9,12 +9,14 @@ float32.  Tolerances:
     ``tests/test_conv_pallas.py``'s test of the Pallas kernel (interpret
     mode here); dx, da, db and dW relative L2 <= 1e-5 each, against
     ``jax.grad`` of the JAX op (its VJP ``_fused_bwd``), through the
-    public wrapper's autograd and through ``_FusedConv``'s own backward;
+    public wrapper's autograd and through the custom op
+    ``im23d::fused_affine_conv3x3`` (its CPU implementation and its
+    registered backward);
   * ``ResBlockUp``: outputs within 1e-4 × max(1, max |ref|) (norm1 folded
     into one multiply-add rounds differently from norm-then-affine),
     running statistics and spectral-norm ``u`` after the forward within
     1e-5, parameter gradients relative L2 <= 1e-4 per parameter.
-  * ``_FusedConv``'s bfloat16 backward (its convs take bf16 operands, as
+  * the custom op's bfloat16 backward (its convs take bf16 operands, as
     the JAX model's own conv VJP in bf16) against autograd of the plain
     version in float64 on the same values: relative L2 <= 6e-3 per
     gradient (readings 2.7e-3 to 3.5e-3, from the bf16 rounding of dy,
@@ -42,10 +44,11 @@ from im23d_tpu.ops.conv_pallas import fused_affine_conv3x3 as j_fused
 from im23d_tpu_torch.core.convert import generator_state_dict
 from im23d_tpu_torch.models import gan as tgan
 from im23d_tpu_torch.ops.conv import (
-    _FusedConv,
     fused_affine_conv3x3,
     fused_affine_conv3x3_torch,
 )
+
+_FUSED_OP = torch.ops.im23d.fused_affine_conv3x3
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -101,7 +104,7 @@ def test_fused_conv_matches_jax(shape, affine, tie, pad_mode):
     if tie:  # the tie's pixels carry gradient: JAX passes it whole
         assert np.abs(jgrads["dx"][:, ::2, ::2, 0]).max() > 0
 
-    for fn in (fused_affine_conv3x3, _FusedConv.apply):
+    for fn in (fused_affine_conv3x3, _FUSED_OP):
         tx = _nchw(x).requires_grad_()
         tw = torch.from_numpy(k.transpose(3, 2, 0, 1).copy()).requires_grad_()
         ta = torch.from_numpy(a).requires_grad_() if affine else None
@@ -203,7 +206,7 @@ def test_resblockup_matches_flax(train, norm, pad_mode):
 @pytest.mark.parametrize("pad_mode", ["replicate", "circular"])
 @pytest.mark.parametrize("shape", [(2, 16, 8, 16, 32), (2, 64, 4, 8, 64)])
 def test_fused_conv_bf16_backward_matches_float64(shape, pad_mode):
-    """The bf16 branch of ``_FusedConv``'s backward, with some pre exactly
+    """The bf16 branch of the custom op's backward, with some pre exactly
     0: dx in bf16, da, db and dW in float32, each near float64 autograd of
     the plain version on the same values."""
     B, H, W, cin, cout = shape
@@ -213,7 +216,7 @@ def test_fused_conv_bf16_backward_matches_float64(shape, pad_mode):
     inputs = (tx, torch.from_numpy(a), torch.from_numpy(b), tw)
     tco = _nchw(co)
     args = [t.clone().requires_grad_() for t in inputs]
-    y = _FusedConv.apply(*args, pad_mode)
+    y = _FUSED_OP(*args, pad_mode)
     assert y.dtype == torch.bfloat16
     got = torch.autograd.grad((y.float() * tco).sum(), args)
     assert [g.dtype for g in got] == [torch.bfloat16] + [torch.float32] * 3

@@ -297,7 +297,3 @@ def test_positional_encoding_and_pooling_match_jax(ny, nx):
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref,
                                atol=1e-6, rtol=0)
 
-
-def test_text_conditioning_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tgan.GANConfig(conditional_text=True)

@@ -134,13 +134,7 @@ def test_save_results_writes_samples_and_grid(runs):
         assert fh.read(8) == b"\x89PNG\r\n\x1a\n"
 
 
-@pytest.mark.parametrize("flag", ["--conditional_text", "--multihost"])
+@pytest.mark.parametrize("flag", ["--multihost"])
 def test_unported_modes_raise(flag):
     with pytest.raises(NotImplementedError):
         cli.main(["--name", "x", "--dataset", "cub", flag])
-
-
-def test_export_serving_raises():
-    with pytest.raises(NotImplementedError):
-        cli.main(["--name", "x", "--dataset", "cub", "--export_serving",
-                  "out"])

@@ -1476,3 +1476,69 @@ def test_k6_k7_reject_bad_operands(dev):
         splat_backward_kernel(gz, gy, gx, c, g[:, :8].contiguous())
     with pytest.raises(ValueError):
         splat_blur_kernel(gz.cpu(), gy, gx, c, taps, 16)
+
+
+@pytest.mark.parametrize("pad_mode", ["replicate", "circular"])
+def test_custom_ops_launch_k8_and_k9(dev, pad_mode):
+    """``im23d::head_conv_tanh``, ``im23d::head_conv_dw`` and
+    ``im23d::fused_affine_conv3x3`` on CUDA tensors launch K8, K8 dW and
+    K9 once a call, bit-equal to the kernels' wrappers;
+    ``torch.library.opcheck`` on each."""
+    gen = torch.Generator(dev).manual_seed(40)
+    x = torch.randn((2, 64, 32, 64), device=dev, generator=gen).bfloat16()
+    w = torch.randn((3, 64, 5, 5), device=dev, generator=gen) * 0.05
+    b = torch.randn(3, device=dev, generator=gen) * 0.1
+    n8 = head_conv_kernel.launches
+    y = torch.ops.im23d.head_conv_tanh(x, w, b, pad_mode)
+    assert head_conv_kernel.launches == n8 + 1
+    assert torch.equal(y, head_conv_kernel(x, w, b, pad_mode))
+    g = torch.randn((2, 3, 32, 64), device=dev, generator=gen)
+    nd = head_conv_dw_kernel.launches
+    dw = torch.ops.im23d.head_conv_dw(x, g, pad_mode)
+    assert head_conv_dw_kernel.launches == nd + 1
+    assert torch.equal(dw, head_conv_dw_kernel(x, g, pad_mode))
+    xf, a, bb, wf = _k9_operands(dev, (2, 32, 16, 24, 48), True,
+                                 torch.bfloat16, 41)
+    n9 = fused_affine_conv3x3_kernel.launches
+    y9 = torch.ops.im23d.fused_affine_conv3x3(xf, a, bb, wf, pad_mode)
+    assert fused_affine_conv3x3_kernel.launches == n9 + 1
+    assert torch.equal(y9, fused_affine_conv3x3_kernel(xf, a, bb, wf,
+                                                       pad_mode))
+    small = [t.float().clone().requires_grad_() for t in
+             (x[:1, :16, :8, :16], w[:, :16])] + [b.clone().requires_grad_()]
+    torch.library.opcheck(torch.ops.im23d.head_conv_tanh.default,
+                          (*small, pad_mode))
+    torch.library.opcheck(torch.ops.im23d.head_conv_dw.default,
+                          (x, g, pad_mode))
+    args = [t.float().clone().requires_grad_() for t in (xf, a, bb, wf)]
+    torch.library.opcheck(torch.ops.im23d.fused_affine_conv3x3.default,
+                          (*args, pad_mode))
+
+
+def test_gan_artifact_loads_on_the_card(dev, tmp_path):
+    """The EMA generator's CUDA artifact (``serve/export.py``) loads and
+    runs on the card: 1 K8 and 6 K9 launches a call (a 128² generator has
+    no blk3a / blk3b), bit-equal to ``generate``."""
+    from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
+    from im23d_tpu_torch.models.gan import GANConfig
+    from im23d_tpu_torch.serve import export_gan_inference, load_artifact
+    from im23d_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
+
+    trainer = GANTrainer(GANTrainConfig(model=GANConfig(
+        texture_resolution=128, conditional_class=True, n_classes=(5,),
+        compute_dtype="bfloat16"), batch_size=4),
+        template=MeshTemplate(segments=16, rings=8), device=dev)
+    path = str(tmp_path / "gen.zip")
+    export_gan_inference(trainer, 4, path, platforms=("cuda",))
+    served = load_artifact(path, dev)
+    z = torch.randn((4, 64), device=dev,
+                    generator=torch.Generator(dev).manual_seed(42))
+    c = torch.tensor([[0], [1], [3], [4]], device=dev)
+    want = trainer.generate(z, c)
+    n8, n9 = head_conv_kernel.launches, fused_affine_conv3x3_kernel.launches
+    with torch.no_grad():
+        got = served(z, c)
+    assert head_conv_kernel.launches == n8 + 1
+    assert fused_affine_conv3x3_kernel.launches == n9 + 6
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and torch.equal(g, w)

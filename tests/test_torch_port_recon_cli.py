@@ -10,9 +10,10 @@ training loop, ``--continue_train`` and ``--generate_pseudogt`` run on such
 a tree at a tiny configuration (the finite losses, checkpoints, images and
 cache files are checked; their values are held to JAX in
 ``tests/test_torch_port_recon_train.py`` and
-``tests/test_torch_port_pseudogt.py``).  The modes that later slices bring
-raise ``NotImplementedError``; ``--data_processes`` runs in
-``tests/test_torch_port_data_feeds.py``.
+``tests/test_torch_port_pseudogt.py``).  ``--multihost``, which a later
+slice brings, raises ``NotImplementedError``; ``--data_processes`` runs in
+``tests/test_torch_port_data_feeds.py``, ``--export_serving`` in
+``tests/test_torch_port_serve.py``.
 """
 
 import ast
@@ -184,7 +185,6 @@ def test_step_profiler_writes_a_chrome_trace(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--export_serving", "x"], ["--evaluate", "--export_serving", "x"],
     ["--multihost"], ["--evaluate", "--multihost"],
 ])
 def test_unported_modes_raise(flags):

@@ -101,6 +101,15 @@ hashes of 3 launches' outputs and whether they are bit-equal, and the
 voxels whose raw splat lies within 1e-6 of 1 (where the clamp's mask can
 flip between float sums in another order).
 
+The GAN group (``gan_group``): ``chip_smoke.py`` phase 23's 1G + 2D
+group at the CLI's CUB configuration for a 512² cache (bs 32, bf16, 3
+critics, class conditioning; the root's ``_gan_config`` and a random batch
+from its ``_gan_batch``, resident on the card), groups/s by the host
+clock over 5 groups after one warm group, ``--repeats`` times; and the
+host time of one call of the generator's K8 and K9 entries
+(``head_conv_tanh``, ``fused_affine_conv3x3`` at blk6's conv2) without
+autograd, 200 calls with no synchronisation inside the loop.
+
 The timing helpers are ``tools/gpu_timing.py``'s, from this checkout
 whatever the root.  Prints one JSON line ``{"root": ..., "gpu": ...,
 "k9": [...], "k5": {...}, "k8": {...}, "k4b": {...}, "k1": {...},
@@ -111,7 +120,7 @@ whatever the root.  Prints one JSON line ``{"root": ..., "gpu": ...,
 Usage (from the repository root, on a machine with a CUDA device):
     python3 tools/kernel_times.py [--root DIR]
         [--only k9 k5 k8 k4b k1 k2 k4f k8dw k1s32 k2s32 k5b k6 k3 k7 k6b
-         k7b]
+         k7b gan_group]
 """
 
 from __future__ import annotations
@@ -741,6 +750,51 @@ def time_k5(repeats: int) -> dict:
     return res
 
 
+def time_gan_group(repeats: int) -> dict:
+    """Phase 23's 1G + 2D groups/s and the K8 / K9 entries' host time."""
+    import time
+
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
+    from im23d_tpu_torch.ops.conv import (fused_affine_conv3x3,
+                                          head_conv_tanh)
+    from im23d_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
+
+    trainer = GANTrainer(GANTrainConfig(model=cs._gan_config("bfloat16"),
+                                        batch_size=B_GAN),
+                         template=MeshTemplate(segments=32, rings=16),
+                         device="cuda")
+    nb = trainer.put_batch(cs._gan_batch(B_GAN, 23))
+    for _ in range(3):
+        trainer.train_step(nb)
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(15):
+            losses = trainer.train_step(nb)
+        float(next(iter(losses.values())))
+        rates.append(5 / (time.perf_counter() - t0))
+    gen = torch.Generator("cuda").manual_seed(0)
+    x8 = torch.randn((B_GAN, 64, 512, 256), device="cuda",
+                     generator=gen).bfloat16()
+    w8 = torch.randn((3, 64, 5, 5), device="cuda", generator=gen) * 0.05
+    b8 = torch.zeros(3, device="cuda")
+    a9 = torch.ones((B_GAN, 64), device="cuda")
+    b9 = torch.zeros((B_GAN, 64), device="cuda")
+    w9 = torch.randn((64, 64, 3, 3), device="cuda", generator=gen) * 0.05
+    with torch.no_grad():
+        host = dict(
+            head_conv_tanh=host_ms(lambda: head_conv_tanh(x8, w8, b8), 200),
+            fused_affine_conv3x3=host_ms(
+                lambda: fused_affine_conv3x3(x8, a9, b9, w9), 200))
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(groups_per_s=spread(rates), entry_host_ms=host)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -748,7 +802,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="+",
                     choices=("k9", "k5", "k8", "k4b", "k1", "k2", "k4f",
                              "k8dw", "k1s32", "k2s32", "k5b", "k6", "k3",
-                             "k7", "k6b", "k7b"))
+                             "k7", "k6b", "k7b", "gan_group"))
     ap.add_argument("--k9_reps", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
@@ -803,6 +857,8 @@ def main(argv=None) -> int:
     for which in ("k6b", "k7b"):
         if args.only is None or which in args.only:
             res[which] = time_backward(which, args.repeats)
+    if args.only is None or "gan_group" in args.only:
+        res["gan_group"] = time_gan_group(args.repeats)
     print(json.dumps(res))
     return 0
 
