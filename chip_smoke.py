@@ -197,7 +197,25 @@ Phases:
      run on 32 latents against ``trainer.generate`` (1 K8 and 8 K9
      launches a call, through the custom ops); the reconstruction network
      at ``ReconConfig()`` (bs 50, 256² RGBA) against
-     ``ReconTrainer.predict``; export, load and call times.
+     ``ReconTrainer.predict``; export, load and call times;
+ 36. (after phase 35) the chairs training CLI with ``--multihost`` in a
+     one-rank NCCL group (the launcher's environment set as ``torchrun``
+     sets it) at ``ShapeNetConfig.chairs()``: the backend, K1 and K2
+     launches, finite losses, the checkpoint, the group left at the end;
+ 37. (after phase 36) 2 gloo ranks on the one card (``parallel/launch.py``),
+     each stage of ``parallel/stages.py`` against the one-process stage on
+     the same global batch: the chairs step at bs 24 in float32 at dp 2
+     (12 a rank) and at dp 1 x tp 2, the recon step at ``ReconConfig()``
+     in float32 (25 a rank) and a 1G + 2D group of the GAN CLI's 512
+     configuration in bfloat16 (16 a rank): losses, gradients by relative
+     L2 per network, the batch-norm statistics, each rank's launches of
+     K1, K2, K4, K5 (forward and backward), K8, K8 dW and K9, and walls
+     (the ranks time-slice one card: not a scaling result), with the
+     gradient all-reduce's share;
+ 38. (after phase 37) ``graft_entry.dryrun_multichip(2)``: the JAX dry
+     run's stages on 2 gloo ranks on the card (a tiny chairs step at dp 1
+     x tp 2, a GAN and a recon step at dp 2, the production chairs step at
+     tp 2), each stage's "ok" line.
 
 Prints timings beside the GPU's name and power limit, then one JSON line
 with the per-kernel results (each with its bound: the larger of the bytes
@@ -219,6 +237,7 @@ import io
 import json
 import math
 import os
+import socket
 import sys
 import tempfile
 import threading
@@ -227,6 +246,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 # outside a checkout these imports fail before anything is printed
@@ -246,6 +266,7 @@ from im23d_tpu_torch.data.fabricate import (
 from im23d_tpu_torch.data.pseudogt import CubGANDataset, gan_batch_iterator
 from im23d_tpu_torch.data.synthetic import SyntheticSilhouettes, _random_shapes
 from im23d_tpu_torch.geometry.marching import point_cloud_to_mesh
+from im23d_tpu_torch.graft_entry import dryrun_multichip
 from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
 from im23d_tpu_torch.losses.effective import (
     _candidate_cam,
@@ -291,6 +312,9 @@ from im23d_tpu_torch.ops.projection import (
     projection_silhouette_torch,
 )
 from im23d_tpu_torch.ops.quaternion import qnormalize
+from im23d_tpu_torch.parallel import mesh as pmesh
+from im23d_tpu_torch.parallel import stages
+from im23d_tpu_torch.parallel.launch import launch
 from im23d_tpu_torch.ops.splat import (
     _prep_splat,
     splat_backward_kernel,
@@ -510,6 +534,32 @@ CACHE_EPOCHS = 3  # epochs of one 1G + 2D group each, per timed feed
 # peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, float32
 # FLOP/s outside the tensor cores, dense bfloat16 FLOP/s on them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
+MULTIHOST_STEPS = 5  # phase 36: the --multihost CLI's synthetic steps
+MR_WORLD = 2  # phases 37 and 38: gloo ranks on the one card
+# phase 37, each multi-rank step against one process on the global batch.
+# Float32 chairs and recon: cuDNN picks other algorithms at half the batch
+# and the gradient average adds in another order (~1e-6 relative); the
+# recon render's hard decisions (rasterizer winners) flip under such
+# changes (the CPU test reads 1.6e-3 per array at dp 2).  The bfloat16
+# GAN: a convolution's output moves by bf16 rounding (2^-8) where the
+# algorithm differs, and the critics' leaky ReLUs and hinges pass such
+# moves on as flipped slopes.  Gradients by relative L2 over a network's
+# parameters; batch-norm running statistics by max |difference|.  Read on
+# an H100: chairs 6.2e-5 (dp 2) and 1.0e-6 (tp 2), recon 7.4e-4 and
+# 1.2e-7, the GAN's losses 6.4e-4 relative, gradients 8.7e-3 (G) and
+# 5.1e-3 (D), statistics 1.4e-4.  The faults these limits are for, read
+# on the same card: batch-norm moments taken per rank move the GAN's
+# losses by 7.1e-3, G's gradients by 0.13 and the statistics by 2.3e-2,
+# the recon step's losses by 3.7e-3 and statistics by 4.2e-3; gradients
+# left unaveraged move the GAN's by 0.49.
+MR_LIMITS = dict(
+    chairs=dict(loss_rtol=1e-4, grad_rl2=1e-3),
+    recon=dict(loss_rtol=1e-4, grad_rl2=1e-2, stats_atol=1e-4),
+    gan=dict(loss_rtol=5e-3, grad_rl2=5e-2, stats_atol=1e-3))
+# the kernels each multi-rank step must launch on every rank, and how often
+MR_LAUNCHES = dict(chairs=dict(k1=1, k2=1),
+                   recon=dict(k4=1, k4b=1, k5=1, k5b=1),
+                   gan=dict(k8=3, k8b=1, k9=24))
 
 
 def _bound(nbytes: float, ops: float, peak: float = PEAK_F32) -> dict:
@@ -3391,6 +3441,241 @@ def phase_serve(gpu: str, tmp: str, trainer, template) -> dict:
     return launches
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_multihost_cli(gpu: str, workdir: str) -> dict:
+    """36. The chairs training CLI with ``--multihost`` in a one-rank NCCL
+    group: the launcher's environment as ``torchrun`` sets it."""
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    backends = []
+    init = dist.init_process_group
+
+    def recording(backend=None, *args, **kw):
+        backends.append(backend)
+        return init(backend, *args, **kw)
+
+    buf = io.StringIO()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, env), \
+            mock.patch.object(dist, "init_process_group", recording), \
+            contextlib.redirect_stdout(buf):
+        rc = train_cli.main(["--multihost", "--synthetic", "--steps",
+                             str(MULTIHOST_STEPS), "--workdir", workdir,
+                             "--device", DEVICE])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _counts()
+    out = buf.getvalue().strip()
+    print(f"[multihost] CLI --multihost rc {rc} in {secs:.2f} s "
+          f"({MULTIHOST_STEPS} chairs steps, bs 24, backend {backends}, "
+          f"group left: {not dist.is_initialized()}); launches {launches}; "
+          f"{out.splitlines()[-1] if out else ''}")
+    if rc != 0 or backends != ["nccl"] or dist.is_initialized():
+        raise AssertionError("the --multihost CLI did not run in a one-rank "
+                             "NCCL group and leave it")
+    losses = ast.literal_eval(out.splitlines()[-1])
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"non-finite --multihost losses: {losses}")
+    if launches["k1"] < 1 or launches["k2"] < 1:
+        raise AssertionError(f"K1 or K2 missing under --multihost: "
+                             f"{launches}")
+    tree = torch.load(os.path.join(workdir,
+                                   f"checkpoint_{MULTIHOST_STEPS}.pt"),
+                      map_location="cpu", weights_only=True)
+    if tree["step"] != MULTIHOST_STEPS:
+        raise AssertionError("the --multihost checkpoint lacks its step")
+    return dict(launches=launches, wall_s=secs)
+
+
+@contextlib.contextmanager
+def _timed_all_reduce():
+    """Seconds spent in ``all_reduce_grads`` within the block, the device
+    synchronised around each call."""
+    spent = [0.0]
+    reduce = pmesh.all_reduce_grads
+
+    def timed(params, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(params, group)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+
+    with mock.patch.object(pmesh, "all_reduce_grads", timed):
+        yield spent
+
+
+def _mr_run(stage, mesh, nets: dict, steps: int = 1) -> dict:
+    """``steps`` train steps of a stage, twice: the first time its losses,
+    launches and wall, the gradients of ``nets`` (name -> module) at full
+    width and their batch-norm running statistics; the second time its
+    wall and the share of it in ``all_reduce_grads``."""
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [stage.step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    out = dict(
+        losses=losses, first_s=time.perf_counter() - t0, launches=_counts(),
+        grads={n: {k: g.float().cpu()
+                   for k, g in stages.grads(m, mesh).items()}
+               for n, m in nets.items()},
+        stats={f"{n}.{k}": v.detach().float().cpu().clone()
+               for n, m in nets.items() for k, v in m.named_buffers()
+               if "running_" in k},
+        grad_bytes=sum(_nbytes(p.grad) for m in nets.values()
+                       for p in m.parameters()))
+    with _timed_all_reduce() as spent:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            stage.step()
+        torch.cuda.synchronize()
+        out.update(step_s=time.perf_counter() - t0, all_reduce_s=spent[0])
+    return out
+
+
+def _mr_chairs(mesh, device) -> dict:
+    cfg = ShapeNetConfig(compute_dtype="float32")
+    stage = stages.chairs(cfg, stages.chairs_batch(cfg, seed=7), mesh,
+                          device)
+    return _mr_run(stage, mesh, dict(model=stage.trainer.model))
+
+
+def _mr_recon(mesh, device) -> dict:
+    cfg = ReconConfig(compute_dtype="float32")
+    batch = {k: v.to(device) for k, v in stages.recon_batch(cfg, 17).items()}
+    stage = stages.recon(cfg, batch, mesh, device,
+                         MeshTemplate(segments=32, rings=16))
+    return _mr_run(stage, mesh, dict(model=stage.trainer.model,
+                                     dp=stage.trainer.dp_model))
+
+
+def _mr_gan(mesh, device) -> dict:
+    """A 1G + 2D group of the GAN CLI's CUB configuration for a 512²
+    cache."""
+    cfg = GANTrainConfig(model=GANConfig(
+        texture_resolution=512, num_discriminators=3, conditional_class=True,
+        compute_dtype="bfloat16"))
+    stage = stages.gan(cfg, stages.gan_batch(cfg, seed=29), mesh, device,
+                       MeshTemplate(segments=32, rings=16))
+    return _mr_run(stage, mesh, dict(g=stage.trainer.generator,
+                                     d=stage.trainer.discriminator), steps=3)
+
+
+def _mr_rank(rank: int, world: int, device) -> dict:
+    """Phase 37 on one rank: the chairs stage at dp and at tp (``world``
+    wide each), the recon stage and the GAN group at dp.  Only rank 0
+    returns its gradients and statistics."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dp_mesh, tp_mesh = pmesh.make_2d_mesh(1), pmesh.make_2d_mesh(world)
+    out = {}
+    for name, run, mesh in (("chairs_dp", _mr_chairs, dp_mesh),
+                            ("chairs_tp", _mr_chairs, tp_mesh),
+                            ("recon", _mr_recon, dp_mesh),
+                            ("gan", _mr_gan, dp_mesh)):
+        res = run(mesh, device)
+        if rank:
+            del res["grads"], res["stats"]
+        out[name] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def _net_rl2(got: dict, ref: dict) -> float:
+    """Relative L2 of a network's gradients over all its parameters."""
+    num = sum(float(((got[k].double() - v.double()) ** 2).sum())
+              for k, v in ref.items())
+    return (num / sum(float((v.double() ** 2).sum())
+                      for v in ref.values())) ** 0.5
+
+
+def _mr_check(name: str, kind: str, ranks: list, ref: dict) -> dict:
+    """One multi-rank stage against the one-process one; its walls."""
+    lim = MR_LIMITS[kind]
+    got = ranks[0]
+    for r in ranks:
+        for gl, rl in zip(r["losses"], ref["losses"]):
+            bad = [k for k in rl if not math.isclose(
+                gl[k], rl[k], rel_tol=lim["loss_rtol"])]
+            if bad:
+                raise AssertionError(f"{name}: losses {gl} vs one process "
+                                     f"{rl}")
+        need = MR_LAUNCHES[kind]
+        if any(r["launches"][k] < n for k, n in need.items()):
+            raise AssertionError(f"{name}: a kernel of the step launched "
+                                 f"too rarely: {r['launches']} (need "
+                                 f"{need})")
+    rl2 = {n: _net_rl2(got["grads"][n], g) for n, g in ref["grads"].items()}
+    stats = max((float((got["stats"][k] - v).abs().max())
+                 for k, v in ref["stats"].items()), default=None)
+    print(f"[multi-rank] {name}: losses {ref['losses'][-1]} (one process) "
+          f"vs {got['losses'][-1]}; gradient rel L2 "
+          f"{', '.join(f'{n} {v:.3e}' for n, v in rl2.items())} (limit "
+          f"{lim['grad_rl2']})"
+          + (f"; running statistics max |diff| {stats:.3e} (limit "
+             f"{lim['stats_atol']})" if stats is not None else "")
+          + "; launches a rank "
+          + str([{k: v for k, v in r["launches"].items() if v}
+                 for r in ranks]))
+    if max(rl2.values()) > lim["grad_rl2"]:
+        raise AssertionError(f"{name}: gradients disagree")
+    if stats is not None and stats > lim["stats_atol"]:
+        raise AssertionError(f"{name}: batch-norm statistics disagree")
+    walls = dict(one_first_s=ref["first_s"], one_step_s=ref["step_s"],
+                 rank_first_s=[r["first_s"] for r in ranks],
+                 rank_step_s=[r["step_s"] for r in ranks],
+                 all_reduce_s=[r["all_reduce_s"] for r in ranks],
+                 launches=[r["launches"] for r in ranks])
+    print(f"[multi-rank] {name} walls: one process first {ref['first_s']:.3f}"
+          f" s, again {ref['step_s']:.3f} s; ranks first "
+          f"{walls['rank_first_s']}, again {walls['rank_step_s']}, of which "
+          f"all_reduce_grads {walls['all_reduce_s']} s "
+          f"({got['grad_bytes'] / 1e6:.1f} MB of gradients a rank) (2 ranks "
+          "time-slice one card: not a scaling result)")
+    return walls
+
+
+def phase_multi_rank(gpu: str) -> dict:
+    """37. The chairs (dp 2 and dp 1 x tp 2), recon and GAN stages on 2
+    gloo ranks on the card against one process on the same global batch."""
+    ref = dict(chairs=_mr_chairs(None, DEVICE), recon=_mr_recon(None, DEVICE),
+               gan=_mr_gan(None, DEVICE))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(_mr_rank, MR_WORLD, DEVICE)
+    secs = time.perf_counter() - t0
+    print(f"[multi-rank] {MR_WORLD} ranks (gloo on one card) ran the four "
+          f"stages in {secs:.1f} s, spawn and start included")
+    out = {}
+    for name, kind in (("chairs_dp", "chairs"), ("chairs_tp", "chairs"),
+                       ("recon", "recon"), ("gan", "gan")):
+        out[name] = _mr_check(name, kind, [r[name] for r in ranks],
+                              ref[kind])
+    out["launch_s"] = secs
+    return out
+
+
+def phase_dryrun(gpu: str) -> dict:
+    """38. ``dryrun_multichip`` on 2 gloo ranks on the card."""
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(MR_WORLD, DEVICE)
+    secs = time.perf_counter() - t0
+    values = [ranks[0]["chairs"], ranks[0]["recon"],
+              ranks[0]["chairs_production"], *ranks[0]["gan"].values()]
+    print(f"[dryrun] dryrun_multichip({MR_WORLD}) on {DEVICE} in {secs:.1f} "
+          f"s: {ranks[0]}")
+    if not all(math.isfinite(v) for v in values) or ranks[0] != ranks[1]:
+        raise AssertionError(f"dryrun_multichip: {ranks}")
+    return dict(wall_s=secs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3447,6 +3732,11 @@ def main() -> int:
         text_trainer, _ = phase_text_gan(gpu, tmp, template, resident)
         phase_serve(gpu, tmp, text_trainer, template)
         del text_trainer
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_multihost_cli(gpu, os.path.join(tmp, "multihost"))
+    phase_multi_rank(gpu)
+    phase_dryrun(gpu)
 
     kernels = [
         dict(name="K1 projection forward", route="cuda",

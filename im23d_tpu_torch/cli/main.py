@@ -20,13 +20,21 @@ as in the JAX CLI, ``--text_train_encoder``, ``--text_attention`` and
 ``--text_embedding_dim`` are parsed and not read.  ``--export_serving PATH``
 writes a ``torch.export`` artifact of the EMA generator for each of
 ``--export_platforms`` (``serve/export.py``) and exits.  ``--multihost``
-raises ``NotImplementedError``.
+(or ``IM23D_MULTIHOST=1``) joins the process group that ``torchrun``
+describes, one process a GPU: ``--batch_size`` is then per process, each
+rank trains on its own rows (with ``--device_cache`` it stages only them),
+and rank 0 logs, writes the checkpoints and runs the FID passes, sample
+grids, ``--evaluate``, ``--save_results`` and ``--export_serving`` while
+the others wait.
 
 Examples:
     python -m im23d_tpu_torch.cli.main --name cub_512x512_class \
         --conditional_class --dataset cub --batch_size 32 --epochs 600
     python -m im23d_tpu_torch.cli.main --name cub_512x512_class \
         --conditional_class --dataset cub --evaluate
+    torchrun --nproc_per_node=2 -m im23d_tpu_torch.cli.main --multihost \
+        --name cub_512x512_class --conditional_class --dataset cub \
+        --batch_size 16
 """
 
 from __future__ import annotations
@@ -105,7 +113,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--text_embedding_dim", type=int, default=256)
     p.add_argument("--inception_weights", type=str, default=None,
                    help="torchvision inception_v3 state dict (.pth or .npz)")
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torchrun process group (one process a "
+                        "GPU; --batch_size per process)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of a window of "
                         "steady-state steps to this directory")
@@ -116,11 +126,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 EVALUATION_RES = 299  # FID renders and Inception input, as the reference
 GRID_RES = 256  # the in-training sample grids' renders, as the JAX CLI
-
-# modes of the JAX CLI that later slices of the port bring
-_NOT_PORTED = (
-    ("multihost", "--multihost comes with the multi-GPU slice"),
-)
 
 
 def load_dataset(args):
@@ -145,12 +150,23 @@ def load_dataset(args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, why in _NOT_PORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(why)
     if args.save_results or args.export_serving:
         args.evaluate = True
+    from im23d_tpu_torch.parallel import mesh as pmesh
 
+    multihost = pmesh.multihost_requested(args.multihost)
+    device = pmesh.init_multihost(multihost, args.device)
+    try:
+        mesh = pmesh.make_2d_mesh() if multihost else None
+        rc = _run(args, device, mesh)
+        pmesh.barrier(mesh)  # the others wait for rank 0's passes
+        return rc
+    finally:
+        if multihost:
+            pmesh.shutdown()
+
+
+def _run(args, device, mesh) -> int:
     import torch
 
     from im23d_tpu_torch.core.checkpoint import numbered_steps
@@ -160,6 +176,7 @@ def main(argv=None) -> int:
     from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
     from im23d_tpu_torch.metrics.inception import load_inception
     from im23d_tpu_torch.models.gan import GANConfig
+    from im23d_tpu_torch.parallel.mesh import barrier, data_position, is_main
     from im23d_tpu_torch.train.gan_eval import (
         FIDEvaluator,
         export_results,
@@ -182,7 +199,8 @@ def main(argv=None) -> int:
         template = MeshTemplate(segments=segments, rings=rings)
     else:
         template = MeshTemplate(args.mesh_path)
-    device = torch.device(args.device)
+    main_rank = is_main(mesh)
+    d, dp = data_position(mesh)
     if args.compute_dtype == "auto":
         args.compute_dtype = ("bfloat16" if device.type == "cuda"
                               else "float32")
@@ -213,7 +231,7 @@ def main(argv=None) -> int:
         batch_size=args.batch_size)
     workdir = os.path.join("gan_weights", args.name)
     trainer = GANTrainer(tcfg, template=template, workdir=workdir,
-                         device=device)
+                         device=device, mesh=mesh)
     if (args.conditional_text
             and os.path.exists(args.text_pretrained_encoder)):
         sd = torch.load(args.text_pretrained_encoder, map_location="cpu",
@@ -221,8 +239,9 @@ def main(argv=None) -> int:
         vocab, emb = sd["encoder.weight"].shape
         hidden = sd["rnn.weight_hh_l0"].shape[1]
         trainer.set_text_encoder(sd, vocab, emb, hidden)
-        print(f"loaded pretrained text encoder ({vocab} words) from "
-              f"{args.text_pretrained_encoder}")
+        if main_rank:
+            print(f"loaded pretrained text encoder ({vocab} words) from "
+                  f"{args.text_pretrained_encoder}")
     if args.continue_train or args.evaluate:
         if args.which_epoch not in ("latest", "best"):
             trainer.restore(step=int(args.which_epoch))
@@ -238,6 +257,8 @@ def main(argv=None) -> int:
                          "numeric epoch (run --evaluate --which_epoch best "
                          "first to identify the best epoch)")
 
+    if args.evaluate and not main_rank:
+        return 0  # rank 0 evaluates, exports or saves the results
     if args.export_serving:
         from im23d_tpu_torch.serve import export_gan_inference
 
@@ -320,13 +341,14 @@ def main(argv=None) -> int:
             print(f"{evaluator.metric_prefix}/{key}: {fid:.3f}")
         return 0
 
-    logger = MetricsLogger(workdir, "gan", tensorboard=args.tensorboard)
+    logger = (MetricsLogger(workdir, "gan", tensorboard=args.tensorboard)
+              if main_rank else None)
     evaluator = fid_real = val_stats = None
-    if os.path.exists(stats_path):
+    if main_rank and os.path.exists(stats_path):
         evaluator = make_evaluator()
         fid_real = load_precomputed_stats(stats_path)[:2]
         val_stats = load_val_stats(cache_dir)
-    else:
+    elif main_rank:
         logger.log_text(f"no FID stats at {stats_path}; in-training eval "
                         "logs image grids only")
 
@@ -335,7 +357,7 @@ def main(argv=None) -> int:
     viz_classes, viz_poses, viz_captions, viz_idx = sample_conditioning(
         viz_n, seed=1234)
     viz_real = None
-    if ds.has_pseudo_ground_truth:
+    if ds.has_pseudo_ground_truth and main_rank:
         items = [ds.load_pseudo_ground_truth(int(i)) for i in viz_idx]
         viz_real = {k: np.stack([it[k] for it in items]).astype(np.float32)
                     for k in ("image", "texture", "mesh")}
@@ -394,7 +416,7 @@ def main(argv=None) -> int:
             logger.log_text("sample captions:\n" + "\n".join(lines))
 
     profiler = None
-    if args.profile_dir:
+    if args.profile_dir and main_rank:
         from im23d_tpu_torch.core.profiler import StepProfiler
 
         profiler = StepProfiler(args.profile_dir)
@@ -403,20 +425,25 @@ def main(argv=None) -> int:
     if args.device_cache:
         from im23d_tpu_torch.data.device_cache import DeviceGANCache
 
-        if not DeviceGANCache.fits_in_hbm(ds):
+        if not DeviceGANCache.fits_in_hbm(ds, world=dp):
             raise ValueError("--device_cache: the cache's maps exceed the "
                              "device budget (data/device_cache.py:"
                              "HBM_BUDGET_BYTES)")
-        dev_cache = DeviceGANCache(ds, args.batch_size, device)
-        logger.log_text(f"device_cache: staged {len(ds)} items "
-                        f"({dev_cache.nbytes() / 1e6:.0f} MB) in device "
-                        "memory")
+        dev_cache = DeviceGANCache(ds, args.batch_size, device, rank=d,
+                                   world=dp)
+        if logger is not None:
+            logger.log_text(
+                f"device_cache: staged {len(ds)} items "
+                f"({dev_cache.nbytes() / 1e6:.0f} MB) in device memory"
+                if dp == 1 else f"device_cache: {len(ds)} items, each of "
+                f"{dp} ranks staging its rows an epoch")
 
     def epoch_batches(epoch):
         if dev_cache is not None:
             return dev_cache.epoch_batches(epoch)
         return gan_batch_iterator(ds, args.batch_size, seed=epoch,
-                                  num_workers=args.num_workers)
+                                  num_workers=args.num_workers, rank=d,
+                                  world=dp)
 
     try:
         for epoch in range(trainer.epoch, args.epochs):
@@ -428,20 +455,25 @@ def main(argv=None) -> int:
                 if profiler is not None:
                     profiler.tick()
                 losses = trainer.train_step(batch)
-                if it_in_epoch < 3 or it_in_epoch % 10 == 0:
+                if logger is not None and (it_in_epoch < 3
+                                           or it_in_epoch % 10 == 0):
                     scalars = {k: float(v) for k, v in losses.items()}
                     logger.log(trainer.total_it, scalars)
                     trainer.record_curves(scalars)
-            logger.log_text(f"epoch {epoch}: {time.time() - t0:.1f}s")
+            if logger is not None:
+                logger.log_text(f"epoch {epoch}: {time.time() - t0:.1f}s")
             trainer.epoch = epoch + 1
             if (epoch + 1) % args.checkpoint_freq == 0:
                 trainer.save()
             elif (epoch + 1) % args.save_freq == 0:
                 trainer.save(tag="latest")
             if (epoch + 1) % args.evaluate_freq == 0:
-                evaluate_during_training(epoch)
+                if main_rank:
+                    evaluate_during_training(epoch)
+                barrier(mesh)
     except KeyboardInterrupt:
-        logger.log_text("KeyboardInterrupt: saving final checkpoint")
+        if logger is not None:
+            logger.log_text("KeyboardInterrupt: saving final checkpoint")
         trainer.save(tag="latest")
         return 130
     finally:

@@ -15,14 +15,19 @@ worker processes beside the ``--num_workers`` threads.
 ``--export_serving PATH`` restores the checkpoint and writes a
 ``torch.export`` artifact of the network alone for each of
 ``--export_platforms`` (``serve/export.py``), then exits.
-``--multihost`` raises ``NotImplementedError`` naming the slice that
-brings it.
+``--multihost`` (or ``IM23D_MULTIHOST=1``) joins the process group that
+``torchrun`` describes, one process a GPU: ``--batch_size`` is then per
+process, each rank trains and evaluates on its own rows, and rank 0 logs,
+writes the checkpoints and runs ``--generate_pseudogt`` and
+``--export_serving`` while the others wait.
 
 Examples:
     python -m im23d_tpu_torch.cli.run_reconstruction --name cub_recon \
         --dataset cub
     python -m im23d_tpu_torch.cli.run_reconstruction --name cub_recon \
         --dataset cub --generate_pseudogt
+    torchrun --nproc_per_node=2 -m im23d_tpu_torch.cli.run_reconstruction \
+        --multihost --name cub_recon --dataset cub --batch_size 25
 """
 
 from __future__ import annotations
@@ -84,17 +89,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_processes", type=int, default=0,
                    help="worker processes decoding the training and "
                         "pseudo-GT items (0: the threads decode)")
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torchrun process group (one process a "
+                        "GPU; --batch_size per process)")
     p.add_argument("--profile_dir", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device of the network and the renderer")
     return p
-
-
-# modes of the JAX CLI that later slices of the port bring
-_NOT_PORTED = (
-    ("multihost", "--multihost comes with the multi-GPU slice"),
-)
 
 
 def main(argv=None, datasets=None) -> int:
@@ -104,10 +105,19 @@ def main(argv=None, datasets=None) -> int:
     ``image_299`` and ``image_<renderer res>`` and the val items
     ``image_299`` (or a 299² ``image``)."""
     args = build_parser().parse_args(argv)
-    for flag, why in _NOT_PORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(why)
+    from im23d_tpu_torch.parallel import mesh as pmesh
 
+    multihost = pmesh.multihost_requested(args.multihost)
+    device = pmesh.init_multihost(multihost, args.device)
+    try:
+        mesh = pmesh.make_2d_mesh() if multihost else None
+        return _run(args, datasets, device, mesh)
+    finally:
+        if multihost:
+            pmesh.shutdown()
+
+
+def _run(args, datasets, device, mesh) -> int:
     from im23d_tpu_torch.core.metrics_logger import MetricsLogger
     from im23d_tpu_torch.data.cmr import (
         CUBDataset,
@@ -117,6 +127,7 @@ def main(argv=None, datasets=None) -> int:
     )
     from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
     from im23d_tpu_torch.metrics.inception import load_inception
+    from im23d_tpu_torch.parallel.mesh import barrier, data_position, is_main
     from im23d_tpu_torch.train.recon_trainer import ReconConfig, ReconTrainer
 
     if args.mesh_path == "autodetect":
@@ -164,7 +175,9 @@ def main(argv=None, datasets=None) -> int:
     )
     workdir = os.path.join("checkpoints_recon", args.name)
     trainer = ReconTrainer(cfg, dataset_size=len(train_ds), template=template,
-                           workdir=workdir, device=args.device)
+                           workdir=workdir, device=device, mesh=mesh)
+    main_rank = is_main(mesh)
+    d, dp = data_position(mesh)
     if (args.evaluate or args.generate_pseudogt or args.continue_train
             or args.export_serving):
         trainer.restore(step=None if args.which_epoch in ("latest", "best")
@@ -173,10 +186,12 @@ def main(argv=None, datasets=None) -> int:
     if args.export_serving:
         from im23d_tpu_torch.serve import export_reconstruction_inference
 
-        export_reconstruction_inference(
-            trainer, args.batch_size, args.export_serving,
-            platforms=tuple(args.export_platforms.split(",")))
-        print(f"wrote serving artifact to {args.export_serving}")
+        if main_rank:
+            export_reconstruction_inference(
+                trainer, args.batch_size, args.export_serving,
+                platforms=tuple(args.export_platforms.split(",")))
+            print(f"wrote serving artifact to {args.export_serving}")
+        barrier(mesh)
         return 0
     train_keys = ("image", "scale", "translation", "rotation", "idx")
 
@@ -202,16 +217,19 @@ def main(argv=None, datasets=None) -> int:
                 yield {"inception_image": batch[key]}
 
         try:
-            trainer.generate_pseudogt(
-                loader(), cache_dir, args.dataset,
-                pseudogt_resolution=args.pseudogt_resolution,
-                inception_resolution=inception_res,
-                paths=train_ds.get_paths(),
-                val_loader=val_loader() if args.dataset == "cub" else None,
-                renderer_resolution=renderer_res,
-                inception=load_inception(args.inception_weights, trainer.device))
+            if main_rank:
+                trainer.generate_pseudogt(
+                    loader(), cache_dir, args.dataset,
+                    pseudogt_resolution=args.pseudogt_resolution,
+                    inception_resolution=inception_res,
+                    paths=train_ds.get_paths(),
+                    val_loader=val_loader() if args.dataset == "cub" else None,
+                    renderer_resolution=renderer_res,
+                    inception=load_inception(args.inception_weights,
+                                             trainer.device))
         finally:
             close_process_pools(train_ds)
+        barrier(mesh)
         return 0
 
     def val_batches():
@@ -219,20 +237,24 @@ def main(argv=None, datasets=None) -> int:
         # pads 0, so every validation image scores
         return batch_iterator(val_ds, args.batch_size, shuffle=False,
                               drop_last=False, keys=train_keys,
-                              num_workers=args.num_workers)
+                              num_workers=args.num_workers, rank=d,
+                              world=dp)
 
     if args.evaluate:
         means = trainer.evaluate(val_batches())
-        print({k: round(v, 5) for k, v in means.items()})
+        if main_rank:
+            print({k: round(v, 5) for k, v in means.items()})
         return 0
 
-    logger = MetricsLogger(workdir, "recon", tensorboard=args.tensorboard)
-    # the same sample is rendered every image_freq epochs
-    viz_batch = next(iter(batch_iterator(train_ds, args.batch_size,
-                                         shuffle=False, keys=train_keys,
-                                         num_workers=args.num_workers)))
+    logger = (MetricsLogger(workdir, "recon", tensorboard=args.tensorboard)
+              if main_rank else None)
+    # the same sample is rendered every image_freq epochs, by rank 0
+    viz_batch = (next(iter(batch_iterator(train_ds, args.batch_size,
+                                          shuffle=False, keys=train_keys,
+                                          num_workers=args.num_workers)))
+                 if main_rank else None)
     profiler = None
-    if args.profile_dir:
+    if args.profile_dir and main_rank:
         from im23d_tpu_torch.core.profiler import StepProfiler
 
         profiler = StepProfiler(args.profile_dir)
@@ -243,14 +265,15 @@ def main(argv=None, datasets=None) -> int:
             for it_in_epoch, batch in enumerate(batch_iterator(
                     train_ds, args.batch_size, seed=epoch, keys=train_keys,
                     num_workers=args.num_workers,
-                    process_workers=args.data_processes)):
+                    process_workers=args.data_processes, rank=d, world=dp)):
                 if profiler is not None:
                     profiler.tick()
                 losses = trainer.train_step(batch)
-                if it_in_epoch % 10 == 0:
+                if it_in_epoch % 10 == 0 and logger is not None:
                     logger.log(trainer.total_it,
                                {k: float(v) for k, v in losses.items()})
-            logger.log_text(f"epoch {epoch}: {time.time() - t0:.1f}s")
+            if logger is not None:
+                logger.log_text(f"epoch {epoch}: {time.time() - t0:.1f}s")
             trainer.epoch = epoch + 1
             if (epoch + 1) % args.checkpoint_freq == 0:
                 trainer.save()
@@ -258,9 +281,10 @@ def main(argv=None, datasets=None) -> int:
                 trainer.save(tag="latest")
             if (epoch + 1) % args.evaluate_freq == 0 and val_ds is not None:
                 means = trainer.evaluate(val_batches())
-                logger.log(trainer.total_it,
-                           {f"val/{k}": v for k, v in means.items()})
-            if (epoch + 1) % args.image_freq == 0:
+                if logger is not None:
+                    logger.log(trainer.total_it,
+                               {f"val/{k}": v for k, v in means.items()})
+            if (epoch + 1) % args.image_freq == 0 and logger is not None:
                 tex, mesh_map = trainer.predict(viz_batch["image"])
                 grid = trainer.render_multiview(
                     trainer.template.get_vertex_positions(mesh_map), tex,
@@ -268,7 +292,8 @@ def main(argv=None, datasets=None) -> int:
                 logger.log_images(trainer.total_it, "render_multiview",
                                   grid[None], nrow=1)
     except KeyboardInterrupt:
-        logger.log_text("KeyboardInterrupt: saving final checkpoint")
+        if logger is not None:
+            logger.log_text("KeyboardInterrupt: saving final checkpoint")
         trainer.save(tag="latest")
         return 130
     finally:

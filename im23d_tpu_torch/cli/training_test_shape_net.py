@@ -1,19 +1,26 @@
 """ShapeNet unsupervised training (PyTorch / CUDA).
 
-Counterpart of ``im23d_tpu/cli/training_test_shape_net.py`` on one device:
-the chairs / planes / cars configs on a ShapeNet render tree
+Counterpart of ``im23d_tpu/cli/training_test_shape_net.py``: the chairs /
+planes / cars configs on a ShapeNet render tree
 (``--data_root``: ``<synset>.{train,valid}`` split files and model dirs of
 ``render*.png`` and ``camera*.mat``; PIL and scipy read them) or on
 generated silhouettes (``--synthetic``), restore, eval-only, a
 ``torch.profiler`` trace of a window of steps (``--profile_dir``), a
 checkpoint at the end and a rolling ``latest`` checkpoint on Ctrl-C.
-``--multihost`` and ``--tp > 1`` raise ``NotImplementedError``.
+
+``--multihost`` (or ``IM23D_MULTIHOST=1``) joins the process group that
+``torchrun`` describes, one process a GPU; ``--batch_size`` is then per
+process and each rank reads its own rows.  ``--tp N`` splits the wide
+dense layers column-wise over groups of N ranks (``parallel/mesh.py``).
+Rank 0 prints, logs and writes the checkpoints, at full width.
 
 Examples:
     python -m im23d_tpu_torch.cli.training_test_shape_net --category chairs \
         --data_root data --workdir runs/chairs
     python -m im23d_tpu_torch.cli.training_test_shape_net --category chairs \
         --synthetic --steps 200 --workdir runs/smoke
+    torchrun --nproc_per_node=4 -m im23d_tpu_torch.cli.training_test_shape_net \
+        --multihost --tp 2 --batch_size 12 --data_root data --workdir runs/dp
 """
 
 from __future__ import annotations
@@ -56,11 +63,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="encoder/pose-trunk compute dtype (auto = bfloat16 "
                         "on CUDA); heads and the projection loss stay f32")
     p.add_argument("--multihost", action="store_true",
-                   help="accepted for parity with the JAX CLI; raises "
-                        "NotImplementedError")
+                   help="join the torchrun process group (one process a "
+                        "GPU; --batch_size per process)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel width; > 1 raises "
-                        "NotImplementedError")
+                   help="tensor-parallel width: the wide dense layers split "
+                        "column-wise over groups of this many ranks")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of a window of "
                         "steady-state steps to this directory")
@@ -83,14 +90,30 @@ def main(argv=None, datasets=None) -> int:
     the tree under ``--data_root``."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.multihost or args.tp > 1:
-        raise NotImplementedError("--multihost and --tp > 1 come with the "
-                                  "multi-GPU slice")
     if not (args.synthetic or datasets is not None
             or os.path.isdir(args.data_root)):
         parser.error(f"no ShapeNet tree at --data_root {args.data_root!r}; "
                      "pass --data_root or --synthetic")
 
+    from im23d_tpu_torch.parallel import mesh as pmesh
+
+    multihost = pmesh.multihost_requested(args.multihost)
+    device = pmesh.init_multihost(multihost, args.device)
+    try:
+        mesh = (pmesh.make_2d_mesh(args.tp) if multihost or args.tp > 1
+                else None)
+        return _run(args, datasets, device, mesh)
+    finally:
+        if multihost:
+            pmesh.shutdown()
+
+
+def _run(args, datasets, device, mesh) -> int:
+    from im23d_tpu_torch.parallel.mesh import (
+        data_position,
+        is_main,
+        shard_rows,
+    )
     from im23d_tpu_torch.train.shapenet_learner import (
         ShapeNetConfig,
         ShapeNetLearner,
@@ -108,34 +131,40 @@ def main(argv=None, datasets=None) -> int:
         cfg = ShapeNetConfig(**{**cfg.__dict__, **overrides})
     cfg = apply_shapenet_overrides(cfg, args)
 
-    learner = ShapeNetLearner(cfg, workdir=args.workdir, device=args.device)
+    learner = ShapeNetLearner(cfg, workdir=args.workdir, device=device,
+                              mesh=mesh)
     if args.restore:
         learner.restore(args.restore)
+    main_rank = is_main(mesh)
+    d, dp = data_position(mesh)
 
     if args.synthetic:
         from im23d_tpu_torch.data.synthetic import SyntheticSilhouettes
 
-        data = SyntheticSilhouettes(cfg.batch_size, cfg.image_size,
+        # every rank draws the global batch and keeps its rows
+        data = SyntheticSilhouettes(cfg.batch_size * dp, cfg.image_size,
                                     cfg.num_views, n_points=512)
-        train_iter = iter(data)
-        valid_batches = lambda: [data.next_batch() for _ in range(2)]  # noqa: E731
+        train_iter = (shard_rows(b, d, dp) for b in data)
+        valid_batches = lambda: [shard_rows(data.next_batch(), d, dp)  # noqa: E731
+                                 for _ in range(2)]
     else:
         from im23d_tpu_torch.data.shapenet import DataBunch
 
         bunch = DataBunch(
             datasets if datasets is not None else args.data_root,
             args.category, cfg.batch_size, cfg.image_size, use_camera=False,
-            cache_in_ram=not args.no_ram_cache)
+            cache_in_ram=not args.no_ram_cache, rank=d, world=dp)
         train_iter = bunch.train_iter()
         valid_batches = bunch.valid_batches
 
     if args.eval_only:
         means = learner.evaluate(valid_batches)
-        print({k: round(v, 5) for k, v in means.items()})
+        if main_rank:
+            print({k: round(v, 5) for k, v in means.items()})
         return 0
 
     profiler = None
-    if args.profile_dir:
+    if args.profile_dir and main_rank:
         from im23d_tpu_torch.core.profiler import StepProfiler
 
         # a short run traces its last steps
@@ -147,7 +176,8 @@ def main(argv=None, datasets=None) -> int:
             _ticking(train_iter, profiler) if profiler else train_iter,
             num_steps=cfg.total_steps, valid_batches=valid_batches)
     except KeyboardInterrupt:
-        print("KeyboardInterrupt: saving final checkpoint")
+        if main_rank:
+            print("KeyboardInterrupt: saving final checkpoint")
         learner.save(tag="latest")
         return 130
     finally:
@@ -157,7 +187,8 @@ def main(argv=None, datasets=None) -> int:
         if close is not None:
             close()
     learner.save()
-    print({k: round(v, 5) for k, v in losses.items()})
+    if main_rank:
+        print({k: round(v, 5) for k, v in losses.items()})
     return 0
 
 

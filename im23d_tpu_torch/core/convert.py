@@ -38,40 +38,50 @@ def _put(sd: dict, name: str, layer: dict) -> None:
     )
 
 
-def _encoder_decoder(sd: dict, p: dict, num_convs: int) -> None:
-    for i in range(num_convs):
-        _put(sd, f"encoder.conv.{i}", _layer(p, f"encoder/Conv_{i}"))
-    for j in range(2):
-        _put(sd, f"encoder.dense.{j}", _layer(p, f"encoder/Dense_{j}"))
-    _put(sd, "decoder.points", _layer(p, "decoder/Dense_0"))
-    _put(sd, "decoder.scale", _layer(p, "decoder/Dense_1"))
+def _encoder_decoder_layers(num_convs: int) -> list[tuple[str, str]]:
+    return ([(f"encoder.conv.{i}", f"encoder/Conv_{i}")
+             for i in range(num_convs)]
+            + [(f"encoder.dense.{j}", f"encoder/Dense_{j}") for j in range(2)]
+            + [("decoder.points", "decoder/Dense_0"),
+               ("decoder.scale", "decoder/Dense_1")])
+
+
+def unsupervised_part_layers(num_candidates: int, num_convs: int = 9
+                             ) -> list[tuple[str, str]]:
+    """(module name in the port's ``UnsupervisedPart``, flax param path) of
+    each conv and dense layer."""
+    pd = "pose_decoder"
+    layers = _encoder_decoder_layers(num_convs) + [
+        (f"{pd}.student_trunk", f"{pd}/student_trunk"),
+        (f"{pd}.ensemble_trunk", f"{pd}/ensemble_trunk")]
+    for j in range(3):
+        layers.append((f"{pd}.student_head.dense.{j}",
+                       f"{pd}/student_head/Dense_{j}"))
+        layers += [(f"{pd}.heads.{k}.dense.{j}", f"{pd}/head_{k}/Dense_{j}")
+                   for k in range(num_candidates)]
+    return layers
+
+
+def _state_dict(p: dict, layers) -> dict:
+    sd: dict[str, torch.Tensor] = {}
+    for name, path in layers:
+        _put(sd, name, _layer(p, path))
+    return sd
 
 
 def unsupervised_part_state_dict(params: dict, num_candidates: int,
                                  num_convs: int = 9) -> dict:
     """Map flax ``UnsupervisedPart`` params to ``UnsupervisedPart.state_dict``
     keys of ``im23d_tpu_torch.models.pointcloud_nets``."""
-    p = params.get("params", params)
-    sd: dict[str, torch.Tensor] = {}
-    _encoder_decoder(sd, p, num_convs)
-    pd = "pose_decoder"
-    _put(sd, f"{pd}.student_trunk", _layer(p, f"{pd}/student_trunk"))
-    _put(sd, f"{pd}.ensemble_trunk", _layer(p, f"{pd}/ensemble_trunk"))
-    for j in range(3):
-        _put(sd, f"{pd}.student_head.dense.{j}",
-             _layer(p, f"{pd}/student_head/Dense_{j}"))
-        for k in range(num_candidates):
-            _put(sd, f"{pd}.heads.{k}.dense.{j}",
-                 _layer(p, f"{pd}/head_{k}/Dense_{j}"))
-    return sd
+    return _state_dict(params.get("params", params),
+                       unsupervised_part_layers(num_candidates, num_convs))
 
 
 def supervised_part_state_dict(params: dict, num_convs: int = 9) -> dict:
     """Map flax ``SupervisedPart`` params to ``SupervisedPart.state_dict``
     keys."""
-    sd: dict[str, torch.Tensor] = {}
-    _encoder_decoder(sd, params.get("params", params), num_convs)
-    return sd
+    return _state_dict(params.get("params", params),
+                       _encoder_decoder_layers(num_convs))
 
 
 def _conv_weight(kernel) -> torch.Tensor:

@@ -303,8 +303,14 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
                    seed: int = 0, drop_last: bool = True,
                    keys: Sequence[str] | None = None,
                    num_workers: int = 4,
-                   process_workers: int = 0) -> Iterator[dict]:
+                   process_workers: int = 0, rank: int = 0,
+                   world: int = 1) -> Iterator[dict]:
     """One epoch of stacked-dict batches from an indexable dataset.
+
+    With ``world`` > 1 it yields rank ``rank``'s rows of the epoch's global
+    batches of ``world * batch_size`` (the same order on every rank) and
+    reads only those items; a rank without rows in the tail batch skips
+    it.
 
     ``num_workers`` threads assemble batches ahead of the consumer; with
     ``process_workers > 0`` the items are decoded in that many worker
@@ -320,12 +326,14 @@ def batch_iterator(dataset, batch_size: int, shuffle: bool = True,
     order = np.arange(len(dataset))
     if shuffle:
         rng.shuffle(order)
-    end = len(order) - (len(order) % batch_size if drop_last else 0)
+    step = batch_size * world
+    end = len(order) - (len(order) % step if drop_last else 0)
     index_batches = [
-        order[start : start + batch_size]
-        for start in range(0, end, batch_size)
-        if len(order[start : start + batch_size]) > 0
+        order[start : start + step][rank * batch_size:
+                                    (rank + 1) * batch_size]
+        for start in range(0, end, step)
     ]
+    index_batches = [idx for idx in index_batches if len(idx) > 0]
     proc_pool = (_dataset_proc_pool(dataset, process_workers)
                  if process_workers > 0 else None)
 

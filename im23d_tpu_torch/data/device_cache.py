@@ -15,6 +15,12 @@ Memory: N · (texture + alpha + mesh map), each in the cache's own dtype
 mesh map in float32): 100 items at 512² with 32² mesh maps take
 210,944,000 bytes.  ``fits_in_hbm`` counts the dataset's own map sizes and
 dtypes against a budget (``HBM_BUDGET_BYTES`` by default).
+
+With ``world`` > 1 a rank stages only its rows: the maps stay in host
+memory, and each epoch the rank copies the items of its slices of that
+epoch's global batches (``world * batch_size``, the host iterator's order)
+to the device at once, about 1 / ``world`` of the dataset; ``fits_in_hbm``
+then counts a rank's share.
 """
 
 from __future__ import annotations
@@ -40,36 +46,47 @@ class DeviceGANCache:
     """Stage a ``PseudoGTDataset``'s texture, alpha and mesh maps on
     ``device`` once (NHWC, the cache's dtypes) and yield device batches."""
 
-    def __init__(self, dataset, batch_size: int, device="cuda"):
+    def __init__(self, dataset, batch_size: int, device="cuda",
+                 rank: int = 0, world: int = 1):
         if dataset.caption_tokens is not None:
             raise ValueError("the device cache does not hold captions "
                              "(--conditional_text)")
         self.ds = dataset
         self.batch_size = int(batch_size)
         self.device = torch.device(device)
+        self.rank, self.world = rank, world
         items = [dataset.load_pseudo_ground_truth(i, with_image=False)
                  for i in range(len(dataset))]
-        self._maps = {key: torch.as_tensor(np.stack([it[src] for it in items]))
-                      .to(self.device)
-                      for key, src in _KEYS}
-        self._classes = (
-            torch.as_tensor(np.stack([np.asarray(dataset.classes[i], np.int32)
-                                      for i in range(len(dataset))]),
-                            device=self.device)
-            if dataset.conditional_class else None)
+        host = {key: np.stack([it[src] for it in items]) for key, src in _KEYS}
+        if dataset.conditional_class:
+            host["c"] = np.stack([np.asarray(dataset.classes[i], np.int32)
+                                  for i in range(len(dataset))])
+        self._host = host if world > 1 else None
+        self._maps = (None if world > 1 else
+                      {k: torch.as_tensor(v).to(self.device)
+                       for k, v in host.items()})
+        self._staged_epoch = None
 
     @staticmethod
-    def fits_in_hbm(dataset, budget_bytes: int | None = None) -> bool:
+    def fits_in_hbm(dataset, budget_bytes: int | None = None,
+                    world: int = 1) -> bool:
         """Whether the staged maps fit ``budget_bytes``: the dataset's own
         texture, alpha and mesh map sizes (read from its first item) times
-        its length."""
+        its length, or a rank's share of it."""
         budget = HBM_BUDGET_BYTES if budget_bytes is None else budget_bytes
         first = dataset.load_pseudo_ground_truth(0, with_image=False)
         per_item = sum(first[src].nbytes for _, src in _KEYS)
-        return len(dataset) * per_item <= budget
+        return -(-len(dataset) // world) * per_item <= budget
 
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self._maps.values())
+        maps = self._maps or {}
+        return sum(t.numel() * t.element_size() for k, t in maps.items()
+                   if k != "c")
+
+    def _stage(self, idx: np.ndarray) -> None:
+        """This rank's items of an epoch, in the order it reads them."""
+        self._maps = {k: torch.as_tensor(v[idx]).to(self.device)
+                      for k, v in self._host.items()}
 
     def epoch_batches(self, epoch: int) -> Iterator[dict]:
         """Device batches for one epoch: ``gan_batch_iterator(ds, bs,
@@ -79,19 +96,25 @@ class DeviceGANCache:
         ds.set_epoch(epoch)
         order = np.arange(len(ds))
         np.random.RandomState(epoch).shuffle(order)
-        end = len(order) - (len(order) % self.batch_size)
+        b, step = self.batch_size, self.batch_size * self.world
+        end = len(order) - (len(order) % step)
+        own = [order[start:start + step][self.rank * b:(self.rank + 1) * b]
+               for start in range(0, end, step)]
+        if self.world > 1 and own and self._staged_epoch != epoch:
+            self._stage(np.concatenate(own))
+            self._staged_epoch = epoch
         augment = ds.augment and not ds.evaluate
-        for start in range(0, end, self.batch_size):
-            idx = order[start:start + self.batch_size]
+        for j, idx in enumerate(own):
             mirror = torch.from_numpy(np.array(
                 [augment and ds._item_rng(int(i), epoch).integers(2) == 1
                  for i in idx], bool)).to(self.device)
-            sel = torch.as_tensor(idx).to(self.device)
+            sel = torch.as_tensor(idx if self.world == 1 else
+                                  np.arange(j * b, (j + 1) * b)).to(
+                                      self.device)
             batch = {}
             for key, arr in self._maps.items():
                 g = arr.index_select(0, sel)
-                batch[key] = torch.where(mirror[:, None, None, None],
-                                         mirror_nhwc(g), g)
-            if self._classes is not None:
-                batch["c"] = self._classes.index_select(0, sel)
+                batch[key] = (g if key == "c" else
+                              torch.where(mirror[:, None, None, None],
+                                          mirror_nhwc(g), g))
             yield batch

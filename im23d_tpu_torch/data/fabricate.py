@@ -282,6 +282,9 @@ class ShapeNetRenderSet:
     def __len__(self) -> int:
         return len(self.masks)
 
+    def num_views(self, idx: int) -> int:
+        return self.masks.shape[1]
+
     def __getitem__(self, idx: int):
         images = self.images[idx]
         return images, images, self.masks[idx]

@@ -269,12 +269,14 @@ class EvalDataset:
 
 def gan_batch_iterator(dataset: PseudoGTDataset, batch_size: int,
                        shuffle: bool = True, seed: int = 0,
-                       num_workers: int = 4) -> Iterator[dict]:
+                       num_workers: int = 4, rank: int = 0,
+                       world: int = 1) -> Iterator[dict]:
     """Epoch iterator of GAN training batches, NHWC numpy: texture
     (B, H, W, 3), alpha (B, H, W, 1), mesh (B, h, w, 3), optional c and
     caption (B, L); the last partial batch dropped.  ``num_workers``
     threads build batches ahead (``data/prefetch.py``); ``seed`` is the
-    epoch."""
+    epoch.  With ``world`` > 1, rank ``rank``'s rows of the global batches
+    of ``world * batch_size``, reading only those items."""
     from im23d_tpu_torch.data.prefetch import prefetched_batches
 
     rng = np.random.RandomState(seed)
@@ -286,9 +288,11 @@ def gan_batch_iterator(dataset: PseudoGTDataset, batch_size: int,
     order = np.arange(len(dataset))
     if shuffle:
         rng.shuffle(order)
-    end = len(order) - (len(order) % batch_size)
-    index_batches = [order[start:start + batch_size]
-                     for start in range(0, end, batch_size)]
+    step = batch_size * world
+    end = len(order) - (len(order) % step)
+    index_batches = [order[start:start + step][rank * batch_size:
+                                               (rank + 1) * batch_size]
+                     for start in range(0, end, step)]
 
     def build(idx):
         items = [item_at(int(i), epoch) if item_at is not None

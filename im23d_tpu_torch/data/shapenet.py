@@ -76,6 +76,14 @@ class ShapeNetRenders:
     def __len__(self) -> int:
         return len(self.model_dirs)
 
+    def num_views(self, idx: int) -> int:
+        """The model's render count, without decoding them."""
+        hit = self._cache.get(idx) if self._cache is not None else None
+        if hit is not None:
+            return len(hit[0])
+        return sum(name.startswith("render")
+                   for name in os.listdir(self.model_dirs[idx]))
+
     def __getitem__(self, idx: int):
         if self._cache is not None:
             hit = self._cache.get(idx)
@@ -102,13 +110,15 @@ class ShapeNetRenders:
         return out
 
 
-def multi_view_collate(samples, rng: np.random.RandomState) -> dict:
+def multi_view_collate(samples, rng: np.random.RandomState | None = None,
+                       views=None) -> dict:
     """One random view image per model and all V poses / masks
     concatenated: images (B, H, W, 3), pose_input (B·V, ...), masks
-    (B·V, H, W).  One ``rng.randint`` per model, in order."""
+    (B·V, H, W).  One ``rng.randint`` per model, in order, or the given
+    ``views``."""
     images, pose_input, masks = [], [], []
-    for imgs, poses, msks in samples:
-        v = rng.randint(imgs.shape[0])
+    for i, (imgs, poses, msks) in enumerate(samples):
+        v = rng.randint(imgs.shape[0]) if views is None else views[i]
         images.append(imgs[v])
         pose_input.append(poses)
         masks.append(msks)
@@ -268,12 +278,19 @@ class DataBunch:
     ``image_size``, ``use_camera`` and ``cache_in_ram`` are the datasets'
     own business).  The train generator ``RandomState(seed)`` is consumed
     on the one producer thread: ``choice`` of the batch's models, then one
-    ``randint`` a model for its view."""
+    ``randint`` a model for its view.
+
+    With ``world`` > 1 the batches are rank ``rank``'s rows of global
+    batches of ``world`` times the size, drawn from the same generators
+    (the view of every global row is drawn), and only its models are
+    read."""
 
     def __init__(self, root, category: str = "chairs", batch_size: int = 10,
                  image_size: int = 128, use_camera: bool = True, seed: int = 0,
-                 cache_in_ram: bool = True, num_workers: int = 8):
+                 cache_in_ram: bool = True, num_workers: int = 8,
+                 rank: int = 0, world: int = 1):
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
         if isinstance(root, (str, os.PathLike)):
             synset = SYNSET_IDS[category]
             self.train_ds, self.valid_ds = (
@@ -288,19 +305,30 @@ class DataBunch:
         # pool, so cold-cache batches stay off the learner's critical path
         self._pool = ThreadPoolExecutor(max_workers=num_workers)
 
+    def _collate(self, ds, idx, rng: np.random.RandomState) -> dict:
+        """This rank's rows of the global batch of models ``idx``."""
+        views = [rng.randint(_num_views(ds, int(i))) for i in idx]
+        n = len(idx) // self.world
+        own = slice(self.rank * n, (self.rank + 1) * n)
+        items = list(self._pool.map(ds.__getitem__, idx[own]))
+        return multi_view_collate(items, views=views[own])
+
     def _train_batch(self) -> dict:
-        idx = self._rng.choice(len(self.train_ds), self.batch_size,
-                               replace=False)
-        items = list(self._pool.map(self.train_ds.__getitem__, idx))
-        return multi_view_collate(items, self._rng)
+        idx = self._rng.choice(len(self.train_ds),
+                               self.batch_size * self.world, replace=False)
+        return self._collate(self.train_ds, idx, self._rng)
 
     def train_iter(self, num_prefetch: int = 4) -> _PrefetchIterator:
         return _PrefetchIterator(self._train_batch, num_prefetch)
 
     def valid_batches(self) -> Iterator[dict]:
-        bs = self.batch_size * 2
+        bs = self.batch_size * 2 * self.world
         rng = np.random.RandomState(0)
         for start in range(0, len(self.valid_ds) - bs + 1, bs):
-            items = list(self._pool.map(self.valid_ds.__getitem__,
-                                        range(start, start + bs)))
-            yield multi_view_collate(items, rng)
+            yield self._collate(self.valid_ds, np.arange(start, start + bs),
+                                rng)
+
+
+def _num_views(ds, idx: int) -> int:
+    count = getattr(ds, "num_views", None)
+    return count(idx) if count is not None else len(ds[idx][0])

@@ -19,8 +19,11 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``layer`` computed in ``x``'s dtype."""
+def _linear(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` computed in ``x``'s dtype (a ``ColumnParallelLinear``
+    casts its own slice)."""
+    if not isinstance(layer, nn.Linear):
+        return layer(x)
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
 
 

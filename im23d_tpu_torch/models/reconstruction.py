@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from im23d_tpu_torch.ops.sampling import adjust_poles, symmetrize_texture
+from im23d_tpu_torch.parallel.mesh import current_batch_norm_group, global_sums
 
 BN_MOMENTUM = 0.01
 
@@ -59,12 +60,26 @@ def bn_stats(bn: nn.modules.batchnorm._BatchNorm,
     """Per-channel (mean, var) of the float32 ``xf`` that ``bn`` normalises
     with: the running statistics in eval mode; in train mode flax's batch
     statistics (the biased variance E[x²] − E[x]², clamped at 0), with the
-    running statistics updated in place."""
+    running statistics updated in place.  Inside
+    ``parallel.mesh.batch_norm_group`` the moments are global: Σx, Σx² and
+    the count summed over the group's ranks (differentiably), so every rank
+    normalises, and moves its running statistics, by the moments of the
+    whole batch."""
     if not bn.training:
         return bn.running_mean, bn.running_var
     dims = [0, *range(2, xf.dim())]
-    mean = xf.mean(dims)
-    var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    group = current_batch_norm_group()
+    if group is None:
+        mean = xf.mean(dims)
+        var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+    else:
+        c = xf.shape[1]
+        count = xf.new_full((1,), xf.numel() // c)
+        sums = global_sums(torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                                      count]), group)
+        mean = sums[:c] / sums[2 * c]
+        var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean,
+                          min=0.0)
     with torch.no_grad():
         m = bn.momentum
         bn.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)

@@ -1,5 +1,5 @@
-"""UV-space mesh+texture GAN trainer on one device (counterpart of
-``im23d_tpu/train/gan_trainer.py``).
+"""UV-space mesh+texture GAN trainer on one device or on a rank of a
+``parallel.mesh.Mesh`` (counterpart of ``im23d_tpu/train/gan_trainer.py``).
 
 * ``train_step``: a G step every (1 + ``d_steps_per_g``) iterations, else a
   D step; Adam(betas (0, 0.9), eps 1e-8) for each, the learning rate set
@@ -28,6 +28,12 @@
   ``<workdir>/checkpoints`` hold both networks, the EMA generator, both
   optimizers, the text encoder, ``total_it`` and ``epoch``;
   ``curves_<step>.npz`` beside them the loss curves.
+* On a mesh each rank steps on its rows of the global batch and of the
+  global ``z`` draw: the generator's batch norm takes the global moments
+  (so K9's folded affine is the one-process affine), each step's gradients
+  and losses are averaged over the data group, and the EMA generator moves
+  identically on every rank; rank 0 writes checkpoints while the others
+  wait.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from im23d_tpu_torch.models.text_encoder import (
     caption_mask,
     text_encoder_init_,
 )
+from im23d_tpu_torch.parallel import mesh as pmesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,11 +111,14 @@ class GANTrainer:
     def __init__(self, config: GANTrainConfig,
                  template: MeshTemplate | None = None,
                  workdir: str | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: pmesh.Mesh | None = None):
         self.cfg = config
         self.mcfg = config.model
         self.workdir = workdir
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.data_group = None if mesh is None else mesh.data_group
         self.use_mesh = not self.mcfg.texture_only
         self.template = template
         if self.use_mesh and template is None:
@@ -230,11 +240,13 @@ class GANTrainer:
         return words, caption_mask(tokens)
 
     def sample_z(self, n: int) -> torch.Tensor:
-        """The iteration's latent draw, (n, latent_dim) on the device."""
+        """The iteration's latent draw, (n, latent_dim) on the device: on a
+        mesh this rank's rows of the global batch's draw."""
         gen = torch.Generator().manual_seed((self.cfg.seed << 32)
                                             + self.total_it)
-        return torch.randn((n, self.mcfg.latent_dim), generator=gen).to(
-            self.device)
+        d, dp = pmesh.data_position(self.mesh)
+        z = torch.randn((n * dp, self.mcfg.latent_dim), generator=gen)
+        return z[d * n:(d + 1) * n].to(self.device)
 
     def _fake(self, z, c, alpha, caption):
         tex, mesh = self.generator(z, c, caption)
@@ -250,7 +262,8 @@ class GANTrainer:
         try:
             c, alpha = nb.get("c"), nb["alpha"]
             caption = self.encode_caption(nb.get("caption"))
-            x_fake, mesh = self._fake(z, c, alpha, caption)
+            with pmesh.batch_norm_group(self.data_group):
+                x_fake, mesh = self._fake(z, c, alpha, caption)
             preds, masks = D(x_fake, mesh, c, alpha=alpha, caption=caption)
             loss_gan = gan_loss(preds, True, False, masks, self._d_weights(),
                                 cfg.loss)
@@ -264,13 +277,16 @@ class GANTrainer:
                 group["lr"] = cfg.lr_g * lr_factor
             self.opt_g.zero_grad(set_to_none=True)
             loss.backward()
+            pmesh.all_reduce_grads(G.parameters(), self.data_group)
             self.opt_g.step()
         finally:
             D.requires_grad_(True)
             G.eval()
             D.eval()
         self._update_ema(self._ema_alpha())
-        return dict(g_loss=loss_gan.detach(), flat_loss=flat.detach())
+        return pmesh.mean_over(dict(g_loss=loss_gan.detach(),
+                                    flat_loss=flat.detach()),
+                               self.data_group)
 
     def d_step(self, nb: dict, z: torch.Tensor, lr_factor: float = 1.0
                ) -> dict:
@@ -281,7 +297,7 @@ class GANTrainer:
         try:
             c, alpha = nb.get("c"), nb["alpha"]
             caption = self.encode_caption(nb.get("caption"))
-            with torch.no_grad():
+            with torch.no_grad(), pmesh.batch_norm_group(self.data_group):
                 x_fake, mesh = self._fake(z, c, alpha, caption)
             x_real = torch.cat([nb["texture"], alpha], dim=-1)
             x_comb = torch.cat([x_fake, x_real], dim=0)
@@ -305,11 +321,14 @@ class GANTrainer:
                 group["lr"] = cfg.lr_d * lr_factor
             self.opt_d.zero_grad(set_to_none=True)
             (loss_fake + loss_real).backward()
+            pmesh.all_reduce_grads(D.parameters(), self.data_group)
             self.opt_d.step()
         finally:
             G.eval()
             D.eval()
-        return dict(d_fake=loss_fake.detach(), d_real=loss_real.detach())
+        return pmesh.mean_over(dict(d_fake=loss_fake.detach(),
+                                    d_real=loss_real.detach()),
+                               self.data_group)
 
     @torch.no_grad()
     def _update_ema(self, alpha: float) -> None:
@@ -377,9 +396,17 @@ class GANTrainer:
 
     def save(self, workdir: str | None = None, tag: str | None = None) -> str:
         """tag None writes the permanent checkpoint of ``total_it``, tag
-        "latest" overwrites the rolling one; the curves go beside it."""
+        "latest" overwrites the rolling one; the curves go beside it.  On
+        a mesh rank 0 writes and the others wait."""
         step = self.total_it if tag is None else tag
         d = self._ckpt_dir(workdir)
+        path = None
+        if pmesh.is_main(self.mesh):
+            path = self._write(d, step)
+        pmesh.barrier(self.mesh)
+        return path
+
+    def _write(self, d: str, step) -> str:
         path = save_checkpoint(d, step, dict(
             g=self.generator.state_dict(), d=self.discriminator.state_dict(),
             g_ema=self.g_ema.state_dict(), opt_g=self.opt_g.state_dict(),

@@ -1,5 +1,6 @@
 """Mesh-estimation trainer, renderer in the loop (counterpart of
-``im23d_tpu/train/recon_trainer.py``), on one device.
+``im23d_tpu/train/recon_trainer.py``), on one device or on a rank of a
+``parallel.mesh.Mesh``.
 
 * ``train_step``: the network in train mode (flax batch norm), posing with
   the learnable ``DatasetParams`` deltas, the render (K4 and K5 with their
@@ -18,6 +19,11 @@
   ``latest``; a checkpoint without optimizer state restores with fresh
   optimizers.  The flatness warm-up is replayed from ``total_it`` on
   restore, so a resumed run continues the uninterrupted one.
+* On a mesh each rank trains on its rows of the global batch (its
+  ``idx`` index the shared ``DatasetParams``): batch norm takes the global
+  moments, the gradients of the network and of ``DatasetParams`` and the
+  losses are averaged over the data group; ``evaluate`` sums over the
+  ranks' rows; rank 0 writes checkpoints while the others wait.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from im23d_tpu_torch.models.reconstruction import (
 )
 from im23d_tpu_torch.ops.quaternion import qmul, qnormalize, qrot
 from im23d_tpu_torch.ops.sampling import resize_bilinear
+from im23d_tpu_torch.parallel import mesh as pmesh
 from im23d_tpu_torch.render.renderer import render_mesh
 
 FLAT_WARMUP = 10.0  # flatness weight multiplier at step 0, decays to 1.0
@@ -110,10 +117,13 @@ class ReconTrainer:
     def __init__(self, config: ReconConfig, dataset_size: int,
                  template: MeshTemplate | None = None,
                  workdir: str | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: pmesh.Mesh | None = None):
         self.cfg = config
         self.workdir = workdir
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.data_group = None if mesh is None else mesh.data_group
         self.template = template if template is not None else MeshTemplate()
         self.dataset_size = dataset_size
         dt = config.compute_dtype
@@ -207,7 +217,8 @@ class ReconTrainer:
             group["lr"] = cfg.lr * self._lr_factor()
         self.model.train()
         try:
-            tex, mesh_map = self.model(nb["image"])
+            with pmesh.batch_norm_group(self.data_group):
+                tex, mesh_map = self.model(nb["image"])
         finally:
             self.model.eval()
         raw_vtx, _, image, alpha = self._pose_and_render(mesh_map, tex, nb)
@@ -220,13 +231,17 @@ class ReconTrainer:
         for opt in optimizers:
             opt.zero_grad(set_to_none=True)
         loss.backward()
+        pmesh.all_reduce_grads([p for opt in optimizers
+                                for g in opt.param_groups
+                                for p in g["params"]], self.data_group)
         for opt in optimizers:
             opt.step()
         self.total_it += 1
         with torch.no_grad():
             miou = mean_iou(x_fake[..., 3], nb["image"][..., 3])
-        return dict(recon_loss=recon.detach(), flat_loss=flat.detach(),
-                    iou=miou)
+        return pmesh.mean_over(dict(recon_loss=recon.detach(),
+                                    flat_loss=flat.detach(), iou=miou),
+                               self.data_group)
 
     # -- inference ----------------------------------------------------------
 
@@ -270,12 +285,15 @@ class ReconTrainer:
         """Means over every image of ``batches``: a batch smaller than the
         configured batch size is padded with repeats of its first item,
         weighted 0, as the JAX trainer pads its tail batch to its compiled
-        shape."""
+        shape.  On a mesh each rank passes its rows and the sums are
+        taken over the data group."""
         totals: dict[str, float] = {}
         n = 0
         B = self.cfg.batch_size
         for batch in batches:
             bs = len(batch["image"])
+            if bs == 0:
+                continue
             w = np.ones((bs,), np.float32)
             if 0 < bs % B:
                 pad = B - bs % B
@@ -286,7 +304,13 @@ class ReconTrainer:
             for k, v in losses.items():
                 totals[k] = totals.get(k, 0.0) + float(v) * bs
             n += bs
-        return {k: v / max(n, 1) for k, v in totals.items()}
+        if self.data_group is not None:
+            keys = ("recon_loss", "flat_loss", "iou")
+            sums = pmesh.sum_over(
+                np.array([totals.get(k, 0.0) for k in keys] + [n]),
+                self.data_group, self.device)
+            totals, n = dict(zip(keys, sums[:-1])), sums[-1]
+        return {k: float(v / max(n, 1)) for k, v in totals.items()}
 
     @torch.no_grad()
     def render_multiview(self, raw_vtx, pred_tex, idx: int = 0,
@@ -338,15 +362,21 @@ class ReconTrainer:
 
     def save(self, workdir: str | None = None, tag: str | None = None) -> str:
         """tag None writes the permanent checkpoint_<total_it>.pt, tag
-        "latest" overwrites the rolling checkpoint_latest.pt."""
-        params, stats, dp = self._split_state()
-        return save_checkpoint(
-            workdir or self.workdir, self.total_it if tag is None else tag,
-            dict(params=params, batch_stats=stats, opt=self.opt.state_dict(),
-                 dp_params=dp,
-                 opt_dp=(self.opt_dp.state_dict() if self.opt_dp is not None
-                         else {}),
-                 epoch=self.epoch, total_it=self.total_it))
+        "latest" overwrites the rolling checkpoint_latest.pt; on a mesh
+        rank 0 writes and the others wait."""
+        path = None
+        if pmesh.is_main(self.mesh):
+            params, stats, dp = self._split_state()
+            path = save_checkpoint(
+                workdir or self.workdir,
+                self.total_it if tag is None else tag,
+                dict(params=params, batch_stats=stats,
+                     opt=self.opt.state_dict(), dp_params=dp,
+                     opt_dp=(self.opt_dp.state_dict()
+                             if self.opt_dp is not None else {}),
+                     epoch=self.epoch, total_it=self.total_it))
+        pmesh.barrier(self.mesh)
+        return path
 
     def restore(self, workdir: str | None = None, step=None) -> None:
         """Load the checkpoint of ``step`` (an int or "latest"; by default

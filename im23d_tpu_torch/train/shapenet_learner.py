@@ -1,7 +1,8 @@
 """ShapeNet unsupervised learner: config, seeded init, AdamW train step,
 eval step, training loop and checkpoints.
 
-Counterpart of ``im23d_tpu/train/shapenet_learner.py`` on one device:
+Counterpart of ``im23d_tpu/train/shapenet_learner.py``, on one device or
+on a rank of a ``parallel.mesh.Mesh``:
 
 * AdamW with the ``optax.adamw`` hyperparameters over every parameter;
 * linear p/sigma schedules taken at the pre-update step as device scalars,
@@ -9,7 +10,12 @@ Counterpart of ``im23d_tpu/train/shapenet_learner.py`` on one device:
   host sync;
 * the dropout keep mask drawn from a generator seeded by (seed, step);
 * checkpoints ``{params, opt_state, step}`` by ``torch.save``, numbered or
-  under the rolling tag ``latest``.
+  under the rolling tag ``latest``;
+* on a mesh, ``batch_size`` is the rank's; the batch splits over the data
+  axis (the keep mask is drawn for the global batch and sliced), the
+  layers of ``dense_tp_layers`` split over the model axis, gradients and
+  losses are averaged over the data group, and rank 0 writes checkpoints
+  at full width (the one-process format) while the others wait.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from im23d_tpu_torch.models.pointcloud_nets import (
 )
 from im23d_tpu_torch.ops.pointcloud import keep_mask
 from im23d_tpu_torch.ops.sampling import resize_bilinear
+from im23d_tpu_torch.parallel import mesh as pmesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,13 +93,17 @@ def _interp(schedule: tuple[float, float], frac: torch.Tensor) -> torch.Tensor:
 
 class ShapeNetLearner:
     """Holds the model and its AdamW optimizer on ``device``, the step
-    counter and, with a ``workdir``, the metrics logger."""
+    counter and, with a ``workdir``, the metrics logger (rank 0's alone on
+    a ``mesh``)."""
 
     def __init__(self, config: ShapeNetConfig, workdir: str | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 mesh: pmesh.Mesh | None = None):
         self.cfg = config
         self.workdir = workdir
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.data_group = None if mesh is None else mesh.data_group
         dt = config.compute_dtype
         if dt == "auto":
             dt = "bfloat16" if self.device.type == "cuda" else "float32"
@@ -104,6 +115,9 @@ class ShapeNetLearner:
         ).to(self.device)
         gen = torch.Generator(device=self.device).manual_seed(config.seed)
         kaiming_init_(self.model, gen)
+        if mesh is not None and mesh.tp > 1:
+            pmesh.parallelize_columns(
+                self.model, pmesh.dense_tp_layers(self.model, mesh.tp), mesh)
         self.model.eval()
         self.opt = torch.optim.AdamW(
             self.model.parameters(), lr=config.learning_rate,
@@ -111,7 +125,8 @@ class ShapeNetLearner:
         )
         self.step = 0
         self._last_min_idx = None
-        self.logger = MetricsLogger(workdir, "shapenet") if workdir else None
+        self.logger = (MetricsLogger(workdir, "shapenet")
+                       if workdir and pmesh.is_main(mesh) else None)
 
     # -- schedules and batches ---------------------------------------------
 
@@ -140,10 +155,13 @@ class ShapeNetLearner:
         return out
 
     def _keep_mask(self, batch_size: int, p, seed_offset: int = 0):
+        """This rank's rows of the global batch's mask."""
         gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed * 2**32 + seed_offset + self.step
         )
-        return keep_mask(gen, batch_size, self.cfg.num_points, p)
+        d, dp = pmesh.data_position(self.mesh)
+        return keep_mask(gen, batch_size * dp, self.cfg.num_points,
+                         p)[d * batch_size:(d + 1) * batch_size]
 
     # -- training -------------------------------------------------------------
 
@@ -165,10 +183,12 @@ class ShapeNetLearner:
         )
         self.opt.zero_grad(set_to_none=True)
         losses["total_loss"].backward()
+        pmesh.all_reduce_grads(self.model.parameters(), self.data_group)
         self.opt.step()
         self.step += 1
         self._last_min_idx = aux["min_indexes"]
-        return {k: v.detach() for k, v in losses.items()}
+        return pmesh.mean_over({k: v.detach() for k, v in losses.items()},
+                               self.data_group)
 
     def put_batch(self, batch: dict) -> dict:
         """Dispatch the host->device copy of a batch (it overlaps with the
@@ -206,16 +226,17 @@ class ShapeNetLearner:
             if step % cfg.eval_every == 0:
                 if valid_batches is not None:
                     self.evaluate(valid_batches)
-                if self.logger:
-                    self.log_projection_grid(batch_dev, step)
                 if self.workdir:
+                    self.log_projection_grid(batch_dev, step)
                     self.save()
         return {k: float(v) for k, v in losses.items()}
 
     @torch.no_grad()
     def log_projection_grid(self, batch: dict, step: int) -> None:
         """Log the student projections of up to 8 pose images under the
-        target masks (eval mode, no dropout, the scheduled sigma)."""
+        target masks (eval mode, no dropout, the scheduled sigma); every
+        rank of a mesh computes them (tensor-parallel layers gather), rank
+        0 logs."""
         cfg = self.cfg
         nb = self._normalize(batch)
         self.model.eval()
@@ -224,6 +245,8 @@ class ShapeNetLearner:
         _, aux = unsupervised_loss(out, nb["masks"], sigma, None,
                                    cfg.num_views, voxel_size=cfg.voxel_size,
                                    training=False)
+        if self.logger is None:
+            return
         proj = aux["projection"][:8]
         masks_s = resize_bilinear(nb["masks"][:8], proj.shape[1],
                                   proj.shape[2])
@@ -240,6 +263,7 @@ class ShapeNetLearner:
 
         The dropout keep mask is drawn at the scheduled p from a generator
         seeded by (seed, step), the same for every batch of one evaluation.
+        On a mesh the losses are the global batch's means.
         """
         cfg = self.cfg
         nb = self._normalize(batch)
@@ -252,7 +276,7 @@ class ShapeNetLearner:
             voxel_size=cfg.voxel_size, student_weight=cfg.student_weight,
             training=False,
         )
-        return losses
+        return pmesh.mean_over(losses, self.data_group)
 
     def evaluate(self, valid_batches) -> dict:
         """Mean of each eval loss over ``valid_batches`` (iterable or
@@ -277,18 +301,21 @@ class ShapeNetLearner:
         """Load JAX ``UnsupervisedPart`` params (nested numpy dicts)."""
         sd = unsupervised_part_state_dict(flax_params,
                                           self.cfg.num_candidates)
-        self.model.load_state_dict(sd)
+        pmesh.load_full_state(self.model, self.opt, self.mesh, sd, None)
 
     def save(self, workdir: str | None = None, tag: str | None = None) -> str:
         """``torch.save`` of ``{params, opt_state, step}``: tag None writes
         the permanent checkpoint_<step>.pt, tag "latest" overwrites the
-        rolling checkpoint_latest.pt."""
-        params = {k: v.detach().cpu() for k, v in
-                  self.model.state_dict().items()}
-        return save_checkpoint(
-            workdir or self.workdir, self.step if tag is None else tag,
-            dict(params=params, opt_state=self.opt.state_dict(),
-                 step=self.step))
+        rolling checkpoint_latest.pt.  On a mesh every rank gathers the
+        column slices, rank 0 writes and the others wait for it."""
+        params, opt_state = pmesh.full_state(self.model, self.opt, self.mesh)
+        path = None
+        if pmesh.is_main(self.mesh):
+            path = save_checkpoint(
+                workdir or self.workdir, self.step if tag is None else tag,
+                dict(params=params, opt_state=opt_state, step=self.step))
+        pmesh.barrier(self.mesh)
+        return path
 
     def restore(self, workdir: str | None = None, step=None) -> None:
         """Load the checkpoint of ``step`` (an int or "latest"); by default
@@ -297,7 +324,6 @@ class ShapeNetLearner:
         as it is."""
         path = resolve_checkpoint(workdir or self.workdir, step)
         tree = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(tree["params"])
-        if "opt_state" in tree:
-            self.opt.load_state_dict(tree["opt_state"])
+        pmesh.load_full_state(self.model, self.opt, self.mesh,
+                              tree["params"], tree.get("opt_state"))
         self.step = int(tree["step"])

@@ -132,9 +132,3 @@ def test_save_results_writes_samples_and_grid(runs):
     assert len(verts) == 482  # MeshTemplate(32, 16), the CUB template
     with open(os.path.join(root, "results", "resumed.png"), "rb") as fh:
         assert fh.read(8) == b"\x89PNG\r\n\x1a\n"
-
-
-@pytest.mark.parametrize("flag", ["--multihost"])
-def test_unported_modes_raise(flag):
-    with pytest.raises(NotImplementedError):
-        cli.main(["--name", "x", "--dataset", "cub", flag])

@@ -182,11 +182,3 @@ def test_step_profiler_writes_a_chrome_trace(tmp_path):
     open_window.tick()
     open_window.close()
     assert os.listdir(tmp_path / "b") == ["trace_steps_0-1.json"]
-
-
-@pytest.mark.parametrize("flags", [
-    ["--multihost"], ["--evaluate", "--multihost"],
-])
-def test_unported_modes_raise(flags):
-    with pytest.raises(NotImplementedError):
-        main([*FLAGS, *flags], datasets=([], []))

@@ -275,10 +275,3 @@ def test_chairs_clis_on_a_render_tree(tree, tmp_path):
     for key in ("projection_loss", "total_loss", "chamfer_l2", "iou_3d"):
         assert np.isfinite(metrics[key]), key
     assert metrics["student_projection_shape"] == [2 * B * V, S, S]
-
-
-@pytest.mark.parametrize("flags", [["--multihost"], ["--tp", "2"]])
-def test_train_cli_refuses_multi_gpu_flags(tmp_path, flags):
-    with pytest.raises(NotImplementedError):
-        train_cli.main(["--synthetic", "--workdir", str(tmp_path), *flags,
-                        *FLAGS])

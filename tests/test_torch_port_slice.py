@@ -152,7 +152,8 @@ def test_port_never_imports_jax():
     assert "im23d_tpu_torch.ops.projection" in mods
     for m in ("ops.conv", "models.gan", "data.pseudogt", "train.gan_trainer",
               "train.gan_eval", "cli.main", "ops.splat", "geometry.marching",
-              "cli.pointcloud_to_mesh"):
+              "cli.pointcloud_to_mesh", "parallel.mesh", "parallel.launch",
+              "parallel.stages", "graft_entry"):
         assert f"im23d_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
