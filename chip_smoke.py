@@ -179,9 +179,13 @@ Phases:
  33. (after phase 23) ``DeviceGANCache`` on phase 17's cache (100 items
      at 512²): the staged bytes, its batches bit-equal on the card to the
      host iterator's for two epochs; one epoch of the GAN CLI with
-     ``--device_cache`` (launch counts of K8 forward, K8 dW and K9); 1G +
-     2D groups/s fed from the cache and from the host iterator, in turns,
-     beside phase 23's rate with the batch resident on the card;
+     ``--device_cache`` (launch counts of K8 forward, K8 dW and K9); the
+     native npz decoder (``data/fastloader.py``, which the host iterator
+     reads through) against ``np.load`` on every item, bit for bit, and
+     both readers' seconds an item on one thread (in turns) and on the
+     host iterator's 4 threads; 1G + 2D groups/s fed from the cache and
+     from the host iterator, in turns, beside phase 23's rate with the
+     batch resident on the card;
  34. (after phase 33) the text-conditional GAN at the CLI's CUB
      configuration for a 512² cache with ``--conditional_text`` (bs 32,
      bf16, 3 critics, ``text_embedding_dim`` 256, captions of 18 tokens)
@@ -215,7 +219,24 @@ Phases:
  38. (after phase 37) ``graft_entry.dryrun_multichip(2)``: the JAX dry
      run's stages on 2 gloo ranks on the card (a tiny chairs step at dp 1
      x tp 2, a GAN and a recon step at dp 2, the production chairs step at
-     tp 2), each stage's "ok" line.
+     tp 2), each stage's "ok" line;
+ 39. (after phase 35) the reference's pretrained-weights workflow for the
+     GAN: a reference-layout ``checkpoint_latest.pth`` at the CLI's CUB
+     configuration for a 512² cache (seeded ``generator`` and
+     ``generator_running_avg`` dicts, 200 classes, an ``args`` snapshot
+     with the reference's truthy-string ``conditional_class``, counters
+     and curves) through ``cli/import_torch.main``, then ``cli/main.main
+     --weights <name> --conditional_class --batch_size 16 --save_results``
+     on phase 17's cache: the launches of K8, K9, K4 and K5 in that run,
+     the obj / mtl / png files, the import and ``--save_results`` walls,
+     and the restored EMA generator's outputs on fixed z and classes bit
+     for bit against a generator that loaded the same dict directly;
+ 40. (after phase 10) the same for the recon network: a reference dict at
+     ``ReconConfig()`` (texture 128) with ``dataset_params`` for phase
+     10's 110 photos, imported, then ``run_reconstruction --evaluate`` on
+     them: the launches of K4 and K5, the means, the walls, the network's
+     outputs and the DatasetParams bit for bit against the dict loaded
+     directly.
 
 Prints timings beside the GPU's name and power limit, then one JSON line
 with the per-kernel results (each with its bound: the larger of the bytes
@@ -251,6 +272,7 @@ import torch.nn.functional as F
 
 # outside a checkout these imports fail before anything is printed
 from im23d_tpu_torch.cli import evaluation_test_shape_net as cli
+from im23d_tpu_torch.cli import import_torch as import_cli
 from im23d_tpu_torch.cli import main as gan_cli
 from im23d_tpu_torch.cli import pointcloud_to_mesh as mesh_cli
 from im23d_tpu_torch.cli import run_reconstruction as recon_cli
@@ -531,6 +553,8 @@ TEXT_GROUPS = 5  # timed 1G + 2D groups with the batch resident
 # its largest value
 SERVE_TEX_ATOL = 2.0 ** -7
 CACHE_EPOCHS = 3  # epochs of one 1G + 2D group each, per timed feed
+DECODE_THREADS = 4  # the host iterator's threads (--num_workers' default)
+IMPORT_B = 16  # --batch_size of the reference's pretrained-weights command
 # peak rates of one H100 SXM (NVIDIA's data sheet): HBM3 bytes/s, float32
 # FLOP/s outside the tensor cores, dense bfloat16 FLOP/s on them
 PEAK_BYTES, PEAK_F32, PEAK_BF16 = 3.35e12, 67e12, 989e12
@@ -1697,7 +1721,7 @@ def phase_recon(gpu: str, template, tmp: str) -> dict:
     if grid.shape != (2 * RES, 4 * RES, 3) or not (
             np.isfinite(grid).all() and 0 <= grid.min() <= grid.max() <= 1):
         raise AssertionError("bad render_multiview grid")
-    return launches
+    return launches, data
 
 
 def _contributing(dout: torch.Tensor) -> int:
@@ -3225,6 +3249,7 @@ def phase_device_cache(gpu: str, tmp: str, template, resident: float
     if (launches["k8"] < iters or launches["k8b"] < 1
             or launches["k9"] < 8 * iters):
         raise AssertionError(f"K8 / K9 launches {launches}")
+    _native_decoder(gpu, ds)
 
     trainer = GANTrainer(GANTrainConfig(model=_gan_config("bfloat16"),
                                         batch_size=GAN_B),
@@ -3245,6 +3270,222 @@ def phase_device_cache(gpu: str, tmp: str, template, resident: float
     del trainer, dev
     torch.cuda.empty_cache()
     return launches
+
+
+def _np_load_item(path: str) -> dict:
+    """The plain reader of a pseudo-GT item: ``np.load`` of the npz and its
+    pickled ``data`` dict (the port's reader before the native decoder)."""
+    with np.load(path, allow_pickle=True) as f:
+        return f["data"].item()
+
+
+def _native_decoder(gpu: str, ds) -> None:
+    """The native decoder's items against ``np.load``'s over the cache, and
+    both readers' seconds an item: one thread, in turns plain / native /
+    native / plain, then DECODE_THREADS threads (the host iterator's)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    res = ds.texture_resolution
+    paths = [os.path.join(ds.cache_dir, f"pseudogt_{res}x{res}", f"{i}.npz")
+             for i in range(len(ds))]
+    readers = {"plain": _np_load_item,
+               "native": lambda p: ds._load_npz(p)["data"].item()}
+    same = True
+    for p in paths:
+        got, want = readers["native"](p), readers["plain"](p)
+        same &= got.keys() == want.keys() and all(
+            got[k].dtype == want[k].dtype and got[k].shape == want[k].shape
+            and got[k].tobytes() == want[k].tobytes() for k in want)
+    serial = {k: [] for k in readers}
+    for key in ("plain", "native", "native", "plain"):
+        t0 = time.perf_counter()
+        for p in paths:
+            readers[key](p)
+        serial[key].append((time.perf_counter() - t0) / len(paths))
+    threaded = {}
+    with ThreadPoolExecutor(DECODE_THREADS) as pool:
+        for key, read in readers.items():
+            t0 = time.perf_counter()
+            list(pool.map(read, paths))
+            threaded[key] = (time.perf_counter() - t0) / len(paths)
+    print(f"[dev-cache] native npz decoder: {len(paths)} items bit-equal to "
+          f"np.load's: {same}; seconds an item, one thread, plain / native "
+          f"in turns: {[round(v, 5) for v in serial['plain']]} / "
+          f"{[round(v, 5) for v in serial['native']]}; on "
+          f"{DECODE_THREADS} threads: {threaded['plain']:.5f} / "
+          f"{threaded['native']:.5f} (host clock, warm reads) [{gpu}]")
+    if not same:
+        raise AssertionError("the native decoder's items differ from "
+                             "np.load's")
+
+
+def _seeded_generator_state(seed: int) -> dict:
+    """A generator state dict of the CLI's CUB configuration in the
+    reference's names (the port's layers carry them), seeded, with a mesh
+    head that moves the sphere, on the CPU."""
+    g = gan_models.Generator(_gan_config("float32"))
+    gen = torch.Generator().manual_seed(seed)
+    gan_models.gan_init_(g, gen)
+    with torch.no_grad():
+        w = g.conv_mesh.weight
+        w.copy_(torch.randn(w.shape, generator=gen) * 2e-3)
+    return {k: v.clone() for k, v in g.state_dict().items()}
+
+
+def phase_gan_import(gpu: str, tmp: str, template) -> None:
+    """A reference-layout GAN checkpoint at the CLI's CUB configuration
+    through ``cli/import_torch``, then the reference's pretrained-weights
+    command ``--save_results`` on phase 17's cache; the imported EMA
+    generator against one that loaded the same dict directly."""
+    name = "chip_smoke_pretrained"
+    ema_sd = _seeded_generator_state(40)
+    pth = os.path.join(tmp, "reference_gan.pth")
+    torch.save(dict(
+        generator=_seeded_generator_state(39), generator_running_avg=ema_sd,
+        epoch=600, iteration=600 * PGT_IMAGES // GAN_B,
+        g_curve=[1.5, 1.2], flat_curve=[0.3, 0.2], d_fake_curve=[0.6, 0.5],
+        d_real_curve=[0.7, 0.6],
+        args=dict(texture_resolution=GAN_RES, mesh_resolution=32,
+                  symmetric_g=True, texture_only=False, latent_dim=64,
+                  conditional_class="--conditional_class",
+                  norm_g="syncbatch", norm_d="none", num_discriminators=-1,
+                  mask_output=True, dataset="cub")), pth)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        rc, out = _quiet_cli(import_cli.main, ["--checkpoint", pth,
+                                               "--weights", name, "--device",
+                                               DEVICE])
+        import_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"the import CLI returned {rc}")
+        _zero_counts()
+        t0 = time.perf_counter()
+        rc, cli_out = _quiet_cli(gan_cli.main, [
+            "--weights", name, "--dataset", "cub", "--conditional_class",
+            "--texture_resolution", str(PGT_RES), "--batch_size",
+            str(IMPORT_B), "--device", DEVICE, "--save_results"])
+        save_s = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        os.chdir(cwd)
+    if rc != 0:
+        raise AssertionError(f"the GAN CLI returned {rc}")
+    files = sorted(os.listdir(os.path.join(tmp, "results", name)))
+    kinds = {e: sum(f.endswith(f".{e}") for f in files)
+             for e in ("obj", "mtl", "png")}
+    grid = os.path.exists(os.path.join(tmp, "results", f"{name}.png"))
+
+    trainer = GANTrainer(GANTrainConfig(model=_gan_config("bfloat16"),
+                                        batch_size=IMPORT_B),
+                         template=template, device=DEVICE)
+    trainer.restore(os.path.join(tmp, "gan_weights", name))
+    direct = gan_models.Generator(_gan_config("bfloat16"))
+    direct.load_state_dict(ema_sd)
+    direct.to(DEVICE).eval()
+    gen = torch.Generator().manual_seed(41)
+    z = torch.randn((IMPORT_B, 64), generator=gen).to(DEVICE)
+    c = torch.randint(0, 200, (IMPORT_B, 1), generator=gen).to(DEVICE)
+    with torch.no_grad():
+        got = trainer.generate(z, c)
+        want = direct(z, c)
+    same = all(torch.equal(g, w.float()) for g, w in zip(got, want))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    print(f"[gan-import] {[line for line in out if 'grafted' in line]}; "
+          f"import "
+          f"{import_s:.2f} s; --save_results (bs {IMPORT_B}) rc {rc} in "
+          f"{save_s:.2f} s, launches {launches}, {kinds} files + grid "
+          f"{grid}; restored EMA generator bit-equal to the dict loaded "
+          f"directly: {same} (texture {tuple(got[0].shape)}, mesh map "
+          f"{tuple(got[1].shape)}); epoch {trainer.epoch}, iteration "
+          f"{trainer.total_it} [{gpu}]")
+    if not (same and finite):
+        raise AssertionError("the imported generator differs from the "
+                             "reference dict's")
+    if kinds != {e: IMPORT_B for e in kinds} or not grid:
+        raise AssertionError(f"--save_results wrote {files}")
+    if min(launches[k] for k in ("k8", "k9", "k4", "k5")) < 1:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    if (trainer.epoch, trainer.total_it) != (600, 600 * PGT_IMAGES // GAN_B):
+        raise AssertionError("the counters were not carried over")
+    del trainer, direct
+    torch.cuda.empty_cache()
+
+
+def phase_recon_import(gpu: str, template, tmp: str, data) -> None:
+    """A reference-layout recon checkpoint at ``ReconConfig()`` with
+    DatasetParams for phase 10's photos through ``cli/import_torch``, then
+    ``run_reconstruction --evaluate`` on them; the imported network
+    against one that loaded the same dict directly."""
+    name = "chip_smoke_pretrained"
+    seeded = ReconTrainer(ReconConfig(seed=40), dataset_size=len(data),
+                          template=template, device="cpu")
+    _move_mesh_head(seeded)
+    sd = {k: v.clone() for k, v in seeded.model.state_dict().items()}
+    gen = torch.Generator().manual_seed(42)
+    dp = dict(ds_translation=torch.randn((len(data), 2), generator=gen) * 0.02,
+              ds_scale=torch.randn((len(data), 1), generator=gen) * 0.02)
+    pth = os.path.join(tmp, "reference_recon.pth")
+    torch.save(dict(generator=sd, dataset_params=dp, optimizer=None,
+                    epoch=1000, iteration=1000 * len(data) // RB,
+                    args=dict(image_resolution=RES, texture_resolution=TEX,
+                              mesh_resolution=32, symmetric=True,
+                              dataset="cub")), pth)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        rc, out = _quiet_cli(import_cli.main, ["--checkpoint", pth, "--name",
+                                               name, "--device", DEVICE])
+        import_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"the import CLI returned {rc}")
+        _zero_counts()
+        t0 = time.perf_counter()
+        rc, cli_out = _quiet_cli(
+            recon_cli.main, ["--name", name, "--dataset", "cub",
+                             "--evaluate", "--batch_size", str(RB),
+                             "--device", DEVICE],
+            datasets=(data, data))
+        eval_s = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        os.chdir(cwd)
+    if rc != 0:
+        raise AssertionError(f"the recon CLI returned {rc}")
+    means = ast.literal_eval(cli_out[-1])
+
+    trainer = ReconTrainer(ReconConfig(), dataset_size=len(data),
+                           template=template, device=DEVICE)
+    trainer.restore(os.path.join(tmp, "checkpoints_recon", name))
+    direct = ReconTrainer(ReconConfig(), dataset_size=len(data),
+                          template=template, device=DEVICE)
+    direct.model.load_state_dict(sd)
+    batch = next(iter(batch_iterator(data, RB, shuffle=False, num_workers=1)))
+    image = trainer._put(batch)["image"]
+    with torch.no_grad():
+        got, want = trainer.model(image), direct.model(image)
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    dp_same = all(torch.equal(trainer.dp_model.state_dict()[k].cpu(), v)
+                  for k, v in dp.items())
+    print(f"[recon-import] {[line for line in out if 'grafted' in line]}; "
+          f"import "
+          f"{import_s:.2f} s; --evaluate rc {rc} in {eval_s:.2f} s "
+          f"({len(data)} images, bs {RB}), launches {launches}, means "
+          f"{means}; network outputs bit-equal to the dict loaded directly: "
+          f"{same}; DatasetParams equal: {dp_same} [{gpu}]")
+    if not (same and dp_same):
+        raise AssertionError("the imported network differs from the "
+                             "reference dict's")
+    if not all(math.isfinite(v) for v in means.values()):
+        raise AssertionError(f"bad eval means: {means}")
+    if launches["k4"] < 1 or launches["k5"] < 1:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{launches}")
+    del trainer, direct, seeded
+    torch.cuda.empty_cache()
 
 
 def _caption_cache(cache_dir: str) -> None:
@@ -3711,7 +3952,9 @@ def main() -> int:
     del uv, tex_adj, scene
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        recon = phase_recon(gpu, template, tmp)
+        recon, recon_data = phase_recon(gpu, template, tmp)
+        phase_recon_import(gpu, template, tmp, recon_data)
+        del recon_data
     phase_train_step(gpu, template)
     with tempfile.TemporaryDirectory() as tmp:
         recon_train = phase_recon_train(gpu, template, tmp)
@@ -3732,6 +3975,7 @@ def main() -> int:
         text_trainer, _ = phase_text_gan(gpu, tmp, template, resident)
         phase_serve(gpu, tmp, text_trainer, template)
         del text_trainer
+        phase_gan_import(gpu, tmp, template)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase_multihost_cli(gpu, os.path.join(tmp, "multihost"))

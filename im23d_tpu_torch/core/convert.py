@@ -2,7 +2,9 @@
 ``SupervisedPart`` (Pipeline A), ``ReconstructionNetwork`` and
 ``DatasetParams`` (Pipeline B), the GAN's ``Generator`` and
 ``MultiScaleDiscriminator`` (with their ``SpatialAttention``), its
-``TextEncoder``, ``InceptionV3Features`` (FID).
+``TextEncoder``, ``InceptionV3Features`` (FID); and the reference's own
+``checkpoint_*.pth`` dicts (``load_reference_checkpoint``,
+``graft_reference``), whose state dicts carry the port's layer names.
 
 Input is the flax param tree as nested dicts of numpy arrays (what
 ``jax.tree.map(np.asarray, params)`` gives), with or without the top-level
@@ -16,6 +18,59 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
+
+# the reference's loss curves -> the port's GAN trainer's curve names
+REFERENCE_CURVES = (("g_curve", "g_loss"), ("flat_curve", "flat_loss"),
+                    ("d_fake_curve", "d_fake"), ("d_real_curve", "d_real"))
+
+
+def load_reference_checkpoint(path: str) -> dict:
+    """A reference ``checkpoint_*.pth`` on the CPU: ``generator`` (and for
+    the GAN ``generator_running_avg``, ``text_encoder`` or
+    ``text_encoder_g``; for the recon net ``dataset_params``), ``args``,
+    ``epoch``, ``iteration`` and the GAN's curves.  ``weights_only=False``:
+    the reference pickles its ``args`` snapshot, so load only files you
+    trust."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def reference_args(chk: dict) -> dict:
+    """The checkpoint's ``args`` snapshot as a dict (empty without one)."""
+    return dict(chk.get("args") or {})
+
+
+def graft_reference(module: nn.Module, state_dict: dict, what: str) -> None:
+    """Copy each entry of a reference state dict onto ``module``'s entry of
+    the same name, in place, in the module's dtype and device, and print
+    the count.  A shape mismatch raises ``ValueError`` naming the key
+    (the model was built with other hyperparameters than the checkpoint's);
+    reference entries with no counterpart, and module entries the
+    checkpoint lacks (which keep their values), are printed by name."""
+    own = module.state_dict()
+    unmatched = []
+    n = 0
+    with torch.no_grad():
+        for key, value in state_dict.items():
+            if key not in own:
+                unmatched.append(key)
+                continue
+            value = torch.as_tensor(value)
+            if tuple(value.shape) != tuple(own[key].shape):
+                raise ValueError(
+                    f"shape mismatch at {what}/{key}: checkpoint "
+                    f"{tuple(value.shape)} vs model {tuple(own[key].shape)}"
+                    f" — the config and the checkpoint disagree")
+            own[key].copy_(value)
+            n += 1
+    print(f"{what}: grafted {n}/{len(own)} model entries")
+    for key in unmatched:
+        print(f"  WARNING: checkpoint entry with no model counterpart: "
+              f"{what}/{key}")
+    for key in own:
+        if key not in state_dict and not key.endswith("num_batches_tracked"):
+            print(f"  WARNING: model entry missing from the checkpoint "
+                  f"(kept): {what}/{key}")
 
 
 def _layer(tree: dict, path: str) -> dict:

@@ -5,8 +5,9 @@ Read ``<cache>/poses_metadata.npz`` and the per-index
 ``pseudogt_<R>x<R>/<idx>.npz`` (NCHW float16), mirror in UV space as
 augmentation, carry class labels and the per-dataset suggestions.  Items
 and batches are NHWC numpy arrays; the GAN trainer makes tensors of them.
-The per-item npz is read with ``np.load`` (the JAX package's native decode
-pool is not copied).  With ``conditional_text`` the caption cache
+The per-item npz is decoded by the native pool of ``data/fastloader.py``
+(C++ threads inflate outside the GIL, as in the JAX package's host feed),
+bit-equal to ``np.load``.  With ``conditional_text`` the caption cache
 ``<cache>/captions_tokens.npz`` (``data/captions.py``) gives each item one
 of its image's captions, ``caption`` (L,) int32, drawn after the mirror
 from the same (seed, epoch, idx) stream.
@@ -16,9 +17,17 @@ from __future__ import annotations
 
 import glob
 import os
+import threading
 from typing import Iterator
 
 import numpy as np
+
+
+def suggested_num_discriminators(dataset: str,
+                                 texture_resolution: int) -> int:
+    """The critics a dataset's GAN takes by default (the reference's
+    per-dataset suggestion): 3 for CUB at 512² and above, else 2."""
+    return 3 if dataset == "cub" and texture_resolution >= 512 else 2
 
 
 def mirror_tex_nhwc(tr: np.ndarray) -> np.ndarray:
@@ -48,6 +57,8 @@ class PseudoGTDataset:
         self.conditional_text = conditional_text
         self._seed = seed
         self._epoch = 0
+        self._npz_pool = None
+        self._npz_lock = threading.Lock()
         self.caption_tokens = None
         self.n_words = 0
         if conditional_text:
@@ -96,6 +107,15 @@ class PseudoGTDataset:
     def __len__(self) -> int:
         return len(self.data["path"])
 
+    def _load_npz(self, path: str) -> dict:
+        """One npz through the native decoder pool, started at first use."""
+        with self._npz_lock:
+            if self._npz_pool is None:
+                from im23d_tpu_torch.data.fastloader import NpzPool
+
+                self._npz_pool = NpzPool(n_threads=4)
+        return self._npz_pool.load(path)
+
     def load_pseudo_ground_truth(self, idx: int,
                                  with_image: bool = True) -> dict:
         """texture (R, R, 3), texture_alpha (R, R, 1), mesh (m, m, 3) in the
@@ -104,8 +124,7 @@ class PseudoGTDataset:
         res = self.texture_resolution
         path = os.path.join(self.cache_dir, f"pseudogt_{res}x{res}",
                             f"{idx}.npz")
-        with np.load(path, allow_pickle=True) as f:
-            raw = f["data"].item()
+        raw = self._load_npz(path)["data"].item()
 
         def to_nhwc(a):
             return np.ascontiguousarray(np.asarray(a).transpose(1, 2, 0))
@@ -177,7 +196,7 @@ class CubGANDataset(PseudoGTDataset):
         return 0.25 if self.conditional_class else 1.0
 
     def suggest_num_discriminators(self):
-        return 3 if self.texture_resolution >= 512 else 2
+        return suggested_num_discriminators("cub", self.texture_resolution)
 
     def suggest_mesh_template(self):
         return (32, 16)  # uvsphere_16rings
@@ -237,7 +256,7 @@ class Pascal3DGANDataset(PseudoGTDataset):
         return 0.75 if self.conditional_class else 1.0
 
     def suggest_num_discriminators(self):
-        return 2
+        return suggested_num_discriminators("p3d", self.texture_resolution)
 
     def suggest_mesh_template(self):
         return (32, 31)  # uvsphere_31rings

@@ -153,7 +153,8 @@ def test_port_never_imports_jax():
     for m in ("ops.conv", "models.gan", "data.pseudogt", "train.gan_trainer",
               "train.gan_eval", "cli.main", "ops.splat", "geometry.marching",
               "cli.pointcloud_to_mesh", "parallel.mesh", "parallel.launch",
-              "parallel.stages", "graft_entry"):
+              "parallel.stages", "graft_entry", "cli.import_torch",
+              "data.fastloader"):
         assert f"im23d_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -110,6 +110,18 @@ host time of one call of the generator's K8 and K9 entries
 (``head_conv_tanh``, ``fused_affine_conv3x3`` at blk6's conv2) without
 autograd, 200 calls with no synchronisation inside the loop.
 
+The GAN host feed (``gan_feed``): a 100-item pseudo-ground-truth cache at
+512² in ``generate_pseudogt``'s layout (this checkout's
+``StructuredPseudoGT`` maps: float16 NCHW texture and alpha, a float32
+32² mesh map, a float16 299² photo, each item's pickled ``data`` dict
+compressed; CUB's label files beside it), written once under this
+checkout's ``build/gan_feed_cache`` and read by every root; the root's
+``CubGANDataset.item`` seconds an item on one thread and on 4 (the host
+iterator's threads), ``--repeats`` readings each after a warm pass;
+``gan_batch_iterator``'s batches/s alone (bs 32, 3 epochs a reading); and
+1G + 2D groups/s at phase 23's configuration fed by that iterator (3
+epochs of one group each a reading, after a warm epoch).
+
 The timing helpers are ``tools/gpu_timing.py``'s, from this checkout
 whatever the root.  Prints one JSON line ``{"root": ..., "gpu": ...,
 "k9": [...], "k5": {...}, "k8": {...}, "k4b": {...}, "k1": {...},
@@ -120,7 +132,7 @@ whatever the root.  Prints one JSON line ``{"root": ..., "gpu": ...,
 Usage (from the repository root, on a machine with a CUDA device):
     python3 tools/kernel_times.py [--root DIR]
         [--only k9 k5 k8 k4b k1 k2 k4f k8dw k1s32 k2s32 k5b k6 k3 k7 k6b
-         k7b gan_group]
+         k7b gan_group gan_feed]
 """
 
 from __future__ import annotations
@@ -795,6 +807,115 @@ def time_gan_group(repeats: int) -> dict:
     return dict(groups_per_s=spread(rates), entry_host_ms=host)
 
 
+FEED_ITEMS, FEED_RES, FEED_PHOTO = 100, 512, 299  # phase 17's cache
+
+
+def _feed_cache() -> str:
+    """The feed's cache directory, written on first use in a temporary
+    directory and renamed into place."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from im23d_tpu_torch.data.fabricate import StructuredPseudoGT
+
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.join(here, "build", "gan_feed_cache")
+    cache = os.path.join(root, "cache", "cub")
+    if os.path.isdir(root):
+        return cache
+    os.makedirs(os.path.dirname(root), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.dirname(root))
+    fab = StructuredPseudoGT(FEED_ITEMS, FEED_RES, n_classes=8, seed=0)
+    pg = os.path.join(tmp, "cache", "cub", f"pseudogt_{FEED_RES}x{FEED_RES}")
+    os.makedirs(pg)
+    rows = (np.arange(FEED_PHOTO) * FEED_RES) // FEED_PHOTO
+    for i in range(FEED_ITEMS):
+        m = fab.maps(i)
+        np.savez_compressed(os.path.join(pg, f"{i}"), data=dict(
+            mesh=m["mesh"].astype(np.float32), texture=m["texture"],
+            texture_alpha=m["texture_alpha"],
+            image=m["texture"][:, rows][:, :, rows]))
+    paths = [f"{fab.class_of(i) + 1:03d}.bird/{i}.jpg"
+             for i in range(FEED_ITEMS)]
+    np.savez_compressed(os.path.join(tmp, "cache", "cub",
+                                     "poses_metadata"),
+                        data=dict(path=paths, **fab.poses()))
+    cub = os.path.join(tmp, "datasets", "cub", "CUB_200_2011")
+    os.makedirs(cub)
+    with open(os.path.join(cub, "images.txt"), "w") as fh:
+        fh.writelines(f"{i + 1} {p}\n" for i, p in enumerate(paths))
+    with open(os.path.join(cub, "image_class_labels.txt"), "w") as fh:
+        fh.writelines(f"{i + 1} {fab.class_of(i) + 1}\n"
+                      for i in range(FEED_ITEMS))
+    try:
+        os.rename(tmp, root)
+    except OSError:  # another root's process renamed its copy first
+        shutil.rmtree(tmp)
+    return cache
+
+
+def time_gan_feed(repeats: int) -> dict:
+    """The host feed of the GAN CLI: item seconds, batches/s, groups/s."""
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    import chip_smoke as cs  # the root's
+    from im23d_tpu_torch.data.pseudogt import CubGANDataset, gan_batch_iterator
+    from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
+    from im23d_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
+
+    ds = CubGANDataset(_feed_cache(), texture_resolution=FEED_RES,
+                       conditional_class=True)
+    items = range(len(ds))
+
+    def read(i):
+        return ds.item(i, 0)
+
+    list(map(read, items))  # warm: page cache, the root's decoder
+    one, four = [], []
+    with ThreadPoolExecutor(4) as pool:
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            list(map(read, items))
+            one.append((time.perf_counter() - t0) / len(ds))
+            t0 = time.perf_counter()
+            list(pool.map(read, items))
+            four.append((time.perf_counter() - t0) / len(ds))
+    feed = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        n = sum(1 for e in range(3)
+                for _ in gan_batch_iterator(ds, B_GAN, seed=e))
+        feed.append(n / (time.perf_counter() - t0))
+    trainer = GANTrainer(GANTrainConfig(model=cs._gan_config("bfloat16"),
+                                        batch_size=B_GAN),
+                         template=MeshTemplate(segments=32, rings=16),
+                         device="cuda")
+
+    def epochs(first, count):
+        for e in range(first, first + count):
+            for batch in gan_batch_iterator(ds, B_GAN, seed=e):
+                losses = trainer.train_step(batch)
+        float(next(iter(losses.values())))
+
+    # 100 items at bs 32: 3 iterations, one 1G + 2D group, an epoch
+    epochs(0, 1)  # warm
+    groups = []
+    for r in range(3):
+        t0 = time.perf_counter()
+        epochs(1 + 3 * r, 3)
+        groups.append(3 / (time.perf_counter() - t0))
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(item_s_1_thread=spread(one), item_s_4_threads=spread(four),
+                feed_batches_per_s=spread(feed),
+                groups_per_s=spread(groups))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
@@ -802,7 +923,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", nargs="+",
                     choices=("k9", "k5", "k8", "k4b", "k1", "k2", "k4f",
                              "k8dw", "k1s32", "k2s32", "k5b", "k6", "k3",
-                             "k7", "k6b", "k7b", "gan_group"))
+                             "k7", "k6b", "k7b", "gan_group",
+                             "gan_feed"))
     ap.add_argument("--k9_reps", type=int, default=20)
     ap.add_argument("--repeats", type=int, default=5)
     args = ap.parse_args(argv)
@@ -859,6 +981,8 @@ def main(argv=None) -> int:
             res[which] = time_backward(which, args.repeats)
     if args.only is None or "gan_group" in args.only:
         res["gan_group"] = time_gan_group(args.repeats)
+    if args.only is None or "gan_feed" in args.only:
+        res["gan_feed"] = time_gan_feed(args.repeats)
     print(json.dumps(res))
     return 0
 
