@@ -1,0 +1,7 @@
+"""K4f's share of its roofline in a training window (kernels/k4f.py)."""
+
+from portbench.lib import readers
+
+
+def read(run):
+    return readers.roofline(run, "k4f")
