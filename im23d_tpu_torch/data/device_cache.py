@@ -30,6 +30,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from im23d_tpu_torch.core.profiler import span, to_device
+
 HBM_BUDGET_BYTES = 2 << 30  # the JAX package's default budget
 
 _KEYS = (("texture", "texture"), ("alpha", "texture_alpha"), ("mesh", "mesh"))
@@ -105,16 +107,17 @@ class DeviceGANCache:
             self._staged_epoch = epoch
         augment = ds.augment and not ds.evaluate
         for j, idx in enumerate(own):
-            mirror = torch.from_numpy(np.array(
-                [augment and ds._item_rng(int(i), epoch).integers(2) == 1
-                 for i in idx], bool)).to(self.device)
-            sel = torch.as_tensor(idx if self.world == 1 else
-                                  np.arange(j * b, (j + 1) * b)).to(
-                                      self.device)
-            batch = {}
-            for key, arr in self._maps.items():
-                g = arr.index_select(0, sel)
-                batch[key] = (g if key == "c" else
-                              torch.where(mirror[:, None, None, None],
-                                          mirror_nhwc(g), g))
+            with span("feed.next", j):
+                mirror = to_device(torch.from_numpy(np.array(
+                    [augment and ds._item_rng(int(i), epoch).integers(2) == 1
+                     for i in idx], bool)), self.device)
+                sel = to_device(torch.as_tensor(
+                    idx if self.world == 1 else np.arange(j * b, (j + 1) * b)),
+                    self.device)
+                batch = {}
+                for key, arr in self._maps.items():
+                    g = arr.index_select(0, sel)
+                    batch[key] = (g if key == "c" else
+                                  torch.where(mirror[:, None, None, None],
+                                              mirror_nhwc(g), g))
             yield batch

@@ -26,9 +26,18 @@ def prefetched_batches(index_batches: Sequence, build: Callable,
         for idx in it:
             pending.append(pool.submit(build, idx))
             if len(pending) > lookahead:
-                yield pending.popleft().result()
+                yield _wait(pending)
         while pending:
-            yield pending.popleft().result()
+            yield _wait(pending)
+
+
+def _wait(pending: deque):
+    """The oldest pending batch, the consumer's wait for it a span."""
+    # imported here: the decode processes import this module, never torch
+    from im23d_tpu_torch.core.profiler import span
+
+    with span("feed.wait"):
+        return pending.popleft().result()
 
 
 def parallel_items(dataset, indices, pool: ThreadPoolExecutor | None):

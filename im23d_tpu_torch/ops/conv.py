@@ -558,11 +558,16 @@ def _fused_conv_setup(ctx, inputs, output):
 
 
 def _fused_conv_backward(ctx, dy):
-    """``_fused_conv_bwd``."""
+    """``_fused_conv_bwd``, looked up in the module at each call;
+    ``_fused_conv_backward.launches`` counts the calls."""
     x, a, b, weight = ctx.saved_tensors
     dx, da, db, dw = _fused_conv_bwd(
         x, a, b, weight, dy, ctx.pad_mode, ctx.needs_input_grad[:4])
+    _fused_conv_backward.launches += 1
     return dx, da, db, dw, None
+
+
+_fused_conv_backward.launches = 0
 
 
 _fused_conv_op.register_autograd(_fused_conv_backward,

@@ -22,6 +22,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from im23d_tpu_torch.core.profiler import span, to_device, to_host
 from im23d_tpu_torch.metrics.fid import calculate_stats, frechet_distance
 from im23d_tpu_torch.ops.quaternion import qnormalize, qrot
 from im23d_tpu_torch.render.renderer import render_mesh
@@ -47,8 +48,8 @@ def render_generated(template, renderer_res: int, mesh_map: torch.Tensor,
 
 def _poses(batch: dict, device):
     def f32(key):
-        return torch.as_tensor(np.asarray(batch[key]), dtype=torch.float32,
-                               device=device)
+        return to_device(torch.as_tensor(np.asarray(batch[key]),
+                                         dtype=torch.float32), device)
 
     return f32("scale").reshape(-1), f32("translation"), f32("rotation")
 
@@ -72,12 +73,16 @@ class FIDEvaluator:
         self.model.eval()
 
     def _render(self, mesh_map, tex, poses):
-        return render_generated(self.template, self.res, mesh_map, tex,
-                                *poses)[0]
+        with span("infer.render"):
+            return render_generated(self.template, self.res, mesh_map, tex,
+                                    *poses)[0]
 
     @torch.no_grad()
     def _act(self, img: torch.Tensor) -> np.ndarray:
-        return self.model(img).float().cpu().numpy()
+        with span("infer.embed"):
+            act = self.model(img)
+        with span("infer.to_host"):
+            return to_host(act.float()).numpy()
 
     def activations_for_batches(self, eval_batches: Iterable[dict],
                                 truncation_sigma: float = 1e9,
@@ -103,10 +108,11 @@ class FIDEvaluator:
                                                          0)])
                          for k, v in batch.items()}
             m = len(batch["rotation"])
-            z = (torch.tensor(np.asarray(z_batches[i]), device=dev)
+            z = (to_device(torch.tensor(np.asarray(z_batches[i])), dev)
                  if z_batches is not None else
                  self.trainer.truncation_sample(i, m, truncation_sigma))
-            tex, mesh_map = self.trainer.generate(z, batch.get("c"))
+            with span("infer.generate", i):
+                tex, mesh_map = self.trainer.generate(z, batch.get("c"))
             poses = _poses(batch, dev)
             with torch.no_grad():
                 acts["combined"].append(

@@ -55,6 +55,7 @@ from im23d_tpu_torch.core.convert import (
     generator_state_dict,
     text_encoder_state_dict,
 )
+from im23d_tpu_torch.core.profiler import span, to_device
 from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
 from im23d_tpu_torch.losses.gan_losses import flatness_loss, gan_loss
 from im23d_tpu_torch.models.gan import (
@@ -95,12 +96,13 @@ def truncation_sample(gen: torch.Generator, n: int, dim: int,
     """(n, dim) standard normal draws from ``gen`` (CPU), each component
     above ``sigma`` in magnitude redrawn, at most 100 rounds (the JAX
     version's bounded loop)."""
-    z = torch.randn((n, dim), generator=gen)
-    for _ in range(100):
-        bad = z.abs() > sigma
-        if not bool(bad.any()):
-            break
-        z = torch.where(bad, torch.randn((n, dim), generator=gen), z)
+    with span("infer.sample_z"):
+        z = torch.randn((n, dim), generator=gen)
+        for _ in range(100):
+            bad = z.abs() > sigma
+            if not bool(bad.any()):
+                break
+            z = torch.where(bad, torch.randn((n, dim), generator=gen), z)
     return z
 
 
@@ -225,7 +227,7 @@ class GANTrainer:
         out = {}
         for k, v in batch.items():
             t = v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
-            t = t.to(self.device, non_blocking=True)
+            t = to_device(t, self.device, non_blocking=True)
             out[k] = (t.long() if k in ("c", "idx", "caption")
                       else t.to(self.mcfg.dtype))
         return out
@@ -246,7 +248,7 @@ class GANTrainer:
                                             + self.total_it)
         d, dp = pmesh.data_position(self.mesh)
         z = torch.randn((n * dp, self.mcfg.latent_dim), generator=gen)
-        return z[d * n:(d + 1) * n].to(self.device)
+        return to_device(z[d * n:(d + 1) * n], self.device)
 
     def _fake(self, z, c, alpha, caption):
         tex, mesh = self.generator(z, c, caption)
@@ -254,75 +256,89 @@ class GANTrainer:
 
     def g_step(self, nb: dict, z: torch.Tensor, lr_factor: float = 1.0
                ) -> dict:
-        cfg = self.cfg
+        cfg, it = self.cfg, self.total_it
         G, D = self.generator, self.discriminator
         G.train()
         D.train()
         D.requires_grad_(False)
         try:
-            c, alpha = nb.get("c"), nb["alpha"]
-            caption = self.encode_caption(nb.get("caption"))
-            with pmesh.batch_norm_group(self.data_group):
-                x_fake, mesh = self._fake(z, c, alpha, caption)
-            preds, masks = D(x_fake, mesh, c, alpha=alpha, caption=caption)
-            loss_gan = gan_loss(preds, True, False, masks, self._d_weights(),
-                                cfg.loss)
-            flat = torch.zeros((), device=self.device)
-            if self.use_mesh:
-                vtx = self.template.get_vertex_positions(mesh)
-                flat = flatness_loss(self.template.compute_normals(vtx),
-                                     self.template.tensor("ff", self.device))
-            loss = loss_gan + cfg.mesh_regularization * flat
-            for group in self.opt_g.param_groups:
-                group["lr"] = cfg.lr_g * lr_factor
-            self.opt_g.zero_grad(set_to_none=True)
-            loss.backward()
-            pmesh.all_reduce_grads(G.parameters(), self.data_group)
-            self.opt_g.step()
+            with span("train.forward", it):
+                c, alpha = nb.get("c"), nb["alpha"]
+                caption = self.encode_caption(nb.get("caption"))
+                with pmesh.batch_norm_group(self.data_group):
+                    x_fake, mesh = self._fake(z, c, alpha, caption)
+                preds, masks = D(x_fake, mesh, c, alpha=alpha,
+                                 caption=caption)
+                loss_gan = gan_loss(preds, True, False, masks,
+                                    self._d_weights(), cfg.loss)
+                flat = torch.zeros((), device=self.device)
+                if self.use_mesh:
+                    vtx = self.template.get_vertex_positions(mesh)
+                    flat = flatness_loss(
+                        self.template.compute_normals(vtx),
+                        self.template.tensor("ff", self.device))
+                loss = loss_gan + cfg.mesh_regularization * flat
+            with span("train.optimizer", it):
+                for group in self.opt_g.param_groups:
+                    group["lr"] = cfg.lr_g * lr_factor
+                self.opt_g.zero_grad(set_to_none=True)
+            with span("train.backward", it):
+                loss.backward()
+                pmesh.all_reduce_grads(G.parameters(), self.data_group)
+            with span("train.optimizer", it):
+                self.opt_g.step()
         finally:
             D.requires_grad_(True)
             G.eval()
             D.eval()
-        self._update_ema(self._ema_alpha())
+        with span("train.ema", it):
+            self._update_ema(self._ema_alpha())
         return pmesh.mean_over(dict(g_loss=loss_gan.detach(),
                                     flat_loss=flat.detach()),
                                self.data_group)
 
     def d_step(self, nb: dict, z: torch.Tensor, lr_factor: float = 1.0
                ) -> dict:
-        cfg = self.cfg
+        cfg, it = self.cfg, self.total_it
         G, D = self.generator, self.discriminator
         G.train()
         D.train()
         try:
-            c, alpha = nb.get("c"), nb["alpha"]
-            caption = self.encode_caption(nb.get("caption"))
-            with torch.no_grad(), pmesh.batch_norm_group(self.data_group):
-                x_fake, mesh = self._fake(z, c, alpha, caption)
-            x_real = torch.cat([nb["texture"], alpha], dim=-1)
-            x_comb = torch.cat([x_fake, x_real], dim=0)
-            c_comb = None if c is None else torch.cat([c, c], dim=0)
-            mesh_comb = (None if mesh is None else
-                         torch.cat([mesh, nb["mesh"].float()], dim=0))
-            caption_comb = (None if caption is None else
-                            tuple(torch.cat([t, t], dim=0) for t in caption))
-            preds, masks = D(x_comb, mesh_comb, c_comb,
-                             alpha=torch.cat([alpha, alpha], dim=0),
-                             caption=caption_comb)
-            B = x_fake.shape[0]
-            w = self._d_weights()
-            loss_fake = gan_loss([p[:B] for p in preds], False, True,
-                                 [None if m is None else m[:B] for m in masks],
-                                 w, cfg.loss)
-            loss_real = gan_loss([p[B:] for p in preds], True, True,
-                                 [None if m is None else m[B:] for m in masks],
-                                 w, cfg.loss)
-            for group in self.opt_d.param_groups:
-                group["lr"] = cfg.lr_d * lr_factor
-            self.opt_d.zero_grad(set_to_none=True)
-            (loss_fake + loss_real).backward()
-            pmesh.all_reduce_grads(D.parameters(), self.data_group)
-            self.opt_d.step()
+            with span("train.forward", it):
+                c, alpha = nb.get("c"), nb["alpha"]
+                caption = self.encode_caption(nb.get("caption"))
+                with torch.no_grad(), pmesh.batch_norm_group(self.data_group):
+                    x_fake, mesh = self._fake(z, c, alpha, caption)
+                x_real = torch.cat([nb["texture"], alpha], dim=-1)
+                x_comb = torch.cat([x_fake, x_real], dim=0)
+                c_comb = None if c is None else torch.cat([c, c], dim=0)
+                mesh_comb = (None if mesh is None else
+                             torch.cat([mesh, nb["mesh"].float()], dim=0))
+                caption_comb = (None if caption is None else
+                                tuple(torch.cat([t, t], dim=0)
+                                      for t in caption))
+                preds, masks = D(x_comb, mesh_comb, c_comb,
+                                 alpha=torch.cat([alpha, alpha], dim=0),
+                                 caption=caption_comb)
+                B = x_fake.shape[0]
+                w = self._d_weights()
+                loss_fake = gan_loss(
+                    [p[:B] for p in preds], False, True,
+                    [None if m is None else m[:B] for m in masks], w,
+                    cfg.loss)
+                loss_real = gan_loss(
+                    [p[B:] for p in preds], True, True,
+                    [None if m is None else m[B:] for m in masks], w,
+                    cfg.loss)
+            with span("train.optimizer", it):
+                for group in self.opt_d.param_groups:
+                    group["lr"] = cfg.lr_d * lr_factor
+                self.opt_d.zero_grad(set_to_none=True)
+            with span("train.backward", it):
+                (loss_fake + loss_real).backward()
+                pmesh.all_reduce_grads(D.parameters(), self.data_group)
+            with span("train.optimizer", it):
+                self.opt_d.step()
         finally:
             G.eval()
             D.eval()
@@ -342,13 +358,17 @@ class GANTrainer:
         alpha (B, H, W, 1), mesh (B, m, m, 3), optional c (B, k)): a G step
         every (1 + d_steps_per_g) iterations, else a D step.  Returns the
         step's losses as device scalars."""
-        nb = self.put_batch(batch)
-        if z is None:
-            z = self.sample_z(nb["alpha"].shape[0])
-        if self.total_it % (1 + self.cfg.d_steps_per_g) == 0:
-            losses = self.g_step(nb, z, self._lr_factor())
-        else:
-            losses = self.d_step(nb, z, self._lr_factor())
+        it = self.total_it
+        with span("train.step", it):
+            with span("train.put", it):
+                nb = self.put_batch(batch)
+            if z is None:
+                with span("train.sample_z", it):
+                    z = self.sample_z(nb["alpha"].shape[0])
+            if self.total_it % (1 + self.cfg.d_steps_per_g) == 0:
+                losses = self.g_step(nb, z, self._lr_factor())
+            else:
+                losses = self.d_step(nb, z, self._lr_factor())
         self.total_it += 1
         return losses
 
@@ -357,7 +377,7 @@ class GANTrainer:
     def _long(self, a) -> torch.Tensor:
         """A host array or a tensor on any device -> int64 on the device."""
         t = a if torch.is_tensor(a) else torch.as_tensor(np.asarray(a))
-        return t.to(self.device).long()
+        return to_device(t, self.device).long()
 
     @torch.no_grad()
     def generate(self, z: torch.Tensor, c=None, caption_tokens=None):
@@ -380,8 +400,8 @@ class GANTrainer:
         """``truncation_sample`` from a generator seeded with ``seed``, on
         the device."""
         gen = torch.Generator().manual_seed(int(seed))
-        return truncation_sample(gen, n, self.mcfg.latent_dim, sigma).to(
-            self.device)
+        return to_device(truncation_sample(gen, n, self.mcfg.latent_dim,
+                                           sigma), self.device)
 
     # -- checkpoints ----------------------------------------------------------
 

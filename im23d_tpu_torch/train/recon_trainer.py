@@ -40,6 +40,7 @@ from im23d_tpu_torch.core.convert import (
     dataset_params_state_dict,
     reconstruction_state_dict,
 )
+from im23d_tpu_torch.core.profiler import span, to_device
 from im23d_tpu_torch.geometry.mesh_template import MeshTemplate
 from im23d_tpu_torch.losses.gan_losses import flatness_loss
 from im23d_tpu_torch.metrics.iou import mean_iou
@@ -162,7 +163,7 @@ class ReconTrainer:
         for k, v in batch.items():
             t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
                                 else v)
-            t = t.to(self.device, non_blocking=True)
+            t = to_device(t, self.device, non_blocking=True)
             out[k] = t.long() if k == "idx" else t.float()
         return out
 
@@ -209,36 +210,45 @@ class ReconTrainer:
         translation (B, 3), rotation (B, 4), idx (B,) int or absent.
         Returns recon_loss, flat_loss and the soft alpha's iou as device
         scalars."""
-        cfg = self.cfg
-        nb = self._put(batch)
-        flat_coeff = cfg.mesh_regularization * self.flat_warmup
-        self.flat_warmup = max(self.flat_warmup - 0.1, 1.0)
-        for group in self.opt.param_groups:
-            group["lr"] = cfg.lr * self._lr_factor()
-        self.model.train()
-        try:
-            with pmesh.batch_norm_group(self.data_group):
-                tex, mesh_map = self.model(nb["image"])
-        finally:
-            self.model.eval()
-        raw_vtx, _, image, alpha = self._pose_and_render(mesh_map, tex, nb)
-        x_fake = torch.cat([image, alpha], dim=-1)
-        recon = self._recon_loss(x_fake, nb["image"])
-        flat = flatness_loss(self.template.compute_normals(raw_vtx),
-                             self.template.tensor("ff", self.device))
-        loss = recon + flat_coeff * flat
-        optimizers = [o for o in (self.opt, self.opt_dp) if o is not None]
-        for opt in optimizers:
-            opt.zero_grad(set_to_none=True)
-        loss.backward()
-        pmesh.all_reduce_grads([p for opt in optimizers
-                                for g in opt.param_groups
-                                for p in g["params"]], self.data_group)
-        for opt in optimizers:
-            opt.step()
+        cfg, it = self.cfg, self.total_it
+        with span("train.step", it):
+            with span("train.put", it):
+                nb = self._put(batch)
+            flat_coeff = cfg.mesh_regularization * self.flat_warmup
+            self.flat_warmup = max(self.flat_warmup - 0.1, 1.0)
+            with span("train.forward", it):
+                self.model.train()
+                try:
+                    with pmesh.batch_norm_group(self.data_group):
+                        tex, mesh_map = self.model(nb["image"])
+                finally:
+                    self.model.eval()
+            with span("train.render", it):
+                raw_vtx, _, image, alpha = self._pose_and_render(
+                    mesh_map, tex, nb)
+            with span("train.loss", it):
+                x_fake = torch.cat([image, alpha], dim=-1)
+                recon = self._recon_loss(x_fake, nb["image"])
+                flat = flatness_loss(self.template.compute_normals(raw_vtx),
+                                     self.template.tensor("ff", self.device))
+                loss = recon + flat_coeff * flat
+                with torch.no_grad():
+                    miou = mean_iou(x_fake[..., 3], nb["image"][..., 3])
+            optimizers = [o for o in (self.opt, self.opt_dp) if o is not None]
+            with span("train.optimizer", it):
+                for group in self.opt.param_groups:
+                    group["lr"] = cfg.lr * self._lr_factor()
+                for opt in optimizers:
+                    opt.zero_grad(set_to_none=True)
+            with span("train.backward", it):
+                loss.backward()
+                pmesh.all_reduce_grads([p for opt in optimizers
+                                        for g in opt.param_groups
+                                        for p in g["params"]], self.data_group)
+            with span("train.optimizer", it):
+                for opt in optimizers:
+                    opt.step()
         self.total_it += 1
-        with torch.no_grad():
-            miou = mean_iou(x_fake[..., 3], nb["image"][..., 3])
         return pmesh.mean_over(dict(recon_loss=recon.detach(),
                                     flat_loss=flat.detach(), iou=miou),
                                self.data_group)
