@@ -236,7 +236,20 @@ Phases:
      10's 110 photos, imported, then ``run_reconstruction --evaluate`` on
      them: the launches of K4 and K5, the means, the walls, the network's
      outputs and the DatasetParams bit for bit against the dict loaded
-     directly.
+     directly;
+ 41. (after phase 14) ``ReconTrainer.train_step`` with the network's
+     forward and backward replayed from CUDA graphs against the same steps
+     run eagerly, and an eager run against a second one, at the
+     ``cub_recon`` cell's shapes (bs 50, 256², 128² texture, bf16): 3 steps
+     from the same weights and batches, a ``restore()`` and a step, an
+     ``eval_step``, a tail batch of 10 (eager on both sides), and a step
+     after a parameter's storage was replaced (a new capture); losses,
+     parameters, running statistics, ``DatasetParams`` and both Adams'
+     moments, the forward hook's outputs, the eval's render and the
+     graph / eager step counters; held bit-equal (or within 1e-5
+     relative L2) with every kernel of the step deterministic (PyTorch's
+     deterministic algorithms, the plain sampler for K5, whose backward
+     sums by atomicAdd), and printed as the step trains.
 
 Prints timings beside the GPU's name and power limit, then one JSON line
 with the per-kernel results (each with its bound: the larger of the bytes
@@ -277,6 +290,7 @@ from im23d_tpu_torch.cli import main as gan_cli
 from im23d_tpu_torch.cli import pointcloud_to_mesh as mesh_cli
 from im23d_tpu_torch.cli import run_reconstruction as recon_cli
 from im23d_tpu_torch.cli import training_test_shape_net as train_cli
+from im23d_tpu_torch.core.profiler import COUNTERS
 from im23d_tpu_torch.data import cmr
 from im23d_tpu_torch.data.cmr import batch_iterator
 from im23d_tpu_torch.data.device_cache import DeviceGANCache
@@ -389,6 +403,7 @@ from im23d_tpu_torch.train.recon_trainer import (
     ReconTrainer,
     transform_vertices,
 )
+from im23d_tpu_torch.train import recon_graph
 from im23d_tpu_torch.train.shapenet_learner import (
     ShapeNetConfig,
     ShapeNetLearner,
@@ -479,6 +494,10 @@ K4B_REPEATS = 3  # launches at the main path's shape, bit-equal
 STEP_BS, STEP_RTOL, STEP_OUT_RL2, STEP_DP_RL2, STEP_NET_RL2 = (
     8, 1e-4, 1e-4, 1e-4, 1e-3)
 RECON_TRAIN_EPOCHS = 3  # the training CLI's run, then one more resumed
+# the recon network replayed from CUDA graphs against eager steps: the
+# steps compared, the tail batch's size, and the gap allowed where a leaf
+# is not bit-equal
+GRAPH_STEPS, GRAPH_TAIL, GRAPH_RL2 = 3, 10, 1e-5
 PGT_IMAGES, PGT_RES = 100, 512  # pseudo-GT: photos, --pseudogt_resolution
 PGT_MASK_FRAC = 1e-4  # visibility-mask pixels differing from the plain path
 # the CUB GAN at the CLI's defaults for a 512² cache: bs 32, 3 critics,
@@ -2070,6 +2089,157 @@ def phase_train_step(gpu: str, template) -> None:
     if min(launched[k] for k in ("k4", "k4b", "k5", "k5b")) < 1:
         raise AssertionError(f"a kernel of the step never launched: "
                              f"{launched}")
+
+
+@contextlib.contextmanager
+def _eager_network():
+    """The recon trainer's network run eagerly on the card."""
+    with mock.patch.object(recon_graph, "graph_action",
+                           lambda *a: recon_graph.EAGER):
+        yield
+
+
+def _recon_state(trainer) -> dict:
+    """What a recon step moves: the network's parameters and running
+    statistics, ``DatasetParams`` and both Adams' moments and steps."""
+    state = {f"net.{k}": v for k, v in trainer.model.state_dict().items()}
+    state.update({f"dp.{k}": v for k, v in
+                  trainer.dp_model.state_dict().items()})
+    for name, opt in (("adam", trainer.opt), ("adam_dp", trainer.opt_dp)):
+        for i, moments in opt.state_dict()["state"].items():
+            state.update({f"{name}.{i}.{k}": torch.as_tensor(v)
+                          for k, v in moments.items()})
+    return {k: v.detach().clone() for k, v in state.items()}
+
+
+def _recon_graph_run(template, data, workdir: str, graphed: bool) -> dict:
+    """GRAPH_STEPS train steps, a save, a step, ``restore()`` and a step, an
+    ``eval_step``, a tail-batch step and a step after a parameter's storage
+    was replaced; what each left, what the forward hook saw and the
+    graph / eager step counts."""
+    batches = list(batch_iterator(data, RB, shuffle=False, drop_last=False,
+                                  num_workers=1))
+    trainer = ReconTrainer(ReconConfig(image_resolution=RES,
+                                       texture_resolution=TEX, batch_size=RB),
+                           dataset_size=len(data), template=template,
+                           device=DEVICE)
+    _move_mesh_head(trainer)
+    seen = []
+    trainer.model.register_forward_hook(
+        lambda m, a, out: seen.append([o.detach().clone() for o in out]))
+    counts = dict(COUNTERS)
+    got = {}
+    with contextlib.nullcontext() if graphed else _eager_network():
+        got["losses"] = [trainer.train_step(b) for b in
+                         batches[:GRAPH_STEPS]]
+        got["steps"] = _recon_state(trainer)
+        trainer.save(workdir, tag="latest")
+        trainer.train_step(batches[GRAPH_STEPS])
+        trainer.restore(workdir, "latest")
+        got["losses"].append(trainer.train_step(batches[GRAPH_STEPS + 1]))
+        got["restored"] = _recon_state(trainer)
+        losses, got["eval_render"] = trainer.eval_step(batches[0])
+        got["losses"].append(losses)
+        got["losses"].append(trainer.train_step(batches[-1]))
+        got["tail"] = _recon_state(trainer)
+        w = trainer.model.conv_mesh.weight
+        w.data = w.data.clone()
+        got["losses"].append(trainer.train_step(batches[1]))
+        got["replaced"] = _recon_state(trainer)
+    got["losses"] = [{k: float(v) for k, v in d.items()}
+                     for d in got["losses"]]
+    got["seen"] = {f"{i}.{j}": o for i, out in enumerate(seen)
+                   for j, o in enumerate(out)}
+    got["counts"] = {k: COUNTERS[k] - counts[k]
+                     for k in ("recon_graph_steps", "recon_eager_steps")}
+    got["counters"] = (trainer.total_it, trainer.flat_warmup)
+    return got
+
+
+def _state_gap(got: dict, ref: dict) -> tuple[int, float, float]:
+    """(leaves not bit-equal, the worst leaf's relative L2 gap, the whole
+    state's)."""
+    if got.keys() != ref.keys():
+        return len(got.keys() ^ ref.keys()), math.inf, math.inf
+    worst, differ, num, den = 0.0, 0, 0.0, 0.0
+    for k, r in ref.items():
+        g, r = got[k].double(), r.double()
+        d2, r2 = float(((g - r) ** 2).sum()), float((r ** 2).sum())
+        num, den = num + d2, den + r2
+        if not torch.equal(g, r):
+            differ += 1
+            worst = max(worst, (d2 / max(r2, 1e-60)) ** 0.5)
+    return differ, worst, (num / max(den, 1e-60)) ** 0.5
+
+
+@contextlib.contextmanager
+def _deterministic_steps():
+    """Every kernel of a recon step deterministic: PyTorch's deterministic
+    algorithms (cuDNN's, the gathers' backward) and the plain texture
+    sampler in place of K5, whose backward sums by atomicAdd."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with mock.patch.object(renderer, "grid_sample_bilinear",
+                               grid_sample_bilinear_torch):
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
+def recon_graph_readings(template, tmp: str) -> dict:
+    """In each mode, the graphed run against an eager run and that against
+    a second eager run (what the eager steps alone vary by):
+    ``deterministic`` (``_deterministic_steps``) and ``kernels`` (the
+    step as it trains, K5 backward's atomicAdd order differing run to
+    run)."""
+    data = _fabricated_batch(template, RB * (GRAPH_STEPS + 2) + GRAPH_TAIL,
+                             19)
+    readings = {}
+    for mode, steps in (("deterministic", _deterministic_steps),
+                        ("kernels", contextlib.nullcontext)):
+        with steps():
+            runs = [_recon_graph_run(template, data,
+                                     os.path.join(tmp, mode + name),
+                                     name == "graphed")
+                    for name in ("graphed", "eager", "eager2")]
+        got = readings[mode] = dict(counts=[r["counts"] for r in runs])
+        for pair, (a, b) in (("graphed_eager", runs[:2]),
+                             ("eager_eager", runs[1:])):
+            got[pair] = dict(
+                losses=max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                           for x, y in zip(a["losses"], b["losses"])
+                           for k in y),
+                **{key: _state_gap(a[key], b[key]) for key in
+                   ("steps", "restored", "tail", "replaced", "seen")},
+                eval_render=_state_gap({"x": a["eval_render"]},
+                                       {"x": b["eval_render"]}),
+                counters=a["counters"] == b["counters"])
+    return readings
+
+
+def phase_recon_graph(gpu: str, template) -> None:
+    """The recon network replayed from CUDA graphs against eager steps
+    (``recon_graph_readings``): in the deterministic mode every state
+    bit-equal or within GRAPH_RL2; in both, the steps counted as the rule
+    says."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        readings = recon_graph_readings(template, tmp)
+    print(f"[recon-graph] (leaves not bit-equal, worst leaf's relative L2, "
+          f"the whole state's) {json.dumps(readings)} in "
+          f"{time.perf_counter() - t0:.1f} s [{gpu}]")
+    eager = dict(recon_graph_steps=0, recon_eager_steps=GRAPH_STEPS + 4)
+    for got in readings.values():
+        if got["counts"] != [dict(recon_graph_steps=GRAPH_STEPS + 3,
+                                  recon_eager_steps=1), eager, eager]:
+            raise AssertionError(f"graph / eager steps: {got['counts']}")
+    gaps = readings["deterministic"]["graphed_eager"]
+    worst = max([gaps["losses"]] + [v[1] for v in gaps.values()
+                                     if isinstance(v, tuple)])
+    if not gaps["counters"] or worst > GRAPH_RL2:
+        raise AssertionError(f"graphed steps disagree with eager: {gaps}")
 
 
 def phase_recon_train(gpu: str, template, tmp: str) -> dict:
@@ -3956,6 +4126,7 @@ def main() -> int:
         phase_recon_import(gpu, template, tmp, recon_data)
         del recon_data
     phase_train_step(gpu, template)
+    phase_recon_graph(gpu, template)
     with tempfile.TemporaryDirectory() as tmp:
         recon_train = phase_recon_train(gpu, template, tmp)
     phase_recon_learn(gpu, template)

@@ -14,7 +14,9 @@ program's spans and its copy counters.
 * ``COUNTERS``: bytes copied from host memory to a CUDA device
   (``h2d_bytes``, by ``to_device``) and back (``d2h_bytes``, by
   ``to_host``) on the trainers', feeds' and FID's per-iteration paths;
-  always on, plain integer adds.
+  the recon training steps whose network replayed from CUDA graphs
+  (``recon_graph_steps``) and ran eagerly (``recon_eager_steps``,
+  ``train/recon_graph.py``); always on, plain integer adds.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 PREFIX = "im23d."
-COUNTERS = {"h2d_bytes": 0, "d2h_bytes": 0}
+COUNTERS = {"h2d_bytes": 0, "d2h_bytes": 0, "recon_graph_steps": 0,
+            "recon_eager_steps": 0}
 _NULL = contextlib.nullcontext()
 _recording = torch._C._autograd._profiler_enabled
 

@@ -2,12 +2,14 @@
 ``im23d_tpu/train/recon_trainer.py``), on one device or on a rank of a
 ``parallel.mesh.Mesh``.
 
-* ``train_step``: the network in train mode (flax batch norm), posing with
-  the learnable ``DatasetParams`` deltas, the render (K4 and K5 with their
-  backward kernels on CUDA), loss = recon + mesh_regularization x warm-up x
-  flatness, the warm-up read and then decayed by 0.1 a step to 1.0; two
-  Adam optimizers, the network's at lr x 0.5 ** (epoch // lr_decay_every)
-  and ``DatasetParams``' at lr_dataset (dense gradients, so every row's
+* ``train_step``: the network in train mode (flax batch norm; on one CUDA
+  card its forward and backward replay from CUDA graphs,
+  ``train/recon_graph.py``), posing with the learnable ``DatasetParams``
+  deltas, the render (K4 and K5 with their backward kernels on CUDA),
+  loss = recon + mesh_regularization x warm-up x flatness, the warm-up
+  read and then decayed by 0.1 a step to 1.0; two Adam optimizers, the
+  network's at lr x 0.5 ** (epoch // lr_decay_every) and
+  ``DatasetParams``' at lr_dataset (dense gradients, so every row's
   moments move each step, as optax's).
 * ``eval_step`` (recon loss, flatness loss and mIoU, weighted per sample),
   ``evaluate`` (the tail batch padded with repeats of weight 0, so every
@@ -53,6 +55,7 @@ from im23d_tpu_torch.ops.quaternion import qmul, qnormalize, qrot
 from im23d_tpu_torch.ops.sampling import resize_bilinear
 from im23d_tpu_torch.parallel import mesh as pmesh
 from im23d_tpu_torch.render.renderer import render_mesh
+from im23d_tpu_torch.train.recon_graph import NetworkGraphs
 
 FLAT_WARMUP = 10.0  # flatness weight multiplier at step 0, decays to 1.0
 
@@ -140,6 +143,7 @@ class ReconTrainer:
         gen = torch.Generator().manual_seed(config.seed)
         lecun_init_(self.model, gen)
         self.model.to(self.device).eval()
+        self.graphs = NetworkGraphs(self.model)
         self.use_dp = config.optimize_deltas or config.optimize_z0
         self.dp_model = (
             DatasetParams(dataset_size, config.optimize_deltas,
@@ -219,7 +223,8 @@ class ReconTrainer:
             with span("train.forward", it):
                 self.model.train()
                 try:
-                    with pmesh.batch_norm_group(self.data_group):
+                    with pmesh.batch_norm_group(self.data_group), \
+                            self.graphs.engaged(nb["image"], self.data_group):
                         tex, mesh_map = self.model(nb["image"])
                 finally:
                     self.model.eval()
