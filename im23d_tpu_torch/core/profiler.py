@@ -16,7 +16,11 @@ program's spans and its copy counters.
   ``to_host``) on the trainers', feeds' and FID's per-iteration paths;
   the recon training steps whose network replayed from CUDA graphs
   (``recon_graph_steps``) and ran eagerly (``recon_eager_steps``,
-  ``train/recon_graph.py``); always on, plain integer adds.
+  ``train/recon_graph.py``); the clouds the projection splatted
+  (``projected_clouds``: K1's on a card) and the silhouettes the winner
+  reuse took from a sweep in place of a second projection
+  (``reused_silhouettes``, ``ops/projection.py``); always on, plain
+  integer adds, counted from shapes.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 PREFIX = "im23d."
 COUNTERS = {"h2d_bytes": 0, "d2h_bytes": 0, "recon_graph_steps": 0,
-            "recon_eager_steps": 0}
+            "recon_eager_steps": 0, "projected_clouds": 0,
+            "reused_silhouettes": 0}
 _NULL = contextlib.nullcontext()
 _recording = torch._C._autograd._profiler_enabled
 

@@ -27,6 +27,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from im23d_tpu_torch.core.profiler import span
 from im23d_tpu_torch.ops.quaternion import blender_camera_to_quaternion
 
 SYNSET_IDS = {
@@ -232,7 +233,8 @@ def gt_cloud_pairs(model_dirs, n_points: int, image_size: int
 
 class _PrefetchIterator:
     """Batches built on one background thread, ``num_prefetch`` ahead.  A
-    failure on that thread is raised by the ``next`` that reaches it."""
+    failure on that thread is raised by the ``next`` that reaches it; the
+    consumer's wait is the span ``im23d.feed.wait``."""
 
     def __init__(self, make_batch, num_prefetch: int = 4):
         self._queue: queue_mod.Queue = queue_mod.Queue(maxsize=num_prefetch)
@@ -254,7 +256,8 @@ class _PrefetchIterator:
         return self
 
     def __next__(self):
-        batch = self._queue.get()
+        with span("feed.wait"):
+            batch = self._queue.get()
         if isinstance(batch, Exception):
             raise batch
         return batch

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from im23d_tpu_torch.core.profiler import span
 from im23d_tpu_torch.ops.camera import world_to_camera_zyx
 from im23d_tpu_torch.ops.projection import (
     projection_silhouette,
@@ -118,10 +119,11 @@ def unsupervised_loss(
 
     # K-way sweep of every candidate without gradient, then the argmin
     with torch.no_grad():
-        sil = project_candidates(
-            cloud, ensemble_q.reshape(B, V * K, 4), sigma, scale=scale,
-            weights=keep_weights, voxel_size=S,
-        ).reshape(B * V, K, S, S)
+        with span("train.project"):
+            sil = project_candidates(
+                cloud, ensemble_q.reshape(B, V * K, 4), sigma, scale=scale,
+                weights=keep_weights, voxel_size=S,
+            ).reshape(B * V, K, S, S)
         per_candidate = torch.sum((sil - masks_s[:, None]) ** 2, dim=(2, 3))
         min_idx = torch.argmin(per_candidate, dim=-1)  # (B*V,)
     rows = torch.arange(B * V, device=min_idx.device)

@@ -10,6 +10,9 @@ one thread-block cluster a cloud, the cloud's grid in the cluster's
 distributed shared memory, laid out by ``projection_plan``), joined by the
 ``torch.autograd.Function`` ``_Projection``; there is no other path.  The
 splat weights (keep masks) are constants: no gradient reaches them.
+``COUNTERS["projected_clouds"]`` counts the clouds that
+``projection_silhouette`` projects and ``["reused_silhouettes"]`` the rows
+that ``projection_silhouette_reuse`` takes from a sweep, from shapes.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from im23d_tpu_torch.core.profiler import COUNTERS
 from im23d_tpu_torch.ops import _build
 from im23d_tpu_torch.ops.voxel import (
     blur_3d,
@@ -313,6 +317,12 @@ def projection_backward_kernel(gz, gy, gx, c, taps, scale, gsil,
 projection_backward_kernel.launches = 0
 
 
+def _projection_forward(gz, gy, gx, c, taps, scale, size, eps):
+    """``_Projection.forward``'s K1 launch, alone in a function of its own
+    (the benchmark times K1 at this entry)."""
+    return projection_kernel(gz, gy, gx, c, taps, scale, size, eps)
+
+
 class _Projection(torch.autograd.Function):
     """K1 forward and K2 backward on grid-coordinate planes.
 
@@ -328,7 +338,7 @@ class _Projection(torch.autograd.Function):
         ctx.eps = eps
         if sil is not None:
             return sil.clone()
-        return projection_kernel(gz, gy, gx, c, taps, scale, size, eps)
+        return _projection_forward(gz, gy, gx, c, taps, scale, size, eps)
 
     @staticmethod
     def backward(ctx, gsil):
@@ -361,6 +371,7 @@ def projection_silhouette(points: Points, size: int, sigma, scale,
     tensors run K1, and K2 for the gradient.
     """
     planes = _planes(points)
+    COUNTERS["projected_clouds"] += planes[0].shape[0]
     if planes[0].device.type == "cpu":
         return projection_silhouette_torch(planes, size, sigma, scale, weights,
                                            kernel_size, border_eps, eps)
@@ -383,6 +394,7 @@ def projection_silhouette_reuse(points: Points, size: int, sigma, scale,
     on the CPU.
     """
     planes = _planes(points)
+    COUNTERS["reused_silhouettes"] += sil.shape[0]
     operands = [*planes, scale]
     if not torch.is_grad_enabled() or not any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in operands):

@@ -11,6 +11,10 @@ on a rank of a ``parallel.mesh.Mesh``:
 * the dropout keep mask drawn from a generator seeded by (seed, step);
 * checkpoints ``{params, opt_state, step}`` by ``torch.save``, numbered or
   under the rolling tag ``latest``;
+* while a profiler records, the spans ``im23d.train.step`` and in it
+  ``.put``, ``.forward``, ``.loss`` (the K-way sweep ``.project`` nested
+  in it), ``.optimizer``, ``.backward``, ``.optimizer``; the batch's
+  host-to-device bytes in ``COUNTERS["h2d_bytes"]`` (``core/profiler.py``);
 * on a mesh, ``batch_size`` is the rank's; the batch splits over the data
   axis (the keep mask is drawn for the global batch and sliced), the
   layers of ``dense_tp_layers`` split over the model axis, gradients and
@@ -30,6 +34,7 @@ import torch
 from im23d_tpu_torch.core.checkpoint import resolve_checkpoint, save_checkpoint
 from im23d_tpu_torch.core.convert import unsupervised_part_state_dict
 from im23d_tpu_torch.core.metrics_logger import MetricsLogger
+from im23d_tpu_torch.core.profiler import span, to_device
 from im23d_tpu_torch.losses.effective import unsupervised_loss
 from im23d_tpu_torch.models.pointcloud_nets import (
     UnsupervisedPart,
@@ -149,7 +154,7 @@ class ShapeNetLearner:
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
-            t = t.to(self.device, non_blocking=True)
+            t = to_device(t, self.device, non_blocking=True)
             out[k] = (t.to(torch.float32) / 255.0 if t.dtype == torch.uint8
                       else t.to(torch.float32))
         return out
@@ -170,21 +175,29 @@ class ShapeNetLearner:
         of ``put_batch``); returns the losses as device scalars (no host
         sync).  The schedules are taken at the pre-update step and the keep
         mask comes from a generator seeded by (seed, step)."""
-        cfg = self.cfg
-        nb = self._normalize(batch)
-        self.model.train()
-        p, sigma = self._schedules(self.step)
-        keep_w = self._keep_mask(nb["images"].shape[0], p)
-        outputs = self.model(nb["images"], nb["pose_input"])
-        losses, aux = unsupervised_loss(
-            outputs, nb["masks"], sigma, keep_w, cfg.num_views,
-            voxel_size=cfg.voxel_size, student_weight=cfg.student_weight,
-            training=True,
-        )
-        self.opt.zero_grad(set_to_none=True)
-        losses["total_loss"].backward()
-        pmesh.all_reduce_grads(self.model.parameters(), self.data_group)
-        self.opt.step()
+        cfg, it = self.cfg, self.step
+        with span("train.step", it):
+            with span("train.put", it):
+                nb = self._normalize(batch)
+            with span("train.forward", it):
+                self.model.train()
+                p, sigma = self._schedules(self.step)
+                keep_w = self._keep_mask(nb["images"].shape[0], p)
+                outputs = self.model(nb["images"], nb["pose_input"])
+            with span("train.loss", it):
+                losses, aux = unsupervised_loss(
+                    outputs, nb["masks"], sigma, keep_w, cfg.num_views,
+                    voxel_size=cfg.voxel_size,
+                    student_weight=cfg.student_weight, training=True,
+                )
+            with span("train.optimizer", it):
+                self.opt.zero_grad(set_to_none=True)
+            with span("train.backward", it):
+                losses["total_loss"].backward()
+                pmesh.all_reduce_grads(self.model.parameters(),
+                                       self.data_group)
+            with span("train.optimizer", it):
+                self.opt.step()
         self.step += 1
         self._last_min_idx = aux["min_indexes"]
         return pmesh.mean_over({k: v.detach() for k, v in losses.items()},
@@ -193,7 +206,8 @@ class ShapeNetLearner:
     def put_batch(self, batch: dict) -> dict:
         """Dispatch the host->device copy of a batch (it overlaps with the
         running step)."""
-        return self._normalize(batch)
+        with span("train.put", self.step):
+            return self._normalize(batch)
 
     def fit(self, train_iter: Iterator[dict], num_steps: int | None = None,
             valid_batches=None) -> dict:

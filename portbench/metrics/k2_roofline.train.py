@@ -1,0 +1,8 @@
+"""K2's share of its roofline in a training window
+(kernels/k2.py)."""
+
+from portbench.lib import readers
+
+
+def read(run):
+    return readers.roofline(run, "k2")
